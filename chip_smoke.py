@@ -1,0 +1,251 @@
+#!/usr/bin/env python3
+"""Build the port's CUDA kernels and drive its main path on one GPU.
+
+Usage, from the root of a checkout on a machine with one NVIDIA H100 and
+the CUDA toolkit: `python3 chip_smoke.py`. It imports no JAX.
+
+Phases, one output line or more each; any failure raises, so the script
+exits non-zero and prints no final line:
+ 1. the device, and `nvidia-smi` name and power limit;
+ 2. nvcc builds csrc/ (kernels.build), timed, with ptxas register counts;
+ 3. kernel K2 (advance_kernel) against its plain form on 2^16 random lanes
+    of the Cornell box (with and without merged quads) and of the
+    sphere-light scene (testing.assert_advance_agrees); both timed at
+    2^18 lanes;
+ 4. kernel K1 (render_fused_kernel) against its plain form on the Cornell
+    box at 512x512 and the sphere-light scene at 256x256, and the
+    per-bounce driver with K2 against it with the plain advance on the
+    Cornell box at 96x96, 4 spp each: median per-pixel relative
+    difference < 1e-4 and film means within 1%; K1 and its plain form
+    timed on the Cornell box;
+ 5. the white box with K1 at 128x128 x 64 spp: mean within 3% of the
+    analytic Le / (1 - rho) = 3.0;
+ 6. the main path through the CLI: the Cornell box XML at 512x512 x 256
+    spp (K1) and at 96x96 x 16 spp (a film that is not a whole number of
+    4096-pixel blocks: the per-bounce driver and K2), with the launch
+    counters reset before and read after; the EXRs must be finite with
+    mean luminance in (0.05, 5). Prints Mpaths/s.
+Then one JSON line of per-kernel results, and last the device line.
+"""
+
+import json
+import os
+import subprocess
+import sys
+import tempfile
+import time
+
+KERNEL_SOURCE = 'lajolla_tpu_torch/csrc/path_kernels.cu'
+
+
+def cuda_ms(torch, fn, reps):
+    """Mean milliseconds of fn() over reps calls, by CUDA events."""
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def ptxas_summary(log):
+    """'kernel: max registers, max spill bytes' over the instantiations."""
+    out, name = {}, None
+    for line in log.splitlines():
+        if 'Compiling entry function' in line:
+            name = ('render_fused_kernel' if 'render_fused_kernel' in line
+                    else 'advance_kernel')
+        elif name and 'spill stores' in line:
+            spill = int(line.split('bytes spill stores')[0].split(',')[-1])
+            regs, sp = out.get(name, (0, 0))
+            out[name] = (regs, max(sp, spill))
+        elif name and 'Used' in line and 'registers' in line:
+            r = int(line.split('Used')[1].split('registers')[0])
+            regs, sp = out.get(name, (0, 0))
+            out[name] = (max(regs, r), sp)
+    return '; '.join(f"{k}: <= {r} registers, <= {s} B spill stores"
+                     for k, (r, s) in sorted(out.items()))
+
+
+def main():
+    import torch
+    if not torch.cuda.is_available():
+        sys.exit("chip_smoke: torch.cuda.is_available() is False; "
+                 "needs one CUDA GPU")
+    import numpy as np
+
+    from lajolla_tpu_torch import cli, kernels, parse_scene, render
+    from lajolla_tpu_torch import testing as PT
+    from lajolla_tpu_torch.integrators import path_kernel as PK
+    from lajolla_tpu_torch.integrators import path_megakernel as PMK
+    from lajolla_tpu_torch.integrators.path import (MAX_BOUNCES_CAP,
+                                                    _render_block_kernel)
+    from lajolla_tpu_torch.io.image import imread3
+    from lajolla_tpu_torch.scene import compile as PC
+    from lajolla_tpu_torch.scene.types import RenderOptions
+
+    dev = torch.device('cuda', 0)
+    torch.cuda.set_device(dev)
+    options = RenderOptions()
+
+    # ---- 1. device
+    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ['nvidia-smi', '--query-gpu=name,power.limit',
+         '--format=csv,noheader'], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+    print(f"[1] device {name}; torch {torch.__version__}, "
+          f"CUDA {torch.version.cuda}")
+    print(smi)
+
+    # ---- 2. build
+    t0 = time.perf_counter()
+    kernels.build()
+    print(f"[2] nvcc build + load {time.perf_counter() - t0:.1f} s; "
+          f"{ptxas_summary(kernels.build_log())}")
+
+    # ---- 3. K2 against plain
+    def lanes_on(scene, n, seed):
+        lanes = PT.random_lanes(scene, n, seed)
+        return [torch.from_numpy(lanes[k]).to(dev) for k in
+                ('org', 'dir', 'thr', 'rad', 'nv', 'dir_pdf', 'prev', 'un',
+                 'act')]
+
+    def as_dict(out):
+        org, d, thr, rad, dp, _prev, alive = (x.cpu().numpy() for x in out)
+        return dict(org=org, dir=d, thr=thr, rad=rad, dir_pdf=dp), alive
+
+    PC.MERGE_QUADS = False          # the kernels' has_quads=False branch
+    try:
+        no_quads = PT.make_cornell_box(512)
+    finally:
+        PC.MERGE_QUADS = True
+    k2_err = 0.0
+    for fixture, scene in (('cornell_box', PT.make_cornell_box(512)),
+                           ('cornell_box_no_quads', no_quads),
+                           ('sphere_lights', PT.make_sphere_light_scene())):
+        scene = scene.to(dev)
+        args = lanes_on(scene, 1 << 16, 11)
+        want, want_alive = as_dict(PK.advance_plain_t(
+            scene, options, *args, MAX_BOUNCES_CAP))
+        got, got_alive = as_dict(PK.advance_kernel_t(
+            scene, options, *args, MAX_BOUNCES_CAP))
+        alive_share, shares, max_abs = PT.advance_agreement(
+            got, got_alive, want, want_alive)
+        print(f"[3] K2 vs plain, {fixture}, 2^16 lanes: alive bits agree "
+              f"{alive_share:.6f}, alive {want_alive.mean():.3f}; share "
+              f"within tolerance {shares}; max |diff| {max_abs:.3g}")
+        PT.assert_advance_agrees(got, got_alive, want, want_alive)
+        k2_err = max(k2_err, max_abs)
+    cbox = PT.make_cornell_box(512).to(dev)
+    args = lanes_on(cbox, 1 << 18, 12)
+    k2_ms = cuda_ms(torch, lambda: PK.advance_kernel_t(
+        cbox, options, *args, MAX_BOUNCES_CAP), 20)
+    k2_plain_ms = cuda_ms(torch, lambda: PK.advance_plain_t(
+        cbox, options, *args, MAX_BOUNCES_CAP), 5)
+    print(f"[3] K2 at 2^18 lanes (Cornell box): kernel {k2_ms:.3f} ms, "
+          f"plain {k2_plain_ms:.3f} ms ({smi})")
+
+    # ---- 4. films: kernels against the plain forms
+    spp = 4
+    for fixture, scene, render_k in (
+            ('Cornell box 512x512', cbox, PMK.render_fused),
+            ('sphere lights 256x256',
+             PT.make_sphere_light_scene(256).to(dev), PMK.render_fused),
+            ('per-bounce driver + K2, Cornell box 96x96',
+             PT.make_cornell_box(96).to(dev), _render_block_kernel)):
+        film_k = render_k(scene, options, 0, 0, spp)
+        t0 = time.perf_counter()
+        film_p = PMK.render_fused_plain(scene, options, 0, 0, spp)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        img_k = film_k.cpu().numpy() / spp
+        img_p = film_p.cpu().numpy() / spp
+        if not (np.isfinite(img_k).all() and np.isfinite(img_p).all()):
+            raise AssertionError("kernel or plain form: non-finite pixels")
+        rel = np.abs(img_k - img_p) / (img_p + 1e-3)
+        mean_rel = abs(img_k.mean() - img_p.mean()) / img_p.mean()
+        err = float(np.abs(img_k - img_p).max())
+        print(f"[4] kernel vs plain, {fixture} x {spp} spp: median rel "
+              f"{np.median(rel):.3g}, mean rel {mean_rel:.3g}, pixels rel "
+              f"> 1e-3 {(rel > 1e-3).mean():.4f}, max |diff| {err:.3g}")
+        if not (np.median(rel) < 1e-4 and mean_rel < 0.01):
+            raise AssertionError(f"kernel disagrees with its plain form on "
+                                 f"{fixture}")
+        if scene is cbox:
+            k1_err, k1_plain_ms = err, plain_ms
+    k1_ms = cuda_ms(torch, lambda: PMK.render_fused(cbox, options, 0, 0,
+                                                     spp), 3)
+    print(f"[4] K1 at 512x512 x {spp} spp (Cornell box): kernel "
+          f"{k1_ms:.3f} ms, plain {k1_plain_ms:.1f} ms ({smi})")
+
+    # ---- 5. analytic white box through K1
+    before = kernels.LAUNCHES['render_fused']
+    img = render(PT.make_white_box_scene(res=128),
+                 RenderOptions(samples_per_pixel=64), device=dev)
+    print(f"[5] white box 128x128 x 64 spp: mean {img.mean():.5f} "
+          f"(analytic 3.0)")
+    if kernels.LAUNCHES['render_fused'] == before:
+        raise AssertionError("the white box did not run K1")
+    if not abs(img.mean() - 3.0) / 3.0 < 0.03:
+        raise AssertionError("white box mean off the analytic value")
+
+    # ---- 6. the main path through the CLI
+    with tempfile.TemporaryDirectory() as tmp:
+        big = PT.write_cornell_box_xml(os.path.join(tmp, 'big'), 512, 256)
+        small = PT.write_cornell_box_xml(os.path.join(tmp, 'small'), 96, 16)
+        outs = [os.path.join(tmp, 'cbox512.exr'),
+                os.path.join(tmp, 'cbox96.exr')]
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if cli.main([big, '-o', outs[0], '--device', 'cuda']) != 0:
+            raise AssertionError("CLI failed")
+        cli_s = time.perf_counter() - t0
+        if cli.main([small, '-o', outs[1], '--device', 'cuda']) != 0:
+            raise AssertionError("CLI failed")
+        launches = dict(kernels.LAUNCHES)
+        print(f"[6] main-path launches {launches}")
+        for k, v in launches.items():
+            if v < 1:
+                raise AssertionError(f"the main path never launched {k}")
+        for out in outs:
+            im = imread3(out)
+            lum = float((im @ np.array([0.212671, 0.715160, 0.072169])).mean())
+            print(f"[6] {os.path.basename(out)} {im.shape} mean luminance "
+                  f"{lum:.5f}")
+            if not (np.isfinite(im).all() and 0.05 < lum < 5.0):
+                raise AssertionError(f"{out}: bad image")
+        # render alone, warm, on the parsed scene
+        scene, opt = parse_scene(big, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        render(scene, opt, device=dev)
+        render_s = time.perf_counter() - t0
+    paths = 512 * 512 * 256
+    print(f"[6] Cornell box 512x512 x 256 spp: {paths / cli_s / 1e6:.2f} "
+          f"Mpaths/s over the whole CLI run ({cli_s:.3f} s), "
+          f"{paths / render_s / 1e6:.2f} Mpaths/s render() alone "
+          f"({render_s:.3f} s); {smi}")
+
+    print(json.dumps({"kernels": [
+        {"name": "render_fused_kernel", "route": "cuda",
+         "source": KERNEL_SOURCE,
+         "replaces": "lajolla_tpu/integrators/path_megakernel.py:105",
+         "launches": launches['render_fused'], "max_abs_err": k1_err,
+         "ms": k1_ms, "plain_ms": k1_plain_ms},
+        {"name": "advance_kernel", "route": "cuda", "source": KERNEL_SOURCE,
+         "replaces": "lajolla_tpu/integrators/path_kernel.py:895",
+         "launches": launches['advance'], "max_abs_err": k2_err,
+         "ms": k2_ms, "plain_ms": k2_plain_ms}]}))
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}))
+
+
+if __name__ == '__main__':
+    main()

@@ -1,0 +1,44 @@
+"""Render driver: integrator dispatch + film assembly.
+
+The analogue of render() (src/render.cpp:155-167) and of
+lajolla_tpu/render.py. Only the `path` integrator is ported so far.
+"""
+
+import numpy as np
+import torch
+
+from lajolla_tpu_torch.scene.types import RenderOptions
+
+_AUX = ('depth', 'shadingNormal', 'meanCurvature', 'rayDifferential',
+        'mipmapLevel')
+
+
+def render(scene, options=None, *, device, seed=0, checkpoint=None,
+           progress=False):
+    """Render on `device` → (H, W, 3) float32 numpy image.
+
+    checkpoint: optional path; the film accumulator + sample index are
+    persisted after every block, and an interrupted render resumes
+    exactly (counter-based RNG makes the remaining samples independent
+    of when they are computed).
+    """
+    device = torch.device(device)
+    if device.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError("render on a CUDA device, but "
+                           "torch.cuda.is_available() is False")
+    if options is None:
+        options = RenderOptions()
+    if options.integrator in _AUX:
+        raise NotImplementedError(
+            f"integrator {options.integrator!r} not yet ported (ROADMAP "
+            "queue 1: rest of the surface features, aux integrators)")
+    if options.integrator == 'volpath':
+        raise NotImplementedError(
+            "integrator 'volpath' not yet ported (ROADMAP queue 1: "
+            "volumetrics)")
+    if options.integrator != 'path':
+        raise ValueError(f"unknown integrator: {options.integrator}")
+    from lajolla_tpu_torch.integrators.path import render_path
+    img = render_path(scene.to(device), options, seed,
+                      checkpoint=checkpoint, progress=progress)
+    return np.asarray(img, np.float32)

@@ -1,0 +1,775 @@
+"""Scene compiler: host SceneBuilder → flat tensors (the Scene dataclass).
+
+This is the analogue of the reference Scene constructor (scene.cpp:4-52):
+per-shape sampling distributions, the power-weighted light pick
+distribution, and scene bounds — except everything lands in SoA arrays
+instead of Embree state and std::vectors. The tables are built in numpy
+exactly as lajolla_tpu/scene/compile.py builds them and become CPU torch
+tensors at the end; `Scene.to(device)` moves them.
+
+Not yet ported (each raises NotImplementedError, ROADMAP queue 1):
+scenes of BVH_MIN_TRIS triangles or more, which need the BVH and the
+binned cluster tables ("large-scene casting"), and grid volumes, which
+need the supervoxel majorant tables ("volumetrics").
+"""
+
+import numpy as np
+import torch
+
+from lajolla_tpu_torch.core import transform as xf
+from lajolla_tpu_torch.core.distribution import (build_alias, build_cdf_1d,
+                                                  build_segmented_cdf,
+                                                  build_cdf_2d)
+from lajolla_tpu_torch.scene import types as T
+from lajolla_tpu_torch.scene.types import Scene, SceneMeta
+
+# At this many triangles lajolla_tpu switches from brute force to its BVH
+# and binned casters; the port has only the brute-force casts so far.
+BVH_MIN_TRIS = 192
+
+# Parallelogram cast-merge (lajolla_tpu/scene/compile.py). False = cast
+# tables carry raw triangles; the kernels' has_quads=False branch.
+MERGE_QUADS = True
+
+
+def fov_to_fov_x(fov, fov_axis, width, height):
+    """fovAxis → fovX conversion (parse_scene.cpp:536-549), applied at
+    compile time so film-size overrides re-derive the framing exactly
+    like a reference re-parse would."""
+    if (fov_axis == 'y' or (fov_axis == 'smaller' and height < width) or
+            (fov_axis == 'larger' and width < height)):
+        aspect = width / height
+        fov = np.degrees(2 * np.arctan(np.tan(np.radians(fov) / 2) * aspect))
+    elif fov_axis == 'diagonal':
+        aspect = width / height
+        diagonal = 2 * np.tan(np.radians(fov) / 2)
+        w = diagonal / np.sqrt(1 + 1 / (aspect * aspect))
+        fov = np.degrees(2 * np.arctan(w / 2))
+    return float(fov)
+
+
+def _f32(x):
+    return np.asarray(x, np.float32)
+
+
+def _i32(x):
+    return np.asarray(x, np.int32)
+
+
+def _merge_parallelograms(vertices, indices, num_tris):
+    """Detect triangle pairs tiling an exact parallelogram and reorder
+    them in place to the canonical quad split: A = (p0, p1, p2) with the
+    shared edge as (p1, p2), B = (p2, p1, p3), p3 = p1 + p2 - p0.
+
+    Returns (alt, consumed): alt[i] = partner id for a rep triangle
+    (== i when unpaired), consumed[i] = True for triangles absorbed as
+    a rep's B half. Pairing requires a shared vertex-index edge, same
+    winding orientation, and |p3_predicted - p3_stored| <= 1e-9 x the
+    mesh bounding-box diagonal (f64 — true authored parallelograms
+    match to ~1e-12 relative; anything else differs by orders more)."""
+    alt = np.arange(max(num_tris, 1), dtype=np.int32)
+    consumed = np.zeros(max(num_tris, 1), bool)
+    # only the dense brute-family casters consume the cast tables, and
+    # they only serve small scenes (use_binned scenes go through the
+    # cluster sweep) — skip the host-side edge walk for big meshes
+    if not MERGE_QUADS or num_tris < 2 or num_tris > 4096:
+        return alt, consumed
+    P = vertices
+    p0 = P[indices[:, 0]]
+    n = np.cross(P[indices[:, 1]] - p0, P[indices[:, 2]] - p0)
+    area2 = np.linalg.norm(n, axis=1)
+    ext = P[indices.reshape(-1)]
+    tol = 1e-9 * max(float(np.linalg.norm(ext.max(0) - ext.min(0))), 1e-9)
+    # canonical POSITION ids for edge matching: loaders duplicate
+    # vertices when per-face normals/uvs differ (.serialized, OBJ with
+    # split attributes), which would hide every shared edge from an
+    # index-based match. Exact f64 byte equality only.
+    pos_id = {}
+    canon = np.empty(P.shape[0], np.int64)
+    for vi in range(P.shape[0]):
+        canon[vi] = pos_id.setdefault(P[vi].tobytes(), vi)
+    from collections import defaultdict
+    edges = defaultdict(list)
+    for t in range(num_tris):
+        i0, i1, i2 = (int(canon[indices[t, 0]]), int(canon[indices[t, 1]]),
+                      int(canon[indices[t, 2]]))
+        for k, (a, c) in enumerate(((i1, i2), (i2, i0), (i0, i1))):
+            edges[(min(a, c), max(a, c))].append((t, k))
+    for lst in edges.values():
+        if len(lst) != 2:
+            continue
+        (ta, ka), (tb, kb) = lst
+        if consumed[ta] or consumed[tb] or alt[ta] != ta or alt[tb] != tb:
+            continue
+        if area2[ta] <= 0.0 or area2[tb] <= 0.0:
+            continue
+        if np.dot(n[ta], n[tb]) <= 0.0:
+            continue
+        ia, ib = indices[ta], indices[tb]
+        a0 = int(ia[ka])
+        d1, d2 = int(ia[(ka + 1) % 3]), int(ia[(ka + 2) % 3])
+        b3 = int(ib[kb])
+        if np.abs(P[d1] + P[d2] - P[a0] - P[b3]).max() > tol:
+            continue
+        # B keeps its OWN vertex indices (its normals/uvs) at the
+        # shared corners, matched to A's diagonal by canonical position
+        bb1, bb2 = int(ib[(kb + 1) % 3]), int(ib[(kb + 2) % 3])
+        if canon[bb1] == canon[d1]:
+            b_d1, b_d2 = bb1, bb2
+        else:
+            b_d1, b_d2 = bb2, bb1
+        if canon[b_d1] != canon[d1] or canon[b_d2] != canon[d2]:
+            continue
+        indices[ta] = (a0, d1, d2)       # cyclic rotation: parity kept
+        indices[tb] = (b_d2, b_d1, b3)   # normal = +n_A = B's own normal
+        alt[ta] = tb
+        consumed[tb] = True
+    return alt, consumed
+
+
+def compile_scene(b):
+    # ------------------------------------------------------------------ geometry
+    verts, norms, uvs, tris, tri_shape = [], [], [], [], []
+    shape_rows = []
+    v_off = 0
+    t_off = 0
+    spheres = []
+    for sid, s in enumerate(b.shapes):
+        if s.type == T.SHAPE_MESH:
+            m = s.mesh
+            nv = m.positions.shape[0]
+            nt = m.indices.shape[0]
+            verts.append(m.positions)
+            has_n = m.normals is not None
+            has_uv = m.uvs is not None
+            norms.append(m.normals if has_n else np.zeros((nv, 3)))
+            uvs.append(m.uvs if has_uv else np.zeros((nv, 2)))
+            tris.append(m.indices + v_off)
+            tri_shape.append(np.full(nt, sid, np.int32))
+            shape_rows.append(dict(type=T.SHAPE_MESH, prim_start=t_off,
+                                   prim_count=nt, has_normals=int(has_n),
+                                   has_uvs=int(has_uv), sid=sid))
+            v_off += nv
+            t_off += nt
+        else:
+            shape_rows.append(dict(type=T.SHAPE_SPHERE,
+                                   prim_start=len(spheres), prim_count=1,
+                                   has_normals=1, has_uvs=1, sid=sid))
+            spheres.append((np.asarray(s.center, np.float64), s.radius))
+
+    if verts:
+        vertices = np.concatenate(verts).astype(np.float64)
+        normals = np.concatenate(norms).astype(np.float64)
+        uv_arr = np.concatenate(uvs).astype(np.float64)
+        indices = np.concatenate(tris).astype(np.int32)
+        tri_shape = np.concatenate(tri_shape).astype(np.int32)
+    else:
+        vertices = np.zeros((1, 3))
+        normals = np.zeros((1, 3))
+        uv_arr = np.zeros((1, 2))
+        indices = np.zeros((1, 3), np.int32)
+        tri_shape = np.full(1, -1, np.int32)
+
+    num_tris = indices.shape[0] if verts else 0
+
+    # ------------------------------------------- quad (parallelogram) merging
+    # Triangle pairs that tile an exact parallelogram become ONE cast
+    # primitive for the dense casters: rep triangle A is rotated to
+    # (p0 off-diagonal | p1, p2 diagonal), partner B is reordered to
+    # (p2, p1, p3) with p3 = p1 + p2 - p0. A's Woop transform then covers
+    # the whole parallelogram with acceptance max(u, v) <= 1, and a hit
+    # with u + v > 1 maps EXACTLY to B's barycentrics (1 - v, u + v - 1).
+    # Halves dense tri-tests on quad-built meshes (cbox walls/boxes,
+    # veach plates). Reorders are parity-preserving (A: cyclic rotation;
+    # B: checked same-normal), so geometric normals, one-sided emission
+    # and area sampling are untouched — only the (u, v) parameterization
+    # rotates, consistently with the reported barycentrics. No reference
+    # analogue (Embree tests raw triangles, src/intersection.cpp:32).
+    quad_alt, quad_consumed = _merge_parallelograms(vertices, indices,
+                                                    num_tris)
+    cast_src = np.nonzero(~quad_consumed)[0].astype(np.int32)
+    if cast_src.size == 0:
+        cast_src = np.zeros(1, np.int32)
+    cast_alt = quad_alt[cast_src].astype(np.int32)
+
+    p0 = vertices[indices[:, 0]]
+    e1 = vertices[indices[:, 1]] - p0
+    e2 = vertices[indices[:, 2]] - p0
+    tri_area = 0.5 * np.linalg.norm(np.cross(e1, e2), axis=-1)
+    if not verts:
+        tri_area = np.zeros(1)
+
+    if spheres:
+        sph_center = np.stack([c for c, _ in spheres])
+        sph_radius = np.array([r for _, r in spheres], np.float64)
+        sph_shape = np.array([r['sid'] for r in shape_rows
+                              if r['type'] == T.SHAPE_SPHERE], np.int32)
+    else:
+        sph_center = np.zeros((1, 3))
+        sph_radius = np.zeros(1)
+        sph_shape = np.full(1, -1, np.int32)
+
+    # ------------------------------------------------------------------ shapes
+    ns = max(len(b.shapes), 1)
+    shape_material = np.full(ns, -1, np.int32)
+    shape_light = np.full(ns, -1, np.int32)
+    shape_int_med = np.full(ns, -1, np.int32)
+    shape_ext_med = np.full(ns, -1, np.int32)
+    shape_type = np.zeros(ns, np.int32)
+    shape_prim_start = np.zeros(ns, np.int32)
+    shape_prim_count = np.zeros(ns, np.int32)
+    shape_area = np.zeros(ns)
+    shape_has_n = np.zeros(ns, np.int32)
+    shape_has_uv = np.zeros(ns, np.int32)
+    for row, s in zip(shape_rows, b.shapes):
+        sid = row['sid']
+        shape_material[sid] = s.material_id
+        shape_light[sid] = s.area_light_id
+        shape_int_med[sid] = s.interior_medium_id
+        shape_ext_med[sid] = s.exterior_medium_id
+        shape_type[sid] = row['type']
+        shape_prim_start[sid] = row['prim_start']
+        shape_prim_count[sid] = row['prim_count']
+        shape_has_n[sid] = row['has_normals']
+        shape_has_uv[sid] = row['has_uvs']
+        if row['type'] == T.SHAPE_MESH:
+            shape_area[sid] = tri_area[row['prim_start']:
+                                       row['prim_start'] + row['prim_count']].sum()
+        else:
+            shape_area[sid] = 4.0 * np.pi * b.shapes[sid].radius ** 2
+
+    # per-shape triangle-area staircase CDF (triangle_mesh.inl:48-63)
+    mesh_rows = [r for r in shape_rows if r['type'] == T.SHAPE_MESH]
+    if mesh_rows and num_tris > 0:
+        _, tri_stair = build_segmented_cdf(
+            tri_area,
+            [shape_prim_start[r['sid']] for r in mesh_rows],
+            [shape_prim_count[r['sid']] for r in mesh_rows])
+        # staircase segments must be keyed by SHAPE id for device sampling:
+        # rebuild with shape-id offsets
+        tri_stair = np.zeros(num_tris)
+        # per-shape alias tables in the same flat layout (device sampling
+        # is one row gather instead of a log2(T)-gather binary search;
+        # aliases are globalized by the segment offset)
+        # Global tri ids ride in f32 alias columns: exact below 2^24.
+        assert num_tris < (1 << 24), \
+            f"{num_tris} triangles: f32 tri ids would lose precision"
+        tri_alias = np.zeros((num_tris, 2), np.float32)
+        for r in mesh_rows:
+            s0, c = shape_prim_start[r['sid']], shape_prim_count[r['sid']]
+            _, cdf = build_cdf_1d(tri_area[s0:s0 + c])
+            tri_stair[s0:s0 + c] = r['sid'] + cdf
+            al = build_alias(tri_area[s0:s0 + c])
+            al[:, 1] += s0
+            tri_alias[s0:s0 + c] = al
+    else:
+        tri_stair = np.zeros(max(num_tris, 1))
+        tri_alias = np.zeros((max(num_tris, 1), 2), np.float32)
+
+    # ------------------------------------------------ Woop transforms
+    # Per-triangle affine map into unit-triangle space: x' = W x + b with
+    # W = [e1 e2 n]^-1, b = -W p0. A ray-triangle test is then two small
+    # affine maps and a divide. Used by the brute-force casts for small
+    # scenes.
+    nt_ = max(num_tris, 1)
+    woop_A = np.zeros((3, 3 * nt_), np.float32)
+    woop_b = np.zeros(3 * nt_, np.float32)
+    if num_tris > 0:
+        n_vec = np.cross(e1, e2)
+        M = np.stack([e1, e2, n_vec], axis=-1)  # (T,3,3) columns e1,e2,n
+        dets = np.linalg.det(M)
+        ok = np.abs(dets) > 1e-18
+        Minv = np.zeros_like(M)
+        Minv[ok] = np.linalg.inv(M[ok])
+        b_vec = -np.einsum('tij,tj->ti', Minv, p0)
+        # layout: columns grouped by output row: [x-rows | y-rows | z-rows]
+        woop_A = np.concatenate([Minv[:, 0, :].T, Minv[:, 1, :].T,
+                                 Minv[:, 2, :].T], axis=1).astype(np.float32)
+        woop_b = np.concatenate([b_vec[:, 0], b_vec[:, 1],
+                                 b_vec[:, 2]]).astype(np.float32)
+        # degenerate triangles: zero transform → d'_z = 0 → no hit
+        woop_A[:, np.tile(~ok, 3)] = 0.0
+        woop_b[np.tile(~ok, 3)] = 0.0
+
+    # cast-space (quad-merged) tables for the dense casters: the Woop
+    # rows of the rep triangles; a cast prim with cast_alt != cast_src
+    # accepts max(u, v) <= 1 (the full parallelogram) and remaps
+    # u + v > 1 hits to the partner triangle
+    ccol = np.concatenate([cast_src, cast_src + nt_, cast_src + 2 * nt_])
+    cast_woop_A = woop_A[:, ccol]
+    cast_woop_b = woop_b[ccol]
+    cast_quad = (cast_alt != cast_src).astype(np.float32)
+
+    # ------------------------------------------------------------------ bounds
+    pts = [vertices] if verts else []
+    for c, r in spheres:
+        pts.append(c[None, :] - r)
+        pts.append(c[None, :] + r)
+    if pts:
+        allp = np.concatenate(pts)
+        lb, ub = allp.min(0), allp.max(0)
+    else:
+        lb = ub = np.zeros(3)
+    center = 0.5 * (lb + ub)
+    radius = float(np.linalg.norm(ub - center))  # scene.cpp:30-34
+
+    # ------------------------------------------------------------------ BVH
+    use_bvh = num_tris >= BVH_MIN_TRIS
+    if use_bvh:
+        raise NotImplementedError(
+            f"{num_tris} triangles need the BVH / binned casters, which are "
+            "not yet ported (ROADMAP queue 1: large-scene casting)")
+
+    # ------------------------------------------------------------------ materials
+    nm = max(len(b.materials), 1)
+    mat_type = np.zeros(nm, np.int32)
+    mat_tex = np.zeros((nm, T.NUM_PARAM_SLOTS), np.int32)
+    mat_eta = np.full(nm, 1.5)
+    for i, m in enumerate(b.materials):
+        mat_type[i] = m.type
+        for slot, td in m.tex.items():
+            mat_tex[i, slot] = td
+        mat_eta[i] = m.eta
+
+    # ------------------------------------------------------------------ textures
+    nt = max(len(b.texdescs), 1)
+    tex_kind = np.zeros(nt, np.int32)
+    tex_const = np.zeros((nt, 3))
+    tex_color1 = np.zeros((nt, 3))
+    tex_image = np.zeros(nt, np.int32)
+    tex_uvscale = np.ones((nt, 2))
+    tex_uvoffset = np.zeros((nt, 2))
+    for i, td in enumerate(b.texdescs):
+        tex_kind[i] = td.kind
+        tex_const[i] = td.const
+        tex_color1[i] = td.color1
+        tex_image[i] = td.image_id
+        tex_uvscale[i] = (td.uscale, td.vscale)
+        tex_uvoffset[i] = (td.uoffset, td.voffset)
+    texdata, mip_offset, mip_w, mip_h, mip_levels = b.texture_pool.pack()
+    mip_tab = np.concatenate([mip_offset, mip_w, mip_h,
+                              mip_levels[:, None]], axis=1).astype(
+                                  np.float32)
+
+    # ------------------------------------------------------------------ lights
+    nl = max(len(b.lights), 1)
+    light_type = np.zeros(nl, np.int32)
+    light_shape = np.full(nl, -1, np.int32)
+    light_intensity = np.zeros((nl, 3))
+    env_to_world = np.eye(4)
+    env_to_local = np.eye(4)
+    env_scale = 1.0
+    env_h = env_w = 0
+    env_cond_cdf = np.zeros((1, 1))
+    env_marg_cdf = np.ones(1)
+    env_pdf_uv = np.zeros((1, 1))
+    env_alias = np.zeros((1, 2), np.float32)
+    env_total = 0.0
+
+    env_image_id = -1
+    for i, l in enumerate(b.lights):
+        light_type[i] = l.type
+        light_shape[i] = l.shape_id
+        light_intensity[i] = l.intensity
+        if l.type == T.LIGHT_ENVMAP:
+            env_image_id = l.image_id
+            env_to_world = np.asarray(l.to_world, np.float64)
+            env_to_local = np.linalg.inv(env_to_world)
+            env_scale = l.scale
+            img = b.texture_pool.pyramids[l.image_id][0]  # level 0
+            h, w = img.shape[:2]
+            env_h, env_w = h, w
+            lum = (img[:, :, 0] * 0.212671 + img[:, :, 1] * 0.715160 +
+                   img[:, :, 2] * 0.072169)
+            sin_elev = np.sin(np.pi * (np.arange(h) + 0.5) / h)
+            f = lum.astype(np.float64) * sin_elev[:, None]
+            d2 = build_cdf_2d(f)
+            env_cond_cdf = d2['cond_cdf']
+            env_marg_cdf = d2['marg_cdf']
+            env_pdf_uv = d2['cond_pmf'] * d2['marg_pmf'][:, None] * w * h
+            env_total = float(f.sum())
+            env_alias = build_alias(f.ravel())
+
+    # power-weighted light pick CDF (scene.cpp:46-52)
+    powers = np.zeros(nl)
+    for i, l in enumerate(b.lights):
+        if l.type == T.LIGHT_AREA:
+            lum = (l.intensity[0] * 0.212671 + l.intensity[1] * 0.715160 +
+                   l.intensity[2] * 0.072169)
+            powers[i] = lum * shape_area[l.shape_id] * np.pi
+        else:  # envmap (envmap.inl:1-5)
+            powers[i] = (np.pi * radius * radius * env_total /
+                         max(env_w * env_h, 1))
+    light_pmf, light_cdf = build_cdf_1d(powers) if len(b.lights) else \
+        (np.ones(1), np.ones(1))
+
+    # ------------------------------------------------------------------ media
+    nmed = max(len(b.media), 1)
+    med_type = np.zeros(nmed, np.int32)
+    med_sigma_a = np.zeros((nmed, 3))
+    med_sigma_s = np.zeros((nmed, 3))
+    med_phase = np.zeros(nmed, np.int32)
+    med_g = np.zeros(nmed)
+    med_albedo_vol = np.zeros(nmed, np.int32)
+    med_density_vol = np.zeros(nmed, np.int32)
+    for i, m in enumerate(b.media):
+        med_type[i] = m.type
+        med_sigma_a[i] = m.sigma_a
+        med_sigma_s[i] = m.sigma_s
+        med_phase[i] = m.phase_type
+        med_g[i] = m.g
+        med_albedo_vol[i] = m.albedo_vol
+        med_density_vol[i] = m.density_vol
+
+    # one wide row per medium (lajolla_tpu/scene/soa.py pattern): the
+    # volpath inner loops read medium properties per lane per iteration,
+    # and one wide row fetch replaces many narrow gathers.
+    # layout: [type, phase, g, dvol, avol, sa3, ss3, maxval3, pad2]
+
+    nv = max(len(b.volumes), 1)
+    vol_kind = np.zeros(nv, np.int32)
+    vol_const = np.zeros((nv, 3))
+    vol_offset = np.zeros(nv, np.int32)
+    vol_res = np.ones((nv, 3), np.int32)
+    vol_pmin = np.zeros((nv, 3))
+    vol_pmax = np.ones((nv, 3))
+    vol_maxval = np.zeros((nv, 3))
+    svox_offset = np.zeros(nv, np.int32)
+    svox_res = np.ones((nv, 3), np.int32)
+    for i, v in enumerate(b.volumes):
+        vol_kind[i] = v.kind
+        vol_const[i] = np.asarray(v.const) * v.scale
+        if v.kind == T.VOL_GRID:
+            raise NotImplementedError(
+                "grid volumes need the supervoxel majorant tables, which "
+                "are not yet ported (ROADMAP queue 1: volumetrics)")
+        vol_maxval[i] = vol_const[i]
+
+    # layout documented in media.py (MT_*/VL_* constants)
+    med_tab = np.zeros((nmed, 46), np.float32)
+    med_tab[:, 0] = med_type
+    med_tab[:, 1] = med_phase
+    med_tab[:, 2] = med_g
+    med_tab[:, 3] = med_density_vol
+    med_tab[:, 4] = med_albedo_vol
+    med_tab[:, 5:8] = med_sigma_a
+    med_tab[:, 8:11] = med_sigma_s
+    dv = np.maximum(med_density_vol, 0)
+    av = np.maximum(med_albedo_vol, 0)
+    med_tab[:, 11:14] = vol_maxval[dv]
+    med_tab[:, 14:17] = svox_res[dv]
+    med_tab[:, 17] = svox_offset[dv]
+    for c0, vi in ((18, dv), (32, av)):
+        med_tab[:, c0] = vol_kind[vi]
+        med_tab[:, c0 + 1:c0 + 4] = vol_const[vi]
+        med_tab[:, c0 + 4:c0 + 7] = vol_pmin[vi]
+        med_tab[:, c0 + 7:c0 + 10] = vol_pmax[vi]
+        med_tab[:, c0 + 10:c0 + 13] = vol_res[vi]
+        med_tab[:, c0 + 13] = vol_offset[vi]
+
+    # --------------------------------------------------- merged wide-row tables
+    # (lajolla_tpu/scene/soa.py): one row fetch per record instead of many narrow
+    # gathers — the wavefront hot-loop access pattern.
+    nt_pad = max(num_tris, 1)
+    tri_shade = np.zeros((nt_pad, 25), np.float32)
+    if num_tris > 0:
+        tri_shade[:, 0:3] = p0
+        tri_shade[:, 3:6] = e1
+        tri_shade[:, 6:9] = e2
+        tri_shade[:, 9:12] = normals[indices[:, 0]]
+        tri_shade[:, 12:15] = normals[indices[:, 1]]
+        tri_shade[:, 15:18] = normals[indices[:, 2]]
+        tri_shade[:, 18:20] = uv_arr[indices[:, 0]]
+        tri_shade[:, 20:22] = uv_arr[indices[:, 1]]
+        tri_shade[:, 22:24] = uv_arr[indices[:, 2]]
+        tri_shade[:, 24] = tri_shape
+
+    shape_tab = np.zeros((ns, 10), np.float32)
+    shape_tab[:, 0] = shape_material
+    shape_tab[:, 1] = shape_light
+    shape_tab[:, 2] = shape_int_med
+    shape_tab[:, 3] = shape_ext_med
+    shape_tab[:, 4] = shape_type
+    shape_tab[:, 5] = shape_prim_start
+    shape_tab[:, 6] = shape_has_n
+    shape_tab[:, 7] = shape_has_uv
+    shape_tab[:, 8] = shape_area
+    shape_tab[:, 9] = shape_prim_count
+
+    light_tab = np.zeros((nl, 6), np.float32)
+    light_tab[:, 0] = light_type
+    light_tab[:, 1] = light_shape
+    light_tab[:, 2:5] = light_intensity
+    light_tab[:, 5] = light_pmf
+
+    mat_tab = np.zeros((nm, 15), np.float32)
+    mat_tab[:, 0] = mat_type
+    mat_tab[:, 1] = mat_eta
+    mat_tab[:, 2:15] = mat_tex
+
+    tex_tab = np.zeros((nt, 12), np.float32)
+    tex_tab[:, 0] = tex_kind
+    tex_tab[:, 1] = tex_image
+    tex_tab[:, 2:5] = tex_const
+    tex_tab[:, 5:8] = tex_color1
+    tex_tab[:, 8:10] = tex_uvscale
+    tex_tab[:, 10:12] = tex_uvoffset
+
+    # ------------------------------------------ megakernel fast-path tables
+    # (integrators/path_kernel.py); packed whenever the config qualifies.
+    # Constant-texture material parameters are baked per primitive so the
+    # kernel never touches the texture system.
+    def _mat_fp(mat_ids):
+        """(mat_type, kd, ks, roughness, eta) per entry of mat_ids."""
+        m = np.maximum(mat_ids, 0)
+        return (mat_type[m], tex_const[mat_tex[m, 0]],
+                tex_const[mat_tex[m, 1]], tex_const[mat_tex[m, 2], 0],
+                mat_eta[m])
+
+    nt_fp = max(num_tris, 1)
+    fp_woop = np.zeros((nt_fp, 12), np.float32)
+    fp_tri = np.zeros((40, nt_fp), np.float32)
+    fp_light = np.zeros((16, max(nl, 1)), np.float32)
+    ns_fp = max(len(spheres), 1)
+    fp_sph = np.zeros((ns_fp, 24), np.float32)
+    if num_tris > 0:
+        Tn = num_tris
+        fp_woop[:, 0:3] = woop_A[:, :Tn].T
+        fp_woop[:, 3] = woop_b[:Tn]
+        fp_woop[:, 4:7] = woop_A[:, Tn:2 * Tn].T
+        fp_woop[:, 7] = woop_b[Tn:2 * Tn]
+        fp_woop[:, 8:11] = woop_A[:, 2 * Tn:].T
+        fp_woop[:, 11] = woop_b[2 * Tn:]
+        # quad-merged cast rows for the fused kernels (same cast list
+        # and order as the generic brute tables above)
+        fp_woop = fp_woop[cast_src]
+        fp_tri[0:3] = p0.T
+        fp_tri[3:6] = e1.T
+        fp_tri[6:9] = e2.T
+        fp_tri[9:12] = normals[indices[:, 0]].T
+        fp_tri[12:15] = normals[indices[:, 1]].T
+        fp_tri[15:18] = normals[indices[:, 2]].T
+        fp_tri[18] = shape_has_n[tri_shape]
+        t_light = shape_light[tri_shape]
+        fp_tri[19] = t_light
+        t_mt, t_kd, t_ks, t_rough, t_eta = _mat_fp(shape_material[tri_shape])
+        fp_tri[20:23] = t_kd.T
+        lt_c = np.maximum(t_light, 0)
+        is_l = (t_light >= 0).astype(np.float32)
+        fp_tri[23:26] = (light_intensity[lt_c] * is_l[:, None]).T
+        fp_tri[26] = 1.0 / np.maximum(shape_area[tri_shape], 1e-20)
+        fp_tri[27] = light_pmf[lt_c] * is_l
+        fp_tri[28] = t_mt
+        fp_tri[29:32] = t_ks.T
+        fp_tri[32] = t_rough
+        fp_tri[33] = t_eta
+        # index-matching interfaces + medium transitions for the fused
+        # grid-media kernel (vol_path_tracing.h:149-163, :716-726):
+        # mat_ok == 0 marks a pass-through shape (material_id == -1)
+        fp_tri[34] = (shape_material[tri_shape] >= 0).astype(np.float32)
+        fp_tri[35] = shape_int_med[tri_shape]
+        fp_tri[36] = shape_ext_med[tri_shape]
+    if num_tris > 0 or spheres:
+        fp_light[0] = light_cdf
+        fp_light[1] = light_pmf
+        fp_light[2:5] = light_intensity.T
+        l_shape_c = np.maximum(light_shape, 0)
+        fp_light[5] = 1.0 / np.maximum(shape_area[l_shape_c], 1e-20)
+        fp_light[6] = light_shape
+        l_is_sph = (shape_type[l_shape_c] == T.SHAPE_SPHERE)
+        fp_light[7] = l_is_sph
+        l_sph = np.maximum(shape_prim_start[l_shape_c], 0)
+        l_sph = np.minimum(l_sph, ns_fp - 1)
+        fp_light[8:11] = (sph_center[l_sph] * l_is_sph[:, None]).T
+        fp_light[11] = sph_radius[l_sph] * l_is_sph
+    if spheres:
+        fp_sph[:, 0:3] = sph_center
+        fp_sph[:, 3] = sph_radius
+        s_light = shape_light[sph_shape]
+        fp_sph[:, 4] = s_light
+        s_mt, s_kd, s_ks, s_rough, s_eta = _mat_fp(
+            shape_material[sph_shape])
+        fp_sph[:, 5] = s_mt
+        fp_sph[:, 6:9] = s_kd
+        fp_sph[:, 9:12] = s_ks
+        fp_sph[:, 12] = s_rough
+        fp_sph[:, 13] = s_eta
+        sl_c = np.maximum(s_light, 0)
+        s_is_l = (s_light >= 0).astype(np.float32)
+        fp_sph[:, 14] = light_pmf[sl_c] * s_is_l
+        fp_sph[:, 15:18] = light_intensity[sl_c] * s_is_l[:, None]
+        fp_sph[:, 18] = (shape_material[sph_shape] >= 0).astype(np.float32)
+        fp_sph[:, 19] = shape_int_med[sph_shape]
+        fp_sph[:, 20] = shape_ext_med[sph_shape]
+
+    # ------------------------------------------ occluder subset (fast path)
+    # A triangle on the scene's convex envelope — ALL geometry on one side
+    # of its plane — can never intersect a shadow segment whose endpoints
+    # both lie on/inside the hull, which is every area/sphere-light NEE
+    # ray (path_tracing.h:119-131: surface point → light point). Envmap
+    # shadow rays extend to infinity, so envmap scenes keep the full set
+    # (the fast-path kernels exclude envmaps anyway). Media scenes also
+    # keep the full set: volumetric NEE rays originate at scatter points
+    # that can lie OUTSIDE the geometry hull (e.g. camera-in-medium
+    # vol_cbox), where envelope walls genuinely occlude
+    # (vol_path_tracing.h:335-439). cbox: the 5 room walls (10 of 32
+    # tris) drop out of every occlusion sweep.
+    fp_woop_occ = fp_woop
+    cast_occ_quad = cast_quad
+    if 0 < num_tris <= 4096 and not (b.envmap_light_id >= 0) \
+            and not b.media:
+        nrm = np.cross(e1, e2)
+        ln = np.linalg.norm(nrm, axis=1)
+        ok_n = ln > 1e-18
+        nrm = np.where(ok_n[:, None],
+                       nrm / np.maximum(ln, 1e-18)[:, None], 0.0)
+        dpl = np.einsum('td,td->t', nrm, p0)
+        tv = np.concatenate([p0, p0 + e1, p0 + e2], axis=0)
+        sdist = tv @ nrm.T - dpl[None, :]             # (3T, T)
+        smax = sdist.max(axis=0)
+        smin = sdist.min(axis=0)
+        if spheres:
+            sc = sph_center @ nrm.T - dpl[None, :]    # (S, T)
+            smax = np.maximum(smax, (sc + sph_radius[:, None]).max(axis=0))
+            smin = np.minimum(smin, (sc - sph_radius[:, None]).min(axis=0))
+        eps_h = 1e-4 * float(radius)
+        hull = ok_n & ((smax <= eps_h) | (smin >= -eps_h))
+        # degenerate tris never hit anything either
+        occ = ~hull & ok_n
+        # cast space: a quad prim occludes if EITHER member does (the
+        # envelope argument applies per member triangle)
+        occ_c = occ[cast_src] | occ[cast_alt]
+        if occ_c.any():
+            Tc = cast_src.shape[0]
+            col = np.concatenate([np.nonzero(occ_c)[0],
+                                  np.nonzero(occ_c)[0] + Tc,
+                                  np.nonzero(occ_c)[0] + 2 * Tc])
+            woop_A_occ = cast_woop_A[:, col]
+            woop_b_occ = cast_woop_b[col]
+            fp_woop_occ = fp_woop[occ_c]
+            cast_occ_quad = cast_quad[occ_c]
+        else:
+            woop_A_occ = np.zeros((3, 3), np.float32)
+            woop_b_occ = np.zeros(3, np.float32)
+            fp_woop_occ = np.zeros((1, 12), np.float32)
+            cast_occ_quad = np.zeros(1, np.float32)
+    else:
+        woop_A_occ, woop_b_occ = cast_woop_A, cast_woop_b
+
+    # ------------------------------------------------------------------ camera
+    cam = b.camera
+    aspect = cam.width / cam.height
+    fov_x = fov_to_fov_x(cam.fov, getattr(cam, 'fov_axis', 'x'),
+                         cam.width, cam.height)
+    cam_to_sample = (xf.scale([-0.5, -0.5 * aspect, 1.0]) @
+                     xf.translate([-1.0, -1.0 / aspect, 0.0]) @
+                     xf.perspective(fov_x))  # camera.cpp:16-21
+    sample_to_cam = np.linalg.inv(cam_to_sample)
+    cam_to_world = np.asarray(cam.to_world, np.float64)
+    world_to_cam = np.linalg.inv(cam_to_world)
+
+    # ------------------------------------------------------------------ meta
+    mat_types_present = tuple(sorted(set(int(t) for t in mat_type[:max(len(b.materials), 0)]))) \
+        if b.materials else ()
+    phase_present = tuple(sorted(set(int(p) for p in med_phase[:len(b.media)]))) \
+        if b.media else ()
+    med_present = tuple(sorted(set(int(t) for t in med_type[:len(b.media)]))) \
+        if b.media else ()
+    tex_present = tuple(sorted(set(int(k) for k in tex_kind[:len(b.texdescs)]))) \
+        if b.texdescs else (T.TEX_CONSTANT,)
+
+    meta = SceneMeta(
+        num_shapes=len(b.shapes),
+        num_triangles=num_tris,
+        num_spheres=len(spheres),
+        num_materials=len(b.materials),
+        num_lights=len(b.lights),
+        num_media=len(b.media),
+        num_textures=len(b.texdescs),
+        num_images=len(b.texture_pool.pyramids),
+        mat_types_present=mat_types_present,
+        phase_types_present=phase_present,
+        med_types_present=med_present,
+        has_envmap=b.envmap_light_id >= 0,
+        envmap_light_id=b.envmap_light_id,
+        env_image_id=env_image_id,
+        env_res=(env_h, env_w),
+        width=cam.width,
+        height=cam.height,
+        camera_medium_id=cam.medium_id,
+        scene_radius=radius,
+        use_bvh=False,
+        bvh_depth=1,
+        use_binned=False,
+        has_image_textures=any(td.kind == T.TEX_IMAGE for td in b.texdescs),
+        texture_types_present=tex_present,
+        needs_uv=any(td.kind != T.TEX_CONSTANT for td in b.texdescs),
+        needs_ray_diff=any(td.kind == T.TEX_IMAGE for td in b.texdescs),
+        needs_tangent=any(m.type in (T.MAT_DISNEY_METAL, T.MAT_DISNEY_GLASS,
+                                     T.MAT_DISNEY_BSDF)
+                          for m in b.materials),
+        has_grid_volumes=False,
+        has_quads=bool((cast_alt != cast_src).any()),
+        # control == sigma_t for homogeneous media (exact analytic NEE
+        # transmittance); grids, the other case, raise above
+        svox_ctrl=T.MED_HOMOGENEOUS in med_present,
+        grid_kernel_ok=False,
+        uniform_medium=bool(
+            len(b.media) == 1 and med_present == (T.MED_HOMOGENEOUS,) and
+            cam.medium_id == 0 and len(b.shapes) > 0 and
+            (shape_ext_med[:len(b.shapes)] == 0).all() and
+            (shape_int_med[:len(b.shapes)] == -1).all() and
+            (shape_material[:len(b.shapes)] >= 0).all()),
+    )
+
+    arrays = dict(
+        vertices=_f32(vertices), normals=_f32(normals), uvs=_f32(uv_arr),
+        indices=_i32(indices), tri_shape=_i32(tri_shape),
+        tri_p0=_f32(p0), tri_e1=_f32(e1), tri_e2=_f32(e2),
+        tri_woop_A=_f32(cast_woop_A), tri_woop_b=_f32(cast_woop_b),
+        tri_woop_A_occ=_f32(woop_A_occ), tri_woop_b_occ=_f32(woop_b_occ),
+        cast_src=_i32(cast_src), cast_alt=_i32(cast_alt),
+        cast_quad=_f32(cast_quad), cast_occ_quad=_f32(cast_occ_quad),
+        sph_center=_f32(sph_center), sph_radius=_f32(sph_radius),
+        sph_shape=_i32(sph_shape),
+        fp_woop=_f32(fp_woop), fp_woop_occ=_f32(fp_woop_occ),
+        fp_tri=_f32(fp_tri), fp_light=_f32(fp_light),
+        fp_sph=_f32(fp_sph),
+        shape_material_id=_i32(shape_material), shape_light_id=_i32(shape_light),
+        shape_interior_med=_i32(shape_int_med),
+        shape_exterior_med=_i32(shape_ext_med),
+        shape_type=_i32(shape_type), shape_prim_start=_i32(shape_prim_start),
+        shape_prim_count=_i32(shape_prim_count), shape_area=_f32(shape_area),
+        shape_has_normals=_i32(shape_has_n), shape_has_uvs=_i32(shape_has_uv),
+        tri_stair_cdf=_f32(tri_stair), tri_area=_f32(tri_area),
+        tri_alias=_f32(tri_alias),
+        mat_type=_i32(mat_type), mat_tex=_i32(mat_tex), mat_eta=_f32(mat_eta),
+        tex_kind=_i32(tex_kind), tex_const=_f32(tex_const),
+        tex_color1=_f32(tex_color1), tex_image=_i32(tex_image),
+        tex_uvscale=_f32(tex_uvscale), tex_uvoffset=_f32(tex_uvoffset),
+        texdata=_f32(texdata), mip_tab=_f32(mip_tab),
+        mip_offset=_i32(mip_offset),
+        mip_w=_i32(mip_w), mip_h=_i32(mip_h), mip_levels=_i32(mip_levels),
+        light_type=_i32(light_type), light_shape=_i32(light_shape),
+        light_intensity=_f32(light_intensity), light_cdf=_f32(light_cdf),
+        light_pmf=_f32(light_pmf),
+        env_to_world=_f32(env_to_world), env_to_local=_f32(env_to_local),
+        env_scale=_f32(env_scale), env_cond_cdf=_f32(env_cond_cdf),
+        env_marg_cdf=_f32(env_marg_cdf), env_pdf_uv=_f32(env_pdf_uv),
+        env_alias=_f32(env_alias),
+        med_type=_i32(med_type), med_sigma_a=_f32(med_sigma_a),
+        med_sigma_s=_f32(med_sigma_s), med_phase_type=_i32(med_phase),
+        med_g=_f32(med_g), med_albedo_vol=_i32(med_albedo_vol),
+        med_density_vol=_i32(med_density_vol),
+        vol_kind=_i32(vol_kind), vol_const=_f32(vol_const),
+        vol_offset=_i32(vol_offset), vol_res=_i32(vol_res),
+        vol_pmin=_f32(vol_pmin), vol_pmax=_f32(vol_pmax),
+        vol_maxval=_f32(vol_maxval), med_tab=_f32(med_tab),
+        tri_shade=_f32(tri_shade), shape_tab=_f32(shape_tab),
+        light_tab=_f32(light_tab), mat_tab=_f32(mat_tab),
+        tex_tab=_f32(tex_tab),
+        cam_to_world=_f32(cam_to_world), world_to_cam=_f32(world_to_cam),
+        sample_to_cam=_f32(sample_to_cam), cam_to_sample=_f32(cam_to_sample),
+    )
+    return Scene(**{k: torch.from_numpy(np.array(v, order='C'))
+                    for k, v in arrays.items()}, meta=meta)

@@ -1,0 +1,401 @@
+"""Scene fixtures built in code (tests, the chip smoke run, examples).
+
+Ports the path-tracing fixtures of lajolla_tpu/testing.py and adds two of
+the classes the fused kernels serve: a Cornell box (cbox class: Lambertian
+walls, two boxes, one quad area light) and a sphere-light scene (veach
+class: RoughPlastic + Lambertian, sphere and mesh lights). Both are also
+available as SceneBuilders (`*_builder`), which lajolla_tpu's own
+compile_scene accepts as well, so tests can compile one builder with
+both packages.
+"""
+
+import os
+
+import numpy as np
+
+from lajolla_tpu_torch.core import transform as xf
+from lajolla_tpu_torch.io.obj import _compute_smooth_normals
+from lajolla_tpu_torch.scene import types as T
+from lajolla_tpu_torch.scene.compile import compile_scene
+from lajolla_tpu_torch.scene.parser import (CameraB, LightB, MaterialB, MeshB,
+                                            SceneBuilder, ShapeB, TexDesc)
+from lajolla_tpu_torch.scene.texture import TexturePool
+from lajolla_tpu_torch.scene.types import RenderOptions
+
+MATERIAL_XML_TYPES = {
+    'diffuse': T.MAT_LAMBERTIAN,
+    'roughplastic': T.MAT_ROUGH_PLASTIC,
+}
+
+
+def quad_mesh(z=0.0, half=1.0):
+    return MeshB(
+        positions=np.array([[-half, -half, z], [half, -half, z],
+                            [half, half, z], [-half, half, z]], np.float64),
+        indices=np.array([[0, 1, 2], [0, 2, 3]], np.int32),
+        normals=np.array([[0, 0, 1]] * 4, np.float64),
+        uvs=np.array([[0, 0], [1, 0], [1, 1], [0, 1]], np.float64))
+
+
+def _const_tex(b, v):
+    v = np.broadcast_to(np.asarray(v, np.float64), (3,))
+    b.texdescs.append(TexDesc(kind=T.TEX_CONSTANT, const=tuple(v)))
+    return len(b.texdescs) - 1
+
+
+def make_white_box_scene(albedo=0.9, emission=0.3, res=8):
+    """Camera inside a closed emissive diffuse cube: every wall both
+    emits Le and reflects with albedo rho, so the uniform equilibrium
+    radiance is analytic, L = Le / (1 - rho) — a deep-path fixture
+    (mean path length 1/(1 - rho)) that gates the MAX_BOUNCES_CAP
+    truncation bias."""
+    b = SceneBuilder(camera=CameraB(to_world=xf.look_at(
+        [0, 0, 0], [0, 0, 1], [0, 1, 0]), fov=45.0, width=res, height=res),
+        options=RenderOptions(max_depth=-1), texture_pool=TexturePool())
+    m = MaterialB(type=T.MAT_LAMBERTIAN)
+    m.tex[T.P_BASE_COLOR] = _const_tex(b, (albedo,) * 3)
+    b.materials.append(m)
+    # 12 triangles wound so geometric normals face INWARD (one-sided area
+    # emission toward the camera). Each face owns its 4 vertices + flat
+    # normals: shared corners would get smooth (diagonal) normals.
+    pos, nrm, idx = [], [], []
+    for axis in range(3):
+        for sign in (-1.0, 1.0):
+            u_ax, v_ax = (axis + 1) % 3, (axis + 2) % 3
+            quad = []
+            for (su, sv) in ((-1, -1), (1, -1), (1, 1), (-1, 1)):
+                p = np.zeros(3)
+                p[axis] = sign
+                p[u_ax] = su
+                p[v_ax] = sv
+                quad.append(p)
+            n_in = np.zeros(3)
+            n_in[axis] = -sign                 # inward
+            fn = np.cross(quad[1] - quad[0], quad[2] - quad[0])
+            if np.dot(fn, n_in) < 0:
+                quad = quad[::-1]
+            base = len(pos)
+            pos.extend(quad)
+            nrm.extend([n_in] * 4)
+            idx.append([base, base + 1, base + 2])
+            idx.append([base, base + 2, base + 3])
+    mesh = MeshB(positions=np.array(pos, np.float64),
+                 indices=np.array(idx, np.int32),
+                 normals=np.array(nrm, np.float64))
+    b.shapes.append(ShapeB(type=T.SHAPE_MESH, mesh=mesh, material_id=0,
+                           area_light_id=0))
+    b.lights.append(LightB(type=T.LIGHT_AREA, shape_id=0,
+                           intensity=(emission,) * 3))
+    return compile_scene(b)
+
+
+def make_single_material_scene(mat_xml_type, params=None, eta=1.5):
+    """One quad with the given material, a white area light quad above,
+    camera looking down."""
+    b = SceneBuilder(camera=CameraB(to_world=xf.look_at(
+        [0, 0, 3], [0, 0, 0], [0, 1, 0]), fov=45.0, width=32, height=32),
+        options=RenderOptions(), texture_pool=TexturePool())
+    m = MaterialB(type=MATERIAL_XML_TYPES[mat_xml_type], eta=eta)
+    defaults = {
+        T.P_BASE_COLOR: (0.5, 0.5, 0.5), T.P_AUX_COLOR: (1.0, 1.0, 1.0),
+        T.P_ROUGHNESS: 0.25, T.P_SUBSURFACE: 0.0, T.P_METALLIC: 0.0,
+        T.P_SPECULAR: 0.5, T.P_SPECULAR_TINT: 0.0, T.P_ANISOTROPIC: 0.0,
+        T.P_SHEEN: 0.0, T.P_SHEEN_TINT: 0.5, T.P_CLEARCOAT: 0.0,
+        T.P_CLEARCOAT_GLOSS: 1.0, T.P_SPEC_TRANS: 0.0,
+    }
+    defaults.update(params or {})
+    for slot, v in defaults.items():
+        m.tex[slot] = _const_tex(b, v)
+    b.materials.append(m)
+    b.shapes.append(ShapeB(type=T.SHAPE_MESH, mesh=quad_mesh(0.0),
+                           material_id=0))
+    b.shapes.append(ShapeB(type=T.SHAPE_MESH, mesh=quad_mesh(2.0),
+                           material_id=0, area_light_id=0))
+    b.lights.append(LightB(type=T.LIGHT_AREA, shape_id=1,
+                           intensity=(5.0, 5.0, 5.0)))
+    return compile_scene(b)
+
+
+# ---------------------------------------------------------------------------
+# Cornell box
+# ---------------------------------------------------------------------------
+
+CBOX_MATERIALS = {'white': (0.73, 0.73, 0.73), 'red': (0.63, 0.065, 0.05),
+                  'green': (0.14, 0.45, 0.091)}
+CBOX_LIGHT_RADIANCE = (17.0, 12.0, 4.0)
+CBOX_CAMERA = dict(origin=(0.0, 0.0, 3.9), target=(0.0, 0.0, 0.0),
+                   up=(0.0, 1.0, 0.0), fov=40.0)
+
+
+def _box_faces(center, half, angle_deg):
+    """The 5 outward-wound faces (no bottom) of a box turned about +y."""
+    c = np.asarray(center, np.float64)
+    hx, hy, hz = half
+    R = xf.rotate(angle_deg, [0, 1, 0])[:3, :3]
+
+    def P(x, y, z):
+        return c + R @ np.array([x * hx, y * hy, z * hz])
+    return [
+        [P(-1, 1, -1), P(-1, 1, 1), P(1, 1, 1), P(1, 1, -1)],      # top
+        [P(-1, -1, 1), P(1, -1, 1), P(1, 1, 1), P(-1, 1, 1)],      # +z
+        [P(1, -1, -1), P(-1, -1, -1), P(-1, 1, -1), P(1, 1, -1)],  # -z
+        [P(1, -1, 1), P(1, -1, -1), P(1, 1, -1), P(1, 1, 1)],      # +x
+        [P(-1, -1, -1), P(-1, -1, 1), P(-1, 1, 1), P(-1, 1, -1)],  # -x
+    ]
+
+
+def _cbox_shapes():
+    """[(name, material, quads, emitter)]: the room [-1, 1]^3 open toward
+    +z (walls wound to face inward), two boxes and a ceiling light
+    facing down. Each quad is (p0, p1, p2, p3), split (0,1,2) (0,2,3)."""
+    q = np.array
+    return [
+        ('floor', 'white', [q([[-1, -1, -1], [-1, -1, 1], [1, -1, 1],
+                               [1, -1, -1]])], False),
+        ('ceiling', 'white', [q([[-1, 1, -1], [1, 1, -1], [1, 1, 1],
+                                 [-1, 1, 1]])], False),
+        ('back', 'white', [q([[-1, -1, -1], [1, -1, -1], [1, 1, -1],
+                              [-1, 1, -1]])], False),
+        ('left', 'red', [q([[-1, -1, -1], [-1, 1, -1], [-1, 1, 1],
+                            [-1, -1, 1]])], False),
+        ('right', 'green', [q([[1, -1, -1], [1, -1, 1], [1, 1, 1],
+                               [1, 1, -1]])], False),
+        ('short_box', 'white',
+         _box_faces((0.35, -0.7, 0.3), (0.3, 0.3, 0.3), -17.0), False),
+        ('tall_box', 'white',
+         _box_faces((-0.35, -0.4, -0.35), (0.3, 0.6, 0.3), 17.0), False),
+        ('light', 'white', [q([[-0.25, 0.98, -0.2], [0.25, 0.98, -0.2],
+                               [0.25, 0.98, 0.2], [-0.25, 0.98, 0.2]])],
+         True),
+    ]
+
+
+def _quads_mesh(quads):
+    """Positions and (0,1,2) (0,2,3) triangles, 4 own vertices per quad
+    (OBJ `f a b c d` semantics)."""
+    pos = np.concatenate([np.asarray(qd, np.float64) for qd in quads])
+    idx = []
+    for k in range(len(quads)):
+        idx += [[4 * k, 4 * k + 1, 4 * k + 2], [4 * k, 4 * k + 2, 4 * k + 3]]
+    return pos, np.array(idx, np.int32)
+
+
+def cornell_box_builder(res, spp=4):
+    """The Cornell box as a SceneBuilder — the same scene the parser
+    builds from write_cornell_box_xml."""
+    b = SceneBuilder(camera=CameraB(
+        to_world=xf.look_at(CBOX_CAMERA['origin'], CBOX_CAMERA['target'],
+                            CBOX_CAMERA['up']),
+        fov=CBOX_CAMERA['fov'], width=res, height=res),
+        options=RenderOptions(samples_per_pixel=spp),
+        texture_pool=TexturePool())
+    mat_ids = {}
+    for name, rgb in CBOX_MATERIALS.items():
+        m = MaterialB(type=T.MAT_LAMBERTIAN)
+        # texture descriptors in the parser's order (its default
+        # reflectance first), so every table equals the parsed XML's
+        _const_tex(b, (0.5, 0.5, 0.5))
+        m.tex[T.P_BASE_COLOR] = _const_tex(b, rgb)
+        mat_ids[name] = len(b.materials)
+        b.materials.append(m)
+    for _, mat, quads, emitter in _cbox_shapes():
+        pos, idx = _quads_mesh(quads)
+        mesh = MeshB(positions=pos, indices=idx,
+                     normals=_compute_smooth_normals(pos, idx))
+        shape = ShapeB(type=T.SHAPE_MESH, mesh=mesh,
+                       material_id=mat_ids[mat])
+        if emitter:
+            shape.area_light_id = len(b.lights)
+            b.lights.append(LightB(type=T.LIGHT_AREA,
+                                   shape_id=len(b.shapes),
+                                   intensity=CBOX_LIGHT_RADIANCE))
+        b.shapes.append(shape)
+    return b
+
+
+def make_cornell_box(res, spp=4):
+    return compile_scene(cornell_box_builder(res, spp))
+
+
+def write_cornell_box_xml(directory, res, spp):
+    """Write the Cornell box as Mitsuba XML (cbox.xml) plus one OBJ file
+    per shape into `directory`; returns the XML path."""
+    os.makedirs(directory, exist_ok=True)
+    fmt = ', '.join
+    o, t, u = (fmt(repr(float(x)) for x in CBOX_CAMERA[k])
+               for k in ('origin', 'target', 'up'))
+    lines = [
+        '<?xml version="1.0" encoding="utf-8"?>',
+        '<scene version="0.5.0">',
+        '  <integrator type="path"/>',
+        '  <sensor type="perspective">',
+        f'    <float name="fov" value="{CBOX_CAMERA["fov"]!r}"/>',
+        '    <transform name="toWorld">',
+        f'      <lookat origin="{o}" target="{t}" up="{u}"/>',
+        '    </transform>',
+        '    <sampler type="independent">',
+        f'      <integer name="sampleCount" value="{spp}"/>',
+        '    </sampler>',
+        '    <film type="hdrfilm">',
+        f'      <integer name="width" value="{res}"/>',
+        f'      <integer name="height" value="{res}"/>',
+        '      <rfilter type="box"/>',
+        '    </film>',
+        '  </sensor>',
+    ]
+    for name, rgb in CBOX_MATERIALS.items():
+        lines += [f'  <bsdf type="diffuse" id="{name}">',
+                  f'    <rgb name="reflectance" '
+                  f'value="{fmt(repr(float(c)) for c in rgb)}"/>',
+                  '  </bsdf>']
+    for name, mat, quads, emitter in _cbox_shapes():
+        with open(os.path.join(directory, f'{name}.obj'), 'w') as f:
+            for qd in quads:
+                for p in qd:
+                    f.write('v ' + ' '.join(repr(float(x)) for x in p) + '\n')
+            for k in range(len(quads)):
+                f.write(f'f {4 * k + 1} {4 * k + 2} {4 * k + 3} {4 * k + 4}\n')
+        lines += ['  <shape type="obj">',
+                  f'    <string name="filename" value="{name}.obj"/>',
+                  f'    <ref id="{mat}"/>']
+        if emitter:
+            rad = fmt(repr(float(c)) for c in CBOX_LIGHT_RADIANCE)
+            lines += ['    <emitter type="area">',
+                      f'      <rgb name="radiance" value="{rad}"/>',
+                      '    </emitter>']
+        lines += ['  </shape>']
+    lines += ['</scene>', '']
+    path = os.path.join(directory, 'cbox.xml')
+    with open(path, 'w') as f:
+        f.write('\n'.join(lines))
+    return path
+
+
+# ---------------------------------------------------------------------------
+# Sphere lights (veach class)
+# ---------------------------------------------------------------------------
+
+def sphere_light_builder(res=32):
+    """A Lambertian floor, a tilted RoughPlastic plate, a Lambertian
+    sphere, two emissive spheres of different radii and one small quad
+    light: both kernel materials, sphere hits, sphere-light cone
+    sampling and the mixed light pick."""
+    b = SceneBuilder(camera=CameraB(to_world=xf.look_at(
+        [0, 1.5, 4], [0, 0, 0], [0, 1, 0]), fov=45.0, width=res, height=res),
+        options=RenderOptions(), texture_pool=TexturePool())
+    floor = MaterialB(type=T.MAT_LAMBERTIAN)
+    floor.tex[T.P_BASE_COLOR] = _const_tex(b, (0.6, 0.6, 0.6))
+    plate = MaterialB(type=T.MAT_ROUGH_PLASTIC, eta=1.5)
+    plate.tex[T.P_BASE_COLOR] = _const_tex(b, (0.2, 0.3, 0.6))
+    plate.tex[T.P_AUX_COLOR] = _const_tex(b, (1.0, 1.0, 1.0))
+    plate.tex[T.P_ROUGHNESS] = _const_tex(b, 0.15)
+    ball = MaterialB(type=T.MAT_LAMBERTIAN)
+    ball.tex[T.P_BASE_COLOR] = _const_tex(b, (0.7, 0.4, 0.2))
+    b.materials += [floor, plate, ball]
+
+    def mesh(quads):
+        pos, idx = _quads_mesh(quads)
+        return MeshB(positions=pos, indices=idx,
+                     normals=_compute_smooth_normals(pos, idx))
+    b.shapes.append(ShapeB(type=T.SHAPE_MESH, material_id=0, mesh=mesh(
+        [np.array([[-3, -1, -3], [-3, -1, 3], [3, -1, 3], [3, -1, -3]])])))
+    b.shapes.append(ShapeB(type=T.SHAPE_MESH, material_id=1, mesh=mesh(
+        [np.array([[-1.5, -1, -1], [1.5, -1, -1], [1.5, 0.2, -1.6],
+                   [-1.5, 0.2, -1.6]])])))
+    b.shapes.append(ShapeB(type=T.SHAPE_SPHERE, center=(0.6, -0.6, 0.4),
+                           radius=0.4, material_id=2))
+    for center, radius, le in (((-1.2, 1.2, 0.0), 0.1, 40.0),
+                               ((1.2, 1.4, -0.3), 0.35, 4.0)):
+        b.shapes.append(ShapeB(type=T.SHAPE_SPHERE, center=center,
+                               radius=radius, material_id=0,
+                               area_light_id=len(b.lights)))
+        b.lights.append(LightB(type=T.LIGHT_AREA, shape_id=len(b.shapes) - 1,
+                               intensity=(le, le, le)))
+    b.shapes.append(ShapeB(type=T.SHAPE_MESH, material_id=0,
+                           area_light_id=len(b.lights), mesh=mesh(
+        [np.array([[-0.3, 2, -0.3], [0.3, 2, -0.3], [0.3, 2, 0.3],
+                   [-0.3, 2, 0.3]])])))
+    b.lights.append(LightB(type=T.LIGHT_AREA, shape_id=len(b.shapes) - 1,
+                           intensity=(6.0, 6.0, 6.0)))
+    return b
+
+
+def make_sphere_light_scene(res=32):
+    return compile_scene(sphere_light_builder(res))
+
+
+# ---------------------------------------------------------------------------
+# Random advance inputs
+# ---------------------------------------------------------------------------
+
+def random_lanes(scene, n, seed=0):
+    """Inputs of one advance for n lanes, made with numpy from `seed`:
+    origins and previous vertices uniform in the scene's bounding box
+    grown by a quarter of its size on every side,
+    uniform directions, random throughput, radiance, bounce (2..8),
+    cached pdf and uniforms, 95% of lanes active. Returns a dict of
+    float32 arrays in the transposed layout ((3, n) / (8, n) / (n,)),
+    nv as int64 and act as bool."""
+    rng = np.random.default_rng(seed)
+    tri = scene.fp_tri.cpu().numpy().astype(np.float64)
+    p0 = tri[0:3]
+    pts = [p0, p0 + tri[3:6], p0 + tri[6:9]]
+    S = scene.meta.num_spheres
+    if S:
+        sph = scene.fp_sph.cpu().numpy().astype(np.float64)[:S]
+        pts += [(sph[:, 0:3] - sph[:, 3:4]).T, (sph[:, 0:3] + sph[:, 3:4]).T]
+    allp = np.concatenate(pts, axis=1)
+    lo, hi = allp.min(axis=1)[:, None], allp.max(axis=1)[:, None]
+    lo, hi = lo - 0.25 * (hi - lo), hi + 0.25 * (hi - lo)
+    d = rng.normal(size=(3, n))
+    d /= np.linalg.norm(d, axis=0, keepdims=True)
+    f32 = np.float32
+    return dict(
+        org=(lo + (hi - lo) * rng.random((3, n))).astype(f32),
+        dir=d.astype(f32),
+        thr=rng.uniform(0.05, 1.0, (3, n)).astype(f32),
+        rad=rng.uniform(0.0, 0.5, (3, n)).astype(f32),
+        nv=rng.integers(2, 9, n).astype(np.int64),
+        dir_pdf=rng.uniform(0.0, 2.0, n).astype(f32),
+        prev=(lo + (hi - lo) * rng.random((3, n))).astype(f32),
+        un=rng.random((8, n)).astype(f32),
+        act=rng.random(n) < 0.95)
+
+
+# Tolerances of one advance against its reference, per output: where both
+# sides are alive, a lane agrees if every component is within
+# rtol / atol 1e-5. dir_pdf gets rtol 1e-2: next to the GGX peak of a
+# RoughPlastic lobe the microfacet term divides by t = (n.h)^2 (a^2 - 1)
+# + 1 ~ a^2, formed by cancellation, so a last-bit difference in the order
+# of fp32 operations grows ~1/a^2 (up to ~3e-3 measured at roughness
+# 0.15), and sampled directions aim at the peak.
+ADVANCE_RTOL = dict(org=1e-4, dir=1e-4, thr=1e-4, rad=1e-4, dir_pdf=1e-2)
+
+
+def advance_agreement(got, got_alive, want, want_alive):
+    """Compare two advances of the same lanes (dicts of numpy arrays keyed
+    as ADVANCE_RTOL, plus alive bits). Returns (share of lanes whose alive
+    bits agree, {output: share of both-alive lanes within tolerance},
+    largest absolute difference over both-alive lanes)."""
+    both = got_alive & want_alive
+    shares, max_abs = {}, 0.0
+    for k, rtol in ADVANCE_RTOL.items():
+        g, w = got[k][..., both], want[k][..., both]
+        ok = np.isclose(g, w, rtol=rtol, atol=1e-5)
+        shares[k] = float((ok.all(axis=0) if ok.ndim == 2 else ok).mean())
+        if g.size:
+            max_abs = max(max_abs, float(np.abs(g - w).max()))
+    return float((got_alive == want_alive).mean()), shares, max_abs
+
+
+def assert_advance_agrees(got, got_alive, want, want_alive):
+    """Alive bits agree on >= 99.9% of lanes, and >= 99.9% of both-alive
+    lanes agree on every output (ADVANCE_RTOL). Not all: a lane whose
+    shadow point lies next to the light, or whose hit lies on an edge,
+    turns a last-bit difference into a larger one."""
+    assert (got_alive & want_alive).any()
+    alive_share, shares, _ = advance_agreement(got, got_alive, want,
+                                               want_alive)
+    assert alive_share >= 0.999, alive_share
+    for k, share in shares.items():
+        assert share >= 0.999, (k, share)

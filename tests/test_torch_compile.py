@@ -1,0 +1,60 @@
+"""The port's scene compiler against lajolla_tpu's: the same builder (or
+the same fixture, or the same XML) gives the same tables, byte for byte,
+and the same SceneMeta."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+
+import lajolla_tpu.scene.compile as JC
+import lajolla_tpu.scene.parser as JP
+import lajolla_tpu.testing as JT
+import lajolla_tpu_torch.scene.compile as PC
+import lajolla_tpu_torch.scene.parser as PP
+import lajolla_tpu_torch.testing as PT
+from lajolla_tpu_torch.scene.types import Scene
+
+
+def _assert_same(js, ps):
+    """Every tensor of the port's Scene equals lajolla_tpu's field."""
+    assert dataclasses.asdict(ps.meta) == dataclasses.asdict(js.meta)
+    for f in dataclasses.fields(Scene):
+        if f.name == 'meta':
+            continue
+        j = np.asarray(getattr(js, f.name))
+        p = getattr(ps, f.name).numpy()
+        assert p.dtype == j.dtype and p.shape == j.shape, f.name
+        assert np.array_equal(p, j), f.name
+
+
+@pytest.mark.parametrize('name', ['cornell_box', 'sphere_light'])
+def test_builder_fixture(name):
+    builder = getattr(PT, f'{name}_builder')
+    _assert_same(JC.compile_scene(builder(24)),
+                 PC.compile_scene(builder(24)))
+
+
+@pytest.mark.parametrize('make', [
+    lambda T: T.make_white_box_scene(),
+    lambda T: T.make_single_material_scene('diffuse'),
+    lambda T: T.make_single_material_scene('roughplastic'),
+], ids=['white_box', 'diffuse', 'roughplastic'])
+def test_ported_fixture(make):
+    _assert_same(make(JT), make(PT))
+
+
+def test_cornell_box_xml(tmp_path):
+    """write_cornell_box_xml writes what both parsers read identically,
+    and what make_cornell_box builds in code."""
+    xml = PT.write_cornell_box_xml(str(tmp_path), 40, 8)
+    js, jopt = JP.parse_scene(xml)
+    ps, popt = PP.parse_scene(xml)
+    _assert_same(js, ps)
+    assert dataclasses.asdict(popt) == dataclasses.asdict(jopt)
+    assert popt.samples_per_pixel == 8 and ps.meta.width == 40
+    built = PT.make_cornell_box(40, spp=8)
+    for f in dataclasses.fields(Scene):
+        if f.name != 'meta':
+            assert np.array_equal(getattr(built, f.name).numpy(),
+                                  getattr(ps, f.name).numpy()), f.name

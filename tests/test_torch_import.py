@@ -1,0 +1,27 @@
+"""The port imports no JAX: its entry points load in a fresh interpreter
+with no `jax` module, and nothing is built at import."""
+
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+@pytest.mark.parametrize('module', [
+    'lajolla_tpu_torch',
+    'lajolla_tpu_torch.cli',
+    'lajolla_tpu_torch.testing',
+    'lajolla_tpu_torch.bridge',
+    'lajolla_tpu_torch.kernels',
+])
+def test_import_pulls_in_no_jax(module, tmp_path):
+    code = (f"import importlib, sys; importlib.import_module({module!r}); "
+            "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
+            "if m.startswith('jax'))")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    r = subprocess.run([sys.executable, '-c', code], cwd=tmp_path, env=env,
+                       capture_output=True, text=True, timeout=120)
+    assert r.returncode == 0, r.stderr
