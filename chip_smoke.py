@@ -7,7 +7,8 @@ the CUDA toolkit: `python3 chip_smoke.py`. It imports no JAX.
 Phases, one output line or more each; any failure raises, so the script
 exits non-zero and prints no final line:
  1. the device, and `nvidia-smi` name and power limit;
- 2. nvcc builds csrc/ (kernels.build), timed, with ptxas register counts;
+ 2. nvcc builds csrc/ (kernels.build: one nvcc per .cu, all at once),
+    timed, with ptxas register counts per kernel;
  3. kernel K2 (advance_kernel) against its plain form on 2^16 random lanes
     of the Cornell box (with and without merged quads) and of the
     sphere-light scene (testing.assert_advance_agrees); both timed at
@@ -20,11 +21,25 @@ exits non-zero and prints no final line:
     timed on the Cornell box;
  5. the white box with K1 at 128x128 x 64 spp: mean within 3% of the
     analytic Le / (1 - rho) = 3.0;
- 6. the main path through the CLI: the Cornell box XML at 512x512 x 256
-    spp (K1) and at 96x96 x 16 spp (a film that is not a whole number of
-    4096-pixel blocks: the per-bounce driver and K2), with the launch
-    counters reset before and read after; the EXRs must be finite with
-    mean luminance in (0.05, 5). Prints Mpaths/s.
+ 6. the main path through the CLI, with the launch counters reset before
+    and read after: the Cornell box XML at 512x512 x 256 spp (K1) and at
+    96x96 x 16 spp (a film that is not a whole number of 4096-pixel
+    blocks: the per-bounce driver and K2), and the glass Cornell box XML
+    at 512x512 x 16 spp (the general engine and K3); the EXRs must be
+    finite with mean luminance in (0.05, 5). Prints Mpaths/s of each
+    512x512 render for the whole CLI run and for render() alone;
+ 7. kernel K3 (intersect_brute_kernel, occluded_brute_kernel) against its
+    plain forms on the 2^18 camera, bounce and shadow rays of the glass
+    Cornell box and the sphere-light scene at 512x512
+    (testing.general_rays): prim ids and hit bits agree on >= 99.9% of
+    rays, t/u/v within rtol 1e-5 where both hit the same prim; both variants
+    and their plain forms timed by CUDA events;
+ 8. the general engine with K3 against it with the plain casts (the K3
+    wrappers patched to their plain forms for that run): the glass
+    Cornell box at 128x128 x 4 spp, median per-pixel relative difference
+    < 1e-4, film means within 1%;
+ 9. the furnace through render() at 64x64 x 64 spp: the sphere's mean
+    within 3% of albedo x env radiance.
 Then one JSON line of per-kernel results, and last the device line.
 """
 
@@ -34,8 +49,11 @@ import subprocess
 import sys
 import tempfile
 import time
+from unittest import mock
 
 KERNEL_SOURCE = 'lajolla_tpu_torch/csrc/path_kernels.cu'
+K3_SOURCE = 'lajolla_tpu_torch/csrc/intersect_kernels.cu'
+K3_REPLACES = 'lajolla_tpu/ops/intersect_pallas.py:29'
 
 
 def cuda_ms(torch, fn, reps):
@@ -51,13 +69,34 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(stop) / reps
 
 
+def kernel_name(symbol):
+    """The unqualified name of an entry function from its (Itanium)
+    mangled symbol: '_ZN12_GLOBAL__N_119render_fused_kernelILi1E...' ->
+    'render_fused_kernel'. Unmangled symbols come back as they are."""
+    if not symbol.startswith('_Z'):
+        return symbol
+    rest = symbol[2:]
+    nested = rest.startswith('N')
+    rest = rest[1:] if nested else rest
+    name = None
+    while rest[:1].isdigit():
+        j = 0
+        while rest[j].isdigit():
+            j += 1
+        size = int(rest[:j])
+        name, rest = rest[j:j + size], rest[j + size:]
+        if not nested:
+            break
+    return name or symbol
+
+
 def ptxas_summary(log):
-    """'kernel: max registers, max spill bytes' over the instantiations."""
+    """'kernel: max registers, max spill bytes' over the instantiations,
+    keyed by each entry function's own name."""
     out, name = {}, None
     for line in log.splitlines():
         if 'Compiling entry function' in line:
-            name = ('render_fused_kernel' if 'render_fused_kernel' in line
-                    else 'advance_kernel')
+            name = kernel_name(line.split("'")[1])
         elif name and 'spill stores' in line:
             spill = int(line.split('bytes spill stores')[0].split(',')[-1])
             regs, sp = out.get(name, (0, 0))
@@ -79,11 +118,14 @@ def main():
 
     from lajolla_tpu_torch import cli, kernels, parse_scene, render
     from lajolla_tpu_torch import testing as PT
+    from lajolla_tpu_torch.integrators import path as PP
     from lajolla_tpu_torch.integrators import path_kernel as PK
     from lajolla_tpu_torch.integrators import path_megakernel as PMK
     from lajolla_tpu_torch.integrators.path import (MAX_BOUNCES_CAP,
                                                     _render_block_kernel)
     from lajolla_tpu_torch.io.image import imread3
+    from lajolla_tpu_torch.ops.intersect import (_brute_force_batched,
+                                                 _occluded_batched)
     from lajolla_tpu_torch.scene import compile as PC
     from lajolla_tpu_torch.scene.types import RenderOptions
 
@@ -194,43 +236,139 @@ def main():
         raise AssertionError("white box mean off the analytic value")
 
     # ---- 6. the main path through the CLI
-    with tempfile.TemporaryDirectory() as tmp:
-        big = PT.write_cornell_box_xml(os.path.join(tmp, 'big'), 512, 256)
-        small = PT.write_cornell_box_xml(os.path.join(tmp, 'small'), 96, 16)
-        outs = [os.path.join(tmp, 'cbox512.exr'),
-                os.path.join(tmp, 'cbox96.exr')]
-        for k in kernels.LAUNCHES:
-            kernels.LAUNCHES[k] = 0
+    def luminance_of(path):
+        im = imread3(path)
+        lum = float((im @ np.array([0.212671, 0.715160, 0.072169])).mean())
+        print(f"[6] {os.path.basename(path)} {im.shape} mean luminance "
+              f"{lum:.5f}")
+        if not (np.isfinite(im).all() and 0.05 < lum < 5.0):
+            raise AssertionError(f"{path}: bad image")
+
+    def render_alone(xml):
+        """render() of a parsed scene, warm, in seconds."""
+        scene, opt = parse_scene(xml, dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        if cli.main([big, '-o', outs[0], '--device', 'cuda']) != 0:
-            raise AssertionError("CLI failed")
-        cli_s = time.perf_counter() - t0
-        if cli.main([small, '-o', outs[1], '--device', 'cuda']) != 0:
-            raise AssertionError("CLI failed")
+        render(scene, opt, device=dev)
+        return time.perf_counter() - t0
+
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = [  # (xml, exr, paths of a 512x512 film, or None)
+            (PT.write_cornell_box_xml(os.path.join(tmp, 'big'), 512, 256),
+             'cbox512.exr', 512 * 512 * 256),
+            (PT.write_cornell_box_xml(os.path.join(tmp, 'small'), 96, 16),
+             'cbox96.exr', None),
+            (PT.write_cornell_box_xml(os.path.join(tmp, 'glass'), 512, 16,
+                                      variant='glass'),
+             'glass512.exr', 512 * 512 * 16)]
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        cli_s = []
+        for xml, exr, _ in runs:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if cli.main([xml, '-o', os.path.join(tmp, exr),
+                         '--device', 'cuda']) != 0:
+                raise AssertionError("CLI failed")
+            cli_s.append(time.perf_counter() - t0)
         launches = dict(kernels.LAUNCHES)
         print(f"[6] main-path launches {launches}")
         for k, v in launches.items():
             if v < 1:
                 raise AssertionError(f"the main path never launched {k}")
-        for out in outs:
-            im = imread3(out)
-            lum = float((im @ np.array([0.212671, 0.715160, 0.072169])).mean())
-            print(f"[6] {os.path.basename(out)} {im.shape} mean luminance "
-                  f"{lum:.5f}")
-            if not (np.isfinite(im).all() and 0.05 < lum < 5.0):
-                raise AssertionError(f"{out}: bad image")
-        # render alone, warm, on the parsed scene
-        scene, opt = parse_scene(big, dev)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        render(scene, opt, device=dev)
-        render_s = time.perf_counter() - t0
-    paths = 512 * 512 * 256
-    print(f"[6] Cornell box 512x512 x 256 spp: {paths / cli_s / 1e6:.2f} "
-          f"Mpaths/s over the whole CLI run ({cli_s:.3f} s), "
-          f"{paths / render_s / 1e6:.2f} Mpaths/s render() alone "
-          f"({render_s:.3f} s); {smi}")
+        for _, exr, _ in runs:
+            luminance_of(os.path.join(tmp, exr))
+        for (xml, exr, paths), cs in zip(runs, cli_s):
+            if paths:
+                rs = render_alone(xml)
+                print(f"[6] {exr[:-4]} 512x512 x {paths // (512 * 512)} spp:"
+                      f" {paths / cs / 1e6:.2f} Mpaths/s over the whole CLI "
+                      f"run ({cs:.3f} s), {paths / rs / 1e6:.2f} Mpaths/s "
+                      f"render() alone ({rs:.3f} s); {smi}")
+
+    # ---- 7. K3 against its plain forms
+    k3 = {}
+    for fixture, scene in (
+            ('glass cbox', PT.make_cornell_box(512, variant='glass')),
+            ('sphere lights', PT.make_sphere_light_scene(512))):
+        scene = scene.to(dev)
+        rays = PT.general_rays(scene, seed=13)
+        for kind, ray in rays.items():
+            t, prim, u, v = kernels.intersect_brute(scene, *ray)
+            pt, pprim, pu, pv = _brute_force_batched(scene, *ray)
+            occ = kernels.occluded_brute(scene, *ray)
+            pocc = _occluded_batched(scene, *ray)
+            same = prim == pprim
+            hit = same & (pprim >= 0)
+            err = max(float((a[hit] - b[hit]).abs().max())
+                      for a, b in ((t, pt), (u, pu), (v, pv)))
+            close = all(torch.allclose(a[hit], b[hit], rtol=1e-5, atol=1e-6)
+                        for a, b in ((t, pt), (u, pu), (v, pv)))
+            prim_share = float(same.float().mean())
+            occ_share = float((occ == pocc).float().mean())
+            print(f"[7] K3 vs plain, {fixture}, {kind} rays "
+                  f"({ray[0].shape[0]}): prim agree {prim_share:.6f} "
+                  f"(hits {float((pprim >= 0).float().mean()):.3f}), max "
+                  f"|t,u,v diff| {err:.3g}; any-hit agree {occ_share:.6f} "
+                  f"(occluded {float(pocc.float().mean()):.3f})")
+            if not (prim_share >= 0.999 and occ_share >= 0.999 and close
+                    and torch.isinf(t[pprim < 0]).all()):
+                raise AssertionError(f"K3 disagrees with its plain forms on "
+                                     f"{fixture} {kind} rays")
+            k3['closest_err'] = max(k3.get('closest_err', 0.0), err)
+            k3['occ_err'] = max(k3.get('occ_err', 0.0),
+                                float((occ != pocc).float().max()))
+        if fixture == 'glass cbox':
+            bounce, shadow = rays['bounce'], rays['shadow']
+            k3['ms'] = cuda_ms(torch, lambda: kernels.intersect_brute(
+                scene, *bounce), 20)
+            k3['plain_ms'] = cuda_ms(torch, lambda: _brute_force_batched(
+                scene, *bounce), 5)
+            k3['occ_ms'] = cuda_ms(torch, lambda: kernels.occluded_brute(
+                scene, *shadow), 20)
+            k3['occ_plain_ms'] = cuda_ms(torch, lambda: _occluded_batched(
+                scene, *shadow), 5)
+            print(f"[7] K3 at 2^18 rays (glass cbox): closest hit, bounce "
+                  f"rays: kernel {k3['ms']:.4f} ms, plain "
+                  f"{k3['plain_ms']:.4f} ms; any hit, shadow rays: kernel "
+                  f"{k3['occ_ms']:.4f} ms, plain {k3['occ_plain_ms']:.4f} "
+                  f"ms ({smi})")
+
+    # ---- 8. the general engine with K3 against it with the plain casts
+    glass = PT.make_cornell_box(128, variant='glass').to(dev)
+    spp = 4
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    film_k, _, iters = PP._render_block_sc(glass, options, 0, 0, spp)
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    with mock.patch.multiple(kernels, intersect_brute=_brute_force_batched,
+                             occluded_brute=_occluded_batched):
+        film_p, _, _ = PP._render_block_sc(glass, options, 0, 0, spp)
+    img_k = film_k.cpu().numpy() / spp
+    img_p = film_p.cpu().numpy() / spp
+    rel = np.abs(img_k - img_p) / (img_p + 1e-3)
+    mean_rel = abs(img_k.mean() - img_p.mean()) / img_p.mean()
+    print(f"[8] general engine, K3 vs plain casts, glass cbox 128x128 x "
+          f"{spp} spp: median rel {np.median(rel):.3g}, mean rel "
+          f"{mean_rel:.3g}, pixels rel > 1e-3 {(rel > 1e-3).mean():.4f}; "
+          f"{iters} iterations in {engine_s:.3f} s")
+    if not (np.isfinite(img_k).all() and np.median(rel) < 1e-4 and
+            mean_rel < 0.01):
+        raise AssertionError("the general engine with K3 disagrees with it "
+                             "with the plain casts")
+
+    # ---- 9. the furnace through the general engine
+    albedo = 0.6
+    img = render(PT.make_furnace_scene(albedo, res=64),
+                 RenderOptions(samples_per_pixel=64), device=dev)
+    sphere = img[PT.furnace_sphere_mask(64)]
+    print(f"[9] furnace 64x64 x 64 spp: sphere mean {sphere.mean():.5f} "
+          f"(albedo x env {albedo}), min {sphere.min():.4f}, max "
+          f"{sphere.max():.4f}")
+    if not (np.isfinite(img).all() and
+            abs(sphere.mean() - albedo) / albedo < 0.03):
+        raise AssertionError("furnace sphere off albedo x env")
 
     print(json.dumps({"kernels": [
         {"name": "render_fused_kernel", "route": "cuda",
@@ -241,7 +379,17 @@ def main():
         {"name": "advance_kernel", "route": "cuda", "source": KERNEL_SOURCE,
          "replaces": "lajolla_tpu/integrators/path_kernel.py:895",
          "launches": launches['advance'], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms}]}))
+         "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": "intersect_brute_kernel", "route": "cuda",
+         "source": K3_SOURCE, "replaces": K3_REPLACES,
+         "launches": launches['intersect_brute'],
+         "max_abs_err": k3['closest_err'], "ms": k3['ms'],
+         "plain_ms": k3['plain_ms']},
+        {"name": "occluded_brute_kernel", "route": "cuda",
+         "source": K3_SOURCE, "replaces": K3_REPLACES,
+         "launches": launches['occluded_brute'],
+         "max_abs_err": k3['occ_err'], "ms": k3['occ_ms'],
+         "plain_ms": k3['occ_plain_ms']}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

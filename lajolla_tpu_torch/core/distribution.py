@@ -3,8 +3,8 @@
 The reference's TableDist1D/TableDist2D (src/table_dist.h/.cpp) build
 pmf/cdf vectors at scene-construction time and binary-search them per
 sample. Here: CDFs are built host-side in numpy (float64) and shipped to
-the device as fp32 arrays; the samplers that read them live with the
-kernels that use them (integrators/path_kernel.py).
+the device as fp32 arrays; the device samplers at the end of this module
+read them batched over lanes (the fused kernels carry their own).
 
 Segmented variant: many per-shape triangle-area distributions are packed
 into ONE flat array using the "staircase CDF" trick — entry i of segment s
@@ -14,6 +14,7 @@ sampling branch-free and shape-count-independent on device.
 """
 
 import numpy as np
+import torch
 
 
 # ---------------------------------------------------------------------------
@@ -115,3 +116,65 @@ def build_alias(weights):
         q[i] = 1.0
     return np.stack([q, alias.astype(np.float64)], axis=1).astype(
         np.float32)
+
+
+# ---------------------------------------------------------------------------
+# Device-side sampling, batched over a leading lane axis
+# ---------------------------------------------------------------------------
+
+def sample_cdf(cdf, u):
+    """Inverse-CDF sample per lane: smallest i with cdf[i] >= u (u: (N,)).
+    Small tables use a dense compare-count, large ones a binary search,
+    as lajolla_tpu's sampler does; both agree on a nondecreasing cdf."""
+    if cdf.shape[0] <= 512:
+        i = (cdf[None, :] < u[:, None]).sum(dim=1)
+    else:
+        i = torch.searchsorted(cdf, u.contiguous(), side='left')
+    return torch.clamp(i, 0, cdf.shape[0] - 1)
+
+
+def sample_segmented(stair_cdf, seg_id, u):
+    """Sample within segment seg_id of a staircase CDF. Returns the global
+    flat index per lane."""
+    i = torch.searchsorted(stair_cdf, (seg_id.to(stair_cdf.dtype) + u)
+                           .contiguous(), side='left')
+    return torch.clamp(i, 0, stair_cdf.shape[0] - 1)
+
+
+def sample_cdf_2d(marg_cdf, cond_cdf, u):
+    """u: (N, 2) uniforms. Returns (row, col, u_remap (N, 2)): u_remap are
+    the continuous offsets within the chosen cell."""
+    row = sample_cdf(marg_cdf, u[:, 1])
+    row_cdf = cond_cdf[row]                                   # (N, W)
+    col = torch.clamp(torch.searchsorted(
+        row_cdf, u[:, 0:1].contiguous(), side='left')[:, 0],
+        0, cond_cdf.shape[1] - 1)
+    marg_lo = torch.where(row > 0, marg_cdf[torch.clamp(row - 1, min=0)],
+                          0.0)
+    marg_p = marg_cdf[row] - marg_lo
+    dv = torch.where(marg_p > 0, (u[:, 1] - marg_lo) / marg_p, 0.5)
+    rows = torch.arange(row.shape[0], device=row.device)
+    cond_lo = torch.where(col > 0, row_cdf[rows, torch.clamp(col - 1, min=0)],
+                          0.0)
+    cond_p = row_cdf[rows, col] - cond_lo
+    du = torch.where(cond_p > 0, (u[:, 0] - cond_lo) / cond_p, 0.5)
+    return row, col, torch.stack([du, dv], dim=-1)
+
+
+def sample_alias(table, u0, u1):
+    """One O(1) draw per lane from an (M, 2) alias table. Returns
+    (idx, du, dv): idx is distributed proportionally to the build
+    weights; du, dv are fresh U[0,1) uniforms recovered from the consumed
+    ones, so callers need no extra random numbers."""
+    M = table.shape[0]
+    f = u0 * M
+    j = torch.clamp(f.to(torch.int32), 0, M - 1).long()
+    du = torch.clamp(f - j.to(f.dtype), 0.0, 1.0)
+    row = table[j]
+    q = row[:, 0]
+    a = row[:, 1].to(torch.int32).long()
+    take = u1 < q
+    idx = torch.where(take, j, a)
+    dv = torch.where(take, u1 / torch.clamp(q, min=1e-12),
+                     (u1 - q) / torch.clamp(1.0 - q, min=1e-12))
+    return idx, du, torch.clamp(dv, 0.0, 1.0 - 1e-7)

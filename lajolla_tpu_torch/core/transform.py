@@ -3,10 +3,12 @@
 Host-side builders (numpy, parse time) mirror the reference's
 translate/scale/rotate/look_at/perspective constructors
 (src/transform.cpp:5-80). The camera matrices they build are applied on
-the device by integrators/path_megakernel.py.
+the device by integrators/path_megakernel.py and by `xform_point` /
+`xform_vector` below (scene/camera.py, the envmap).
 """
 
 import numpy as np
+import torch
 
 
 # ---------------------------------------------------------------------------
@@ -86,3 +88,25 @@ def parse_matrix_string(s):
         m[:3, :3] = np.asarray(vals, np.float64).reshape(3, 3)
         return m
     raise ValueError(f"matrix string must have 9 or 16 entries, got {len(vals)}")
+
+
+# ---------------------------------------------------------------------------
+# Device-side application (torch, batched over leading axes)
+# ---------------------------------------------------------------------------
+
+def _rows3(m, p):
+    """(m[:3, :3] @ p) with each row's products added left to right."""
+    return torch.stack([m[i, 0] * p[..., 0] + m[i, 1] * p[..., 1] +
+                        m[i, 2] * p[..., 2] for i in range(3)], -1)
+
+
+def xform_point(m, p):
+    """m: (4, 4), p: (..., 3) → transformed points, homogeneous divide."""
+    r = _rows3(m, p) + m[:3, 3]
+    w = m[3, 0] * p[..., 0] + m[3, 1] * p[..., 1] + m[3, 2] * p[..., 2] + \
+        m[3, 3]
+    return r / w[..., None]
+
+
+def xform_vector(m, v):
+    return _rows3(m, v)

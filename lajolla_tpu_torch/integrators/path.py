@@ -1,27 +1,47 @@
-"""Unidirectional surface path tracer — the kernel-route drivers.
+"""Unidirectional surface path tracer: the kernel-route drivers and the
+general engine.
 
-Port of the fused-kernel route of lajolla_tpu/integrators/path.py: NEE
-with power-heuristic MIS against BSDF sampling, Russian roulette, filter
+Port of lajolla_tpu/integrators/path.py: NEE with power-heuristic MIS
+against BSDF sampling, Russian roulette with eta_scale tracking, filter
 importance sampling, and a persistent wavefront: a pool of lanes works
 through a queue of (pixel, sample) items, and a lane whose path ends
 adds its radiance to the film and takes the next item at once.
 
+Two engines, dispatched as lajolla_tpu's `_render_block` does:
+- scenes inside path_kernel.supports take the fused kernels: K1
+  (path_megakernel.render_fused) for films of whole 4096-pixel blocks,
+  otherwise the per-bounce driver `_render_block_kernel` with K2;
+- every other scene takes the general engine: `_advance_lane` (one path
+  vertex for a batch of lanes: hit records, textures, any ported BSDF,
+  area and environment lights, ray differentials) inside the queue
+  `_render_block_sc`. Its casts are kernel K3 (scene/geometry.py).
+
 Every uniform comes from the counter hash of (seed, work item, bounce,
 dim), so the port draws lajolla_tpu's random numbers bit for bit and a
 render can resume at any sample block.
-
-Scenes outside path_kernel.supports need lajolla_tpu's general engine
-(`_advance_lane`, `_render_block_sc`), which is not yet ported: they
-raise NotImplementedError.
 """
 
 import torch
 
+from lajolla_tpu_torch.core.math import distance_squared, dot, normalize
+from lajolla_tpu_torch.dtypes import intersection_eps, shadow_eps
 from lajolla_tpu_torch.integrators import path_kernel
+from lajolla_tpu_torch.integrators.lights import (LightPoint, emission_area,
+                                                  emission_envmap, light_pmf,
+                                                  pdf_point_on_light,
+                                                  sample_light,
+                                                  sample_point_on_light)
+from lajolla_tpu_torch.materials import (check_supported, eval_bsdf,
+                                         pdf_bsdf, sample_bsdf)
+from lajolla_tpu_torch.scene.camera import sample_primary
+from lajolla_tpu_torch.scene.geometry import intersect_scene, occluded
+from lajolla_tpu_torch.scene.types import LIGHT_ENVMAP
 
+INF = float('inf')
 MAX_BOUNCES_CAP = 64  # absolute safety cap on path length (RR terminates
                       # far earlier; bias at this cap is ~0.75^59)
 KERNEL_SPP_BLOCK = 256   # samples per pixel in one render_fused launch
+SPP_BLOCK = 16           # samples per pixel in one general-engine block
 
 # Counter-based hash RNG (Jarzynski & Olano, "Hash Functions for GPU
 # Rendering"): every uniform is a pure function of (seed, work item,
@@ -55,10 +75,10 @@ def _use_kernel(scene):
     return path_kernel.supports(scene.meta)
 
 
-def _not_ported():
-    return NotImplementedError(
-        "general engine not yet ported (ROADMAP queue 1: general surface "
-        "engine): this scene is outside path_kernel.supports")
+def _check_items(end):
+    if end >= 1 << 31:
+        # lajolla_tpu keys its work items in int32
+        raise ValueError(f"{end} work items overflow int32 items")
 
 
 def _render_block_kernel(scene, options, seed, s0, nspp,
@@ -75,9 +95,7 @@ def _render_block_kernel(scene, options, seed, s0, nspp,
     w, h = scene.meta.width, scene.meta.height
     n = w * h
     end = (s0 + nspp) * n
-    if end >= 1 << 31:
-        # lajolla_tpu keys its work items in int32
-        raise ValueError(f"(s0 + nspp) * n = {end} overflows int32 items")
+    _check_items(end)
     dev = scene.fp_tri.device
     su = int(seed) & _M32
     lane = torch.arange(n, device=dev)
@@ -130,14 +148,246 @@ def _render_block_kernel(scene, options, seed, s0, nspp,
     return film.reshape(h, w, 3)
 
 
+# ---------------------------------------------------------------------------
+# The general engine
+# ---------------------------------------------------------------------------
+
+def _ray_diff_reflect(spread, radius, mean_curvature, roughness):
+    """ray.h:45-51."""
+    spec = spread + 2.0 * mean_curvature * radius
+    return torch.clamp(spec * (1.0 - roughness) + 0.2 * roughness, min=0.0)
+
+
+def _ray_diff_refract(spread, radius, mean_curvature, eta, roughness):
+    """ray.h:54-66."""
+    spec = (spread + 2.0 * mean_curvature * radius) / eta
+    return torch.clamp(spec * (1.0 - roughness) + 0.2 * roughness, min=0.0)
+
+
+def _mis(p_this, p_other):
+    """Power heuristic (k = 2) weight of the strategy with pdf p_this."""
+    return (p_this * p_this) / torch.clamp(p_this * p_this +
+                                           p_other * p_other, min=1e-30)
+
+
+def _advance_lane(scene, options, st, u):
+    """One path-vertex step for a batch of lanes (lajolla_tpu vmaps a
+    per-lane form; here every field has a leading lane axis N).
+
+    st: (item, nv, org, d, spread, radius, T, L, eta_scale, dir_pdf,
+    prev_pos, done) — item, nv (N,) int64; org, d, T, L, prev_pos (N, 3);
+    spread, radius, eta_scale, dir_pdf (N,) float; done (N,) bool.
+    u: (N, 8) uniforms for this vertex (the driver draws them from the
+    counter hash). Returns (new state tuple, died), died marking the
+    paths that complete THIS step (radiance ready to splat). lajolla_tpu's
+    detached-gradient mode (detach=True, for diffpath) is not ported."""
+    (item, nv, org, d, spread, radius, T, L, eta_scale,
+     dir_pdf, prev_pos, done) = st
+    meta = scene.meta
+    eps_shadow = shadow_eps(meta.scene_radius)
+    eps_isect = intersection_eps(meta.scene_radius)
+    max_depth = options.max_depth
+    n = item.shape[0]
+
+    hit = intersect_scene(scene, org, d, eps_isect, INF, radius, spread)
+    radius = radius + spread * torch.where(hit.valid, hit.t, 0.0)
+    from_camera = nv == 2
+
+    # ---- emission at this vertex (path_tracing.h:58-61 / :264-302) --------
+    hit_light = hit.valid & (hit.light_id >= 0)
+    Le = emission_area(scene, hit.light_id, hit.geometry_normal, -d)
+    G2 = torch.abs(dot(d, hit.geometry_normal)) / \
+        torch.clamp(distance_squared(hit.position, prev_pos), min=1e-20)
+    p2 = dir_pdf * G2
+    lp2 = LightPoint(position=hit.position, normal=hit.geometry_normal)
+    p1 = light_pmf(scene, hit.light_id) * \
+        pdf_point_on_light(scene, hit.light_id, lp2, prev_pos)
+    w2 = torch.where(from_camera, 1.0, _mis(p2, p1))
+    L = L + torch.where(hit_light[:, None], T * Le * w2[:, None], 0.0)
+
+    if meta.has_envmap:
+        Lenv = emission_envmap(scene, d, spread)
+        env_id = torch.full((n,), meta.envmap_light_id, dtype=torch.int32,
+                            device=d.device)
+        lpe = LightPoint(position=torch.zeros_like(d), normal=-d)
+        p1e = light_pmf(scene, env_id) * \
+            pdf_point_on_light(scene, env_id, lpe, prev_pos)
+        p2e = dir_pdf  # solid-angle measure; G = 1 for envmaps
+        w2e = torch.where(from_camera, 1.0, _mis(p2e, p1e))
+        L = L + torch.where(~hit.valid[:, None], T * Lenv * w2e[:, None],
+                            0.0)
+
+    # path continues only if we hit a non-light-limit vertex
+    depth_stop = (nv >= 2 + MAX_BOUNCES_CAP) if max_depth == -1 else \
+        (nv > max_depth)
+    alive = hit.valid & ~depth_stop
+
+    dir_view = -d
+    mat_id = hit.material_id
+
+    # ---- NEE (path_tracing.h:98-207) --------------------------------------
+    light_id = sample_light(scene, u[:, 2])
+    lp = sample_point_on_light(scene, light_id, hit.position, u[:, 0:2],
+                               u[:, 3])
+    if meta.has_envmap:
+        is_env = scene.light_type[light_id.long()] == LIGHT_ENVMAP
+    else:
+        is_env = torch.zeros_like(done)
+    dir_light_area = normalize(lp.position - hit.position)
+    dir_light = torch.where(is_env[:, None], -lp.normal, dir_light_area)
+    dist2 = distance_squared(lp.position, hit.position)
+    tfar = torch.where(is_env, INF, (1.0 - eps_shadow) * torch.sqrt(dist2))
+    occ = occluded(scene, hit.position, dir_light, eps_shadow, tfar)
+    G_area = torch.clamp(-dot(dir_light, lp.normal), min=0.0) / \
+        torch.clamp(dist2, min=1e-20)
+    G = torch.where(occ, 0.0, torch.where(is_env, 1.0, G_area))
+    p1n = light_pmf(scene, light_id) * \
+        pdf_point_on_light(scene, light_id, lp, hit.position)
+    nee_ok = alive & (G > 0) & (p1n > 0)
+    f_nee = eval_bsdf(scene, mat_id, dir_view, dir_light, hit)
+    L_nee = emission_area(scene, light_id, lp.normal, -dir_light)
+    if meta.has_envmap:
+        L_nee = torch.where(is_env[:, None],
+                            emission_envmap(scene, dir_light, 0.0), L_nee)
+    p2n = pdf_bsdf(scene, mat_id, dir_view, dir_light, hit) * G
+    w1 = _mis(p1n, p2n)
+    # nee_ok-gated denominator: identical where the term is used; masked
+    # lanes divide by 1 so their (discarded) values stay finite
+    C1 = G[:, None] * f_nee * L_nee / torch.where(
+        nee_ok, torch.clamp(p1n, min=1e-30), 1.0)[:, None]
+    L = L + torch.where(nee_ok[:, None], T * C1 * w1[:, None], 0.0)
+
+    # ---- BSDF sampling + RR (path_tracing.h:210-322) ----------------------
+    rec = sample_bsdf(scene, mat_id, dir_view, hit, u[:, 4:6], u[:, 6])
+    f2 = eval_bsdf(scene, mat_id, dir_view, rec.dir_out, hit)
+    p2s = pdf_bsdf(scene, mat_id, dir_view, rec.dir_out, hit)
+    alive = alive & rec.valid & (p2s > 0)
+
+    do_rr = (nv - 1) >= options.rr_depth
+    rr_prob = torch.where(
+        do_rr, torch.clamp((T / eta_scale[:, None]).amax(dim=-1), max=0.95),
+        1.0)
+    alive = alive & (u[:, 7] <= rr_prob)
+
+    is_refract = rec.eta != 0.0
+    new_spread = torch.where(
+        is_refract,
+        _ray_diff_refract(spread, radius, hit.mean_curvature,
+                          torch.clamp(rec.eta, min=1e-6), rec.roughness),
+        _ray_diff_reflect(spread, radius, hit.mean_curvature, rec.roughness))
+    new_eta_scale = torch.where(
+        is_refract, eta_scale / torch.clamp(rec.eta * rec.eta, min=1e-12),
+        eta_scale)
+    # dead lanes carry T = 0 (the queue regenerates them; their radiance
+    # was latched at death)
+    new_T = torch.where(alive[:, None], T * f2 / torch.clamp(
+        p2s * rr_prob, min=1e-30)[:, None], 0.0)
+
+    died = ~done & ~alive
+
+    nst = (item, nv + 1, hit.position, rec.dir_out, new_spread, radius,
+           new_T, L, new_eta_scale, p2s, hit.position, done)
+    return nst, died
+
+
+def _primary_hash(scene, options, item, seed_u32, nq=None):
+    """Camera rays for work items `item` ((N,) int64) with hash-derived
+    uniforms, through camera.sample_primary. `nq` >= n is the padded
+    queue stride; items with pixel >= n are dummy lanes whose radiance
+    is discarded. Returns (pixel, org, dir)."""
+    w = scene.meta.width
+    n = nq or (w * scene.meta.height)
+    pixel = item % n
+    px = (pixel % w).to(torch.float32)
+    py = (pixel // w).to(torch.float32)
+    hp = _pcg_hash(item ^ _pcg_hash(seed_u32 ^ 0xCAFEF00D))
+    u_pix = torch.stack(
+        [_hash_u01(_pcg_hash((hp + _GOLD) & _M32)),
+         _hash_u01(_pcg_hash((hp + (2 * _GOLD & _M32)) & _M32))], dim=-1)
+    org, d = sample_primary(scene, options, px, py, u_pix)
+    return pixel, org, d
+
+
+def _render_block_sc(scene, options, seed, s0, nspp, lanes=None):
+    """Render nspp samples/pixel (sample indices s0..s0+nspp) of the full
+    film with the general engine's persistent-wavefront queue. Returns
+    (film_sum (n_q, 3), final state, loop iterations). `lanes` < n
+    shrinks the worker pool; the queue semantics are unchanged.
+
+    Each iteration advances every lane by one vertex; a lane whose path
+    ended adds its radiance to its pixel (index_add_; a sample with any
+    non-finite channel is dropped whole, render.cpp:140-143) and takes
+    the next item, item + lanes. The loop ends when every lane has run
+    out of items; `done.all()` is read back to the host every
+    iteration."""
+    check_supported(scene.meta)
+    w, h = scene.meta.width, scene.meta.height
+    n = w * h
+    lanes = lanes or n
+    su = int(seed) & _M32
+    # padded queue stride: item ≡ lane (mod lanes)
+    n_q = -(-n // lanes) * lanes
+    end = (s0 + nspp) * n_q
+    _check_items(end)
+    dev = scene.tri_shade.device
+    item0 = torch.arange(lanes, device=dev) + s0 * n_q
+    _pix, org0, d0 = _primary_hash(scene, options, item0, su, n_q)
+    spread0 = 0.25 / max(w, h)
+    st = (item0, torch.full((lanes,), 2, device=dev), org0, d0,
+          torch.full((lanes,), spread0, device=dev),
+          torch.zeros(lanes, device=dev), torch.ones((lanes, 3), device=dev),
+          torch.zeros((lanes, 3), device=dev), torch.ones(lanes, device=dev),
+          torch.zeros(lanes, device=dev), org0,
+          torch.zeros(lanes, dtype=torch.bool, device=dev))
+    film = torch.zeros((n_q, 3), device=dev)
+    iters = 0
+
+    while not bool(st[11].all()):
+        uN = _vertex_uniforms(st[0], st[1], su).T              # (N, 8)
+        nst, died = _advance_lane(scene, options, st, uN)
+        (item, nv, org, d, spread, radius, T, L, eta_scale,
+         dir_pdf, prev_pos, done) = nst
+
+        fin = torch.isfinite(L).all(dim=-1)
+        film.index_add_(0, item % n_q,
+                        torch.where((died & fin)[:, None], L, 0.0))
+
+        next_item = item + lanes
+        has_more = next_item < end
+        regen = died & has_more
+        done = done | (died & ~has_more)
+
+        _rp, rorg, rd = _primary_hash(scene, options, next_item, su, n_q)
+        r1 = regen[:, None]
+        st = (torch.where(regen, next_item, item),
+              torch.where(regen, 2, nv),
+              torch.where(r1, rorg, org),
+              torch.where(r1, rd, d),
+              torch.where(regen, spread0, spread),
+              torch.where(regen, 0.0, radius),
+              torch.where(r1, 1.0, T),
+              torch.where(r1, 0.0, L),
+              torch.where(regen, 1.0, eta_scale),
+              torch.where(regen, 0.0, dir_pdf),
+              torch.where(r1, rorg, prev_pos),
+              done)
+        iters += 1
+    return film, st, iters
+
+
 def _render_block(scene, options, seed, s0, nspp):
-    """Film sum (h, w, 3) of samples s0..s0+nspp. Films that fill more
-    than one 4096-pixel block exactly take the fused kernel K1; the rest
-    take the per-bounce driver with kernel K2 (lajolla_tpu's dispatch)."""
+    """Film sum (h, w, 3) of samples s0..s0+nspp, dispatched as
+    lajolla_tpu's `_render_block` (without its TPU-only test): scenes
+    inside path_kernel.supports take the fused kernels — K1 for films of
+    more than one 4096-pixel block, a whole number of them, else the
+    per-bounce driver with K2 — and every other scene the general
+    engine."""
     from lajolla_tpu_torch.integrators import path_megakernel
+    w, h = scene.meta.width, scene.meta.height
+    n = w * h
     if not _use_kernel(scene):
-        raise _not_ported()
-    n = scene.meta.width * scene.meta.height
+        film, _, _ = _render_block_sc(scene, options, seed, s0, nspp)
+        return film[:n].reshape(h, w, 3)
     if n % path_megakernel.BLOCK == 0 and n > path_megakernel.BLOCK:
         return path_megakernel.render_fused(scene, options, seed, s0, nspp)
     return _render_block_kernel(scene, options, seed, s0, nspp)
@@ -151,9 +401,8 @@ def render_path(scene, options, seed=0, checkpoint=None, progress=False):
     from lajolla_tpu_torch.utils.checkpoint import load_film, save_film
     from lajolla_tpu_torch.utils.progress import ProgressReporter
 
-    if not _use_kernel(scene):
-        raise _not_ported()
     spp = options.samples_per_pixel
+    spp_block = KERNEL_SPP_BLOCK if _use_kernel(scene) else SPP_BLOCK
     h, w = scene.meta.height, scene.meta.width
     img, s0 = None, 0
     if checkpoint:
@@ -161,7 +410,7 @@ def render_path(scene, options, seed=0, checkpoint=None, progress=False):
     rep = ProgressReporter(spp, enabled=progress)
     rep.done = s0
     while s0 < spp:
-        ns = min(KERNEL_SPP_BLOCK, spp - s0)
+        ns = min(spp_block, spp - s0)
         block = _render_block(scene, options, seed, s0, ns).cpu().numpy()
         img = block if img is None else img + block
         s0 += ns

@@ -1,14 +1,18 @@
-"""Build and bind the CUDA kernels (nvcc into a shared library + ctypes).
+"""Build and bind the CUDA kernels (nvcc into shared libraries + ctypes).
 
-At first use, `build()` compiles csrc/path_kernels.cu for sm_90a into
-build/lajolla_tpu_torch/ next to the package, keyed on a hash of the
-sources, and loads it with ctypes. Nothing here runs at import: the
-module imports on machines with no nvcc and no GPU.
+At first use, `build()` compiles each csrc/*.cu for sm_90a into its own
+library under build/lajolla_tpu_torch/ next to the package, all nvcc
+processes started together, keyed on a hash of the sources, and loads
+them with ctypes. Nothing here runs at import: the module imports on
+machines with no nvcc and no GPU.
 
 The wrappers check device, dtype, shape and contiguity, allocate their
 outputs with torch.empty, launch on the current stream without
 synchronising, raise if the launch reports a CUDA error, and count their
-launches in LAUNCHES. They never fall back to the plain forms.
+launches in LAUNCHES. They never fall back to the plain forms: K1 and K2
+take CUDA tensors only (their callers run the plain forms for CPU
+tensors); K3's wrappers run the plain form for CPU tensors themselves
+and launch the kernel for CUDA tensors.
 """
 
 import ctypes
@@ -21,16 +25,18 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parent / 'csrc'
-_SOURCES = ('path_kernels.cu', 'path_advance.cuh')
+_SOURCES = ('path_kernels.cu', 'path_advance.cuh', 'intersect_kernels.cu')
+_UNITS = ('path_kernels', 'intersect_kernels')   # one library per .cu
 BUILD_DIR = Path(__file__).resolve().parent.parent / 'build' / \
     'lajolla_tpu_torch'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
 
 # Kernel launches by kernel name; a wrapper adds one where it launches.
-LAUNCHES = {'render_fused': 0, 'advance': 0}
+LAUNCHES = {'render_fused': 0, 'advance': 0, 'intersect_brute': 0,
+            'occluded_brute': 0}
 
-_lib = None
+_libs = None
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -70,44 +76,65 @@ def _source_tag():
     return digest.hexdigest()[:16]
 
 
+def _bind(libs):
+    path, isect = libs['path_kernels'], libs['intersect_kernels']
+    path.lj_render_fused.argtypes = [ctypes.POINTER(_Tables),
+                                     ctypes.POINTER(_Camera), _I, _I, _I, _I,
+                                     _I, ctypes.c_uint32, ctypes.c_longlong,
+                                     _I, _P, _P]
+    path.lj_render_fused.restype = _I
+    path.lj_advance.argtypes = ([ctypes.POINTER(_Tables), _I, _I, _I, _I] +
+                                [_P] * 16)
+    path.lj_advance.restype = _I
+    isect.lj_intersect_brute.argtypes = [_P, _P, _P, _P, _I, _I] + [_P] * 9
+    isect.lj_intersect_brute.restype = _I
+    isect.lj_occluded_brute.argtypes = [_P, _P, _I, _I] + [_P] * 6
+    isect.lj_occluded_brute.restype = _I
+
+
 def build():
-    """Compile (if this source hash has no library yet) and load the
-    kernels. Returns the ctypes library; raises if the build fails."""
-    global _lib
-    if _lib is not None:
-        return _lib
+    """Compile (the libraries this source hash has not built yet, all
+    nvcc processes at once) and load the kernels. Returns {unit: ctypes
+    library}; raises if a build fails."""
+    global _libs
+    if _libs is not None:
+        return _libs
     tag = _source_tag()
-    so = BUILD_DIR / f'liblj_kernels_{tag}.so'
-    if not so.exists():
+    sos = {u: BUILD_DIR / f'liblj_{u}_{tag}.so' for u in _UNITS}
+    jobs = {}
+    for unit, so in sos.items():
+        if so.exists():
+            continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f'.liblj_kernels_{tag}.{os.getpid()}.so'
-        cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp),
-               str(_CSRC / 'path_kernels.cu')]
-        r = subprocess.run(cmd, capture_output=True, text=True)
-        (BUILD_DIR / f'build_{tag}.log').write_text(
-            ' '.join(cmd) + '\n' + r.stdout + r.stderr)
-        if r.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({r.returncode}):\n"
-                               f"{r.stderr[-6000:]}")
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
-    lib.lj_render_fused.argtypes = [ctypes.POINTER(_Tables),
-                                    ctypes.POINTER(_Camera), _I, _I, _I, _I,
-                                    _I, ctypes.c_uint32, ctypes.c_longlong,
-                                    _I, _P, _P]
-    lib.lj_render_fused.restype = _I
-    lib.lj_advance.argtypes = ([ctypes.POINTER(_Tables), _I, _I, _I, _I] +
-                               [_P] * 16)
-    lib.lj_advance.restype = _I
-    _lib = lib
-    return lib
+        tmp = BUILD_DIR / f'.liblj_{unit}_{tag}.{os.getpid()}.so'
+        cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(_CSRC / f'{unit}.cu')]
+        log = BUILD_DIR / f'build_{unit}_{tag}.log'
+        with open(log, 'w') as f:          # the child holds its own copy
+            f.write(' '.join(cmd) + '\n')
+            f.flush()
+            proc = subprocess.Popen(cmd, stdout=f, stderr=subprocess.STDOUT)
+        jobs[unit] = (tmp, log, proc)
+    failed = []
+    for unit, (tmp, log, proc) in jobs.items():
+        if proc.wait() != 0:
+            failed.append(f"nvcc {unit}.cu failed ({proc.returncode}):\n"
+                          f"{log.read_text()[-6000:]}")
+        else:
+            os.replace(tmp, sos[unit])
+    if failed:
+        raise RuntimeError('\n'.join(failed))
+    libs = {u: ctypes.CDLL(str(so)) for u, so in sos.items()}
+    _bind(libs)
+    _libs = libs
+    return libs
 
 
 def build_log():
-    """The nvcc output (ptxas registers and spills) of the build of the
-    current sources, or '' if they have not been built here."""
-    log = BUILD_DIR / f'build_{_source_tag()}.log'
-    return log.read_text() if log.exists() else ''
+    """The nvcc output (ptxas registers and spills) of the builds of the
+    current sources, or '' for a library not built here."""
+    tag = _source_tag()
+    logs = [BUILD_DIR / f'build_{u}_{tag}.log' for u in _UNITS]
+    return ''.join(log.read_text() for log in logs if log.exists())
 
 
 def _check(t, name, shape, dtype, device):
@@ -161,7 +188,7 @@ def render_fused(scene, cam, seed_u32, s0, nspp, *, w, h, filter_type,
                  filter_param, eps_isect, eps_shadow, max_depth, rr_depth,
                  max_cap):
     """Kernel K1: the (3, w*h) film sum of samples s0..s0+nspp."""
-    lib = build()
+    lib = build()['path_kernels']
     device, tb, mats, quads, sph = _scene_args(
         scene, eps_isect, eps_shadow, max_depth, rr_depth, max_cap)
     n = w * h
@@ -188,7 +215,7 @@ def advance(scene, org, d, thr, rad, nv, dir_pdf, prev, un, act, *,
     """Kernel K2: one vertex for N lanes. Vectors (3, N), un (8, N), nv and
     dir_pdf (N,) float32, act (N,) bool. Returns (org', dir', thr', rad',
     dir_pdf', alive)."""
-    lib = build()
+    lib = build()['path_kernels']
     device, tb, mats, quads, sph = _scene_args(
         scene, eps_isect, eps_shadow, max_depth, rr_depth, max_cap)
     N = org.shape[1]
@@ -213,3 +240,87 @@ def advance(scene, org, d, thr, rad, nv, dir_pdf, prev, un, act, *,
         raise RuntimeError(f"advance_kernel launch: CUDA error {rc}")
     LAUNCHES['advance'] += 1
     return tuple(outs)
+
+
+# K3 stages the cast table in shared memory: at most lajolla_tpu's
+# BVH_MIN_TRIS prims (csrc/intersect_kernels.cu kMaxPrims).
+MAX_CAST_PRIMS = 192
+
+
+def _ray_args(o, d, tnear, tfar):
+    """Pointers of (N, 3) rays and (N,) bounds; scalar bounds become
+    tensors."""
+    device, n, f32 = o.device, o.shape[0], torch.float32
+    tn, tf = (x if torch.is_tensor(x) else
+              torch.full((n,), float(x), dtype=f32, device=device)
+              for x in (tnear, tfar))
+    return (n, tn, tf, [_check(o, 'o', (n, 3), f32, device),
+                        _check(d, 'd', (n, 3), f32, device),
+                        _check(tn, 'tnear', (n,), f32, device),
+                        _check(tf, 'tfar', (n,), f32, device)])
+
+
+def _cast_table(woop, quad, name, device):
+    """Pointers of a cast table and its quad flags on the rays' device."""
+    tc = woop.shape[0]
+    if tc > MAX_CAST_PRIMS:
+        raise ValueError(f"{name}: {tc} cast prims, K3 takes at most "
+                         f"{MAX_CAST_PRIMS}")
+    return tc, [_check(woop, name, (tc, 12), torch.float32, device),
+                _check(quad, name + ' quad flags', (tc,), torch.float32,
+                       device)]
+
+
+def intersect_brute(scene, o, d, tnear, tfar):
+    """Kernel K3, closest hit over the quad-merged cast table
+    (scene.fp_woop). o, d: (N, 3); tnear/tfar: (N,) or scalars. Returns
+    (t, prim, u, v), each (N,): prim a true triangle id, -1 on a miss.
+    CPU tensors run the plain form (ops/intersect._brute_force_batched);
+    CUDA tensors launch the kernel, and anything else raises."""
+    if o.device.type == 'cpu':
+        from lajolla_tpu_torch.ops.intersect import _brute_force_batched
+        return _brute_force_batched(scene, o, d, tnear, tfar)
+    device = o.device
+    tc, table = _cast_table(scene.fp_woop, scene.cast_quad, 'fp_woop',
+                            device)
+    ids = [_check(scene.cast_src, 'cast_src', (tc,), torch.int32, device),
+           _check(scene.cast_alt, 'cast_alt', (tc,), torch.int32, device)]
+    n, tn, tf, rays = _ray_args(o, d, tnear, tfar)
+    lib = build()['intersect_kernels']
+    t = torch.empty(n, dtype=torch.float32, device=device)
+    prim = torch.empty(n, dtype=torch.int32, device=device)
+    u = torch.empty_like(t)
+    v = torch.empty_like(t)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.lj_intersect_brute(*table, *ids, tc, n, *rays,
+                                    t.data_ptr(), prim.data_ptr(),
+                                    u.data_ptr(), v.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"intersect_brute_kernel launch: CUDA error {rc}")
+    LAUNCHES['intersect_brute'] += 1
+    return t, prim, u, v
+
+
+def occluded_brute(scene, o, d, tnear, tfar):
+    """Kernel K3, any hit over the occluder subset (scene.fp_woop_occ).
+    Returns (N,) bool. CPU tensors run the plain form
+    (ops/intersect._occluded_batched); CUDA tensors launch the kernel,
+    and anything else raises."""
+    if o.device.type == 'cpu':
+        from lajolla_tpu_torch.ops.intersect import _occluded_batched
+        return _occluded_batched(scene, o, d, tnear, tfar)
+    device = o.device
+    tc, table = _cast_table(scene.fp_woop_occ, scene.cast_occ_quad,
+                            'fp_woop_occ', device)
+    n, tn, tf, rays = _ray_args(o, d, tnear, tfar)
+    lib = build()['intersect_kernels']
+    occ = torch.empty(n, dtype=torch.bool, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.lj_occluded_brute(*table, tc, n, *rays, occ.data_ptr(),
+                                   stream)
+    if rc != 0:
+        raise RuntimeError(f"occluded_brute_kernel launch: CUDA error {rc}")
+    LAUNCHES['occluded_brute'] += 1
+    return occ

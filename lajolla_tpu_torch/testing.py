@@ -7,6 +7,10 @@ class: RoughPlastic + Lambertian, sphere and mesh lights). Both are also
 available as SceneBuilders (`*_builder`), which lajolla_tpu's own
 compile_scene accepts as well, so tests can compile one builder with
 both packages.
+
+The Cornell box has a "glass" variant for the general engine: the tall
+box RoughDielectric, the short box RoughPlastic and a checkerboard floor
+(three material types and uv lookups, so outside path_kernel.supports).
 """
 
 import os
@@ -180,9 +184,62 @@ def _quads_mesh(quads):
     return pos, np.array(idx, np.int32)
 
 
-def cornell_box_builder(res, spp=4):
+# The glass variant: checkerboard floor, RoughPlastic short box and
+# RoughDielectric tall box (eta = intIOR / extIOR = 1.5).
+CBOX_CHECKER = dict(color0=(0.75, 0.75, 0.75), color1=(0.25, 0.25, 0.25),
+                    uvscale=4.0)
+CBOX_PLASTIC = dict(diffuse=(0.2, 0.3, 0.6), roughness=0.15)
+CBOX_GLASS_ROUGHNESS = 0.1
+CBOX_IOR = (1.5, 1.0)
+CBOX_GLASS_SHAPES = {'floor': 'checker', 'short_box': 'plastic',
+                     'tall_box': 'glass'}
+# The floor's OBJ texture coordinates (`vt` lines); the loader flips v.
+CBOX_FLOOR_VT = ((0.0, 0.0), (0.0, 1.0), (1.0, 1.0), (1.0, 0.0))
+CBOX_VARIANTS = (None, 'glass')
+
+
+def _glass_materials(b, mat_ids):
+    """Append the glass variant's materials, their texture descriptors in
+    the parser's order (each BSDF's defaults first, then its children)."""
+    m = MaterialB(type=T.MAT_LAMBERTIAN)
+    _const_tex(b, (0.5, 0.5, 0.5))
+    b.texdescs.append(TexDesc(
+        kind=T.TEX_CHECKERBOARD, const=CBOX_CHECKER['color0'],
+        color1=CBOX_CHECKER['color1'], uscale=CBOX_CHECKER['uvscale'],
+        vscale=CBOX_CHECKER['uvscale']))
+    m.tex[T.P_BASE_COLOR] = len(b.texdescs) - 1
+    mat_ids['checker'] = len(b.materials)
+    b.materials.append(m)
+
+    eta = CBOX_IOR[0] / CBOX_IOR[1]
+    m = MaterialB(type=T.MAT_ROUGH_PLASTIC, eta=eta)
+    _const_tex(b, (0.5, 0.5, 0.5))
+    m.tex[T.P_AUX_COLOR] = _const_tex(b, (1.0, 1.0, 1.0))
+    _const_tex(b, 0.1)
+    m.tex[T.P_BASE_COLOR] = _const_tex(b, CBOX_PLASTIC['diffuse'])
+    m.tex[T.P_ROUGHNESS] = _const_tex(b, CBOX_PLASTIC['roughness'])
+    mat_ids['plastic'] = len(b.materials)
+    b.materials.append(m)
+
+    m = MaterialB(type=T.MAT_ROUGH_DIELECTRIC, eta=eta)
+    m.tex[T.P_BASE_COLOR] = _const_tex(b, (1.0, 1.0, 1.0))
+    m.tex[T.P_AUX_COLOR] = _const_tex(b, (1.0, 1.0, 1.0))
+    _const_tex(b, 0.1)
+    m.tex[T.P_ROUGHNESS] = _const_tex(b, CBOX_GLASS_ROUGHNESS)
+    mat_ids['glass'] = len(b.materials)
+    b.materials.append(m)
+
+
+def _check_variant(variant):
+    if variant not in CBOX_VARIANTS:
+        raise ValueError(f"unknown Cornell box variant {variant!r}")
+
+
+def cornell_box_builder(res, spp=4, variant=None):
     """The Cornell box as a SceneBuilder — the same scene the parser
-    builds from write_cornell_box_xml."""
+    builds from write_cornell_box_xml. variant='glass' gives the glass
+    Cornell box (CBOX_GLASS_SHAPES)."""
+    _check_variant(variant)
     b = SceneBuilder(camera=CameraB(
         to_world=xf.look_at(CBOX_CAMERA['origin'], CBOX_CAMERA['target'],
                             CBOX_CAMERA['up']),
@@ -198,10 +255,16 @@ def cornell_box_builder(res, spp=4):
         m.tex[T.P_BASE_COLOR] = _const_tex(b, rgb)
         mat_ids[name] = len(b.materials)
         b.materials.append(m)
-    for _, mat, quads, emitter in _cbox_shapes():
+    if variant == 'glass':
+        _glass_materials(b, mat_ids)
+    for name, mat, quads, emitter in _cbox_shapes():
         pos, idx = _quads_mesh(quads)
         mesh = MeshB(positions=pos, indices=idx,
                      normals=_compute_smooth_normals(pos, idx))
+        if variant == 'glass':
+            mat = CBOX_GLASS_SHAPES.get(name, mat)
+            if name == 'floor':
+                mesh.uvs = np.array([(u, 1.0 - v) for u, v in CBOX_FLOOR_VT])
         shape = ShapeB(type=T.SHAPE_MESH, mesh=mesh,
                        material_id=mat_ids[mat])
         if emitter:
@@ -213,13 +276,42 @@ def cornell_box_builder(res, spp=4):
     return b
 
 
-def make_cornell_box(res, spp=4):
-    return compile_scene(cornell_box_builder(res, spp))
+def make_cornell_box(res, spp=4, variant=None):
+    return compile_scene(cornell_box_builder(res, spp, variant))
 
 
-def write_cornell_box_xml(directory, res, spp):
+def _glass_xml(fmt):
+    """The glass variant's <texture> and <bsdf> elements."""
+    rgb = lambda v: fmt(repr(float(c)) for c in v)
+    ior = [f'    <float name="intIOR" value="{CBOX_IOR[0]!r}"/>',
+           f'    <float name="extIOR" value="{CBOX_IOR[1]!r}"/>']
+    return [
+        '  <texture type="checkerboard" id="checker_tex">',
+        f'    <rgb name="color0" value="{rgb(CBOX_CHECKER["color0"])}"/>',
+        f'    <rgb name="color1" value="{rgb(CBOX_CHECKER["color1"])}"/>',
+        f'    <float name="uvscale" value="{CBOX_CHECKER["uvscale"]!r}"/>',
+        '  </texture>',
+        '  <bsdf type="diffuse" id="checker">',
+        '    <ref name="reflectance" id="checker_tex"/>',
+        '  </bsdf>',
+        '  <bsdf type="roughplastic" id="plastic">',
+        f'    <rgb name="diffuseReflectance" '
+        f'value="{rgb(CBOX_PLASTIC["diffuse"])}"/>',
+        f'    <float name="roughness" value="{CBOX_PLASTIC["roughness"]!r}"/>',
+        *ior,
+        '  </bsdf>',
+        '  <bsdf type="roughdielectric" id="glass">',
+        f'    <float name="roughness" value="{CBOX_GLASS_ROUGHNESS!r}"/>',
+        *ior,
+        '  </bsdf>',
+    ]
+
+
+def write_cornell_box_xml(directory, res, spp, variant=None):
     """Write the Cornell box as Mitsuba XML (cbox.xml) plus one OBJ file
-    per shape into `directory`; returns the XML path."""
+    per shape into `directory`; returns the XML path. variant='glass'
+    writes the glass Cornell box (cornell_box_builder)."""
+    _check_variant(variant)
     os.makedirs(directory, exist_ok=True)
     fmt = ', '.join
     o, t, u = (fmt(repr(float(x)) for x in CBOX_CAMERA[k])
@@ -248,13 +340,23 @@ def write_cornell_box_xml(directory, res, spp):
                   f'    <rgb name="reflectance" '
                   f'value="{fmt(repr(float(c)) for c in rgb)}"/>',
                   '  </bsdf>']
+    if variant == 'glass':
+        lines += _glass_xml(fmt)
     for name, mat, quads, emitter in _cbox_shapes():
+        uv = variant == 'glass' and name == 'floor'
+        if variant == 'glass':
+            mat = CBOX_GLASS_SHAPES.get(name, mat)
         with open(os.path.join(directory, f'{name}.obj'), 'w') as f:
             for qd in quads:
                 for p in qd:
                     f.write('v ' + ' '.join(repr(float(x)) for x in p) + '\n')
+            if uv:
+                for t in CBOX_FLOOR_VT:
+                    f.write('vt ' + ' '.join(repr(x) for x in t) + '\n')
             for k in range(len(quads)):
-                f.write(f'f {4 * k + 1} {4 * k + 2} {4 * k + 3} {4 * k + 4}\n')
+                c = range(4 * k + 1, 4 * k + 5)
+                f.write('f ' + ' '.join(f'{i}/{i}' if uv else f'{i}'
+                                        for i in c) + '\n')
         lines += ['  <shape type="obj">',
                   f'    <string name="filename" value="{name}.obj"/>',
                   f'    <ref id="{mat}"/>']
@@ -324,6 +426,62 @@ def make_sphere_light_scene(res=32):
     return compile_scene(sphere_light_builder(res))
 
 
+def textured_builder(res=16):
+    """The sphere-light scene with an 8x8 numpy image (seeded) on the
+    floor, uv scale (3, 2): image textures switch on uv interpolation,
+    ray differentials and mip selection."""
+    b = sphere_light_builder(res)
+    img = np.random.default_rng(5).random((8, 8, 3)).astype(np.float32)
+    img_id = b.texture_pool.insert('floor_image', img)
+    b.texdescs.append(TexDesc(kind=T.TEX_IMAGE, image_id=img_id,
+                              uscale=3.0, vscale=2.0))
+    m = MaterialB(type=T.MAT_LAMBERTIAN)
+    m.tex[T.P_BASE_COLOR] = len(b.texdescs) - 1
+    b.materials.append(m)
+    b.shapes[0].material_id = len(b.materials) - 1
+    return b
+
+
+# ---------------------------------------------------------------------------
+# Furnace (envmap class)
+# ---------------------------------------------------------------------------
+
+def furnace_builder(albedo=0.6, res=24, env_radiance=1.0):
+    """Convex Lambertian sphere in a uniform environment light
+    (lajolla_tpu/testing.py make_furnace_scene): every sphere pixel
+    converges to albedo * env_radiance, since a convex body never sees
+    itself — an end-to-end gate on envmap emission and sampling, MIS and
+    BSDF sampling. No triangles at all."""
+    b = SceneBuilder(camera=CameraB(to_world=xf.look_at(
+        [0, 0, 4], [0, 0, 0], [0, 1, 0]), fov=30.0, width=res, height=res),
+        options=RenderOptions(), texture_pool=TexturePool())
+    m = MaterialB(type=T.MAT_LAMBERTIAN)
+    m.tex[T.P_BASE_COLOR] = _const_tex(b, (albedo,) * 3)
+    b.materials.append(m)
+    b.shapes.append(ShapeB(type=T.SHAPE_SPHERE, center=(0.0, 0.0, 0.0),
+                           radius=1.0, material_id=0))
+    img_id = b.texture_pool.insert(
+        "__envmap_texture__", np.full((16, 32, 3), env_radiance, np.float32))
+    b.envmap_light_id = 0
+    b.lights.append(LightB(type=T.LIGHT_ENVMAP, image_id=img_id,
+                           to_world=xf.identity(), scale=1.0))
+    return b
+
+
+def make_furnace_scene(albedo=0.6, res=24, env_radiance=1.0):
+    return compile_scene(furnace_builder(albedo, res, env_radiance))
+
+
+def furnace_sphere_mask(res, margin=2.0):
+    """(res, res) bool: the pixels of furnace_builder's film that lie
+    inside the sphere's silhouette by `margin` pixels (no pixel filter
+    sample can reach the background from them)."""
+    half = np.tan(np.radians(15.0))             # fov 30 across the film
+    r_px = (1.0 / np.sqrt(16.0 - 1.0)) / half * (res / 2.0)
+    y, x = np.mgrid[0:res, 0:res] + 0.5 - res / 2.0
+    return np.hypot(x, y) < r_px - margin
+
+
 # ---------------------------------------------------------------------------
 # Random advance inputs
 # ---------------------------------------------------------------------------
@@ -360,6 +518,86 @@ def random_lanes(scene, n, seed=0):
         prev=(lo + (hi - lo) * rng.random((3, n))).astype(f32),
         un=rng.random((8, n)).astype(f32),
         act=rng.random(n) < 0.95)
+
+
+def random_general_lanes(scene, n, seed=0):
+    """State of one general-engine vertex (integrators/path._advance_lane)
+    for n lanes, made with numpy from `seed`, in the lane-major layout
+    ((n, 3) vectors, (n,) scalars): positions and directions as
+    random_lanes draws them, random work items, bounce 2..8, ray spread
+    and radius, throughput, radiance, eta_scale in {1/eta^2, 1, eta^2}
+    (eta 1.5), cached pdf, previous vertex, 5% of lanes done, and (n, 8)
+    uniforms. Item and nv are int64, done bool, the rest float32."""
+    t = random_lanes(scene, n, seed)
+    rng = np.random.default_rng(seed + 1)
+    f32 = np.float32
+    return dict(
+        item=rng.integers(0, 1 << 30, n).astype(np.int64),
+        nv=t['nv'], org=t['org'].T.copy(), d=t['dir'].T.copy(),
+        spread=rng.uniform(0.0, 0.01, n).astype(f32),
+        radius=rng.uniform(0.0, 0.05, n).astype(f32),
+        T=t['thr'].T.copy(), L=t['rad'].T.copy(),
+        eta_scale=rng.choice([1.0 / 2.25, 1.0, 2.25], n).astype(f32),
+        dir_pdf=t['dir_pdf'], prev_pos=t['prev'].T.copy(),
+        done=rng.random(n) < 0.05,
+        u=t['un'].T.copy())
+
+
+# The fields of general-engine lane state, in _advance_lane's order.
+GENERAL_STATE = ('item', 'nv', 'org', 'd', 'spread', 'radius', 'T', 'L',
+                 'eta_scale', 'dir_pdf', 'prev_pos', 'done')
+
+
+def general_rays(scene, seed=0):
+    """The rays the general engine casts on the first vertices of a
+    render of `scene` (one per pixel, on the scene's device), for holding
+    the casts (kernel K3) against their plain forms: the camera rays of
+    sample 0, the bounce rays the first vertex samples (the camera ray
+    where that path ended) and shadow rays from the first hits to points
+    sampled on the lights (numpy uniforms from `seed`), with their tfar.
+    Made on the CPU, where the casts run their plain forms, and moved to
+    the scene's device. Returns dict of (o, d, tnear, tfar)."""
+    import torch
+
+    from lajolla_tpu_torch.dtypes import intersection_eps, shadow_eps
+    from lajolla_tpu_torch.integrators import lights
+    from lajolla_tpu_torch.integrators import path as P
+
+    dev = scene.tri_shade.device
+    scene = scene.to('cpu')
+    meta = scene.meta
+    n = meta.width * meta.height
+    opts = RenderOptions()
+    item = torch.arange(n)
+    _, org, d = P._primary_hash(scene, opts, item, seed)
+    z = torch.zeros(n)
+    st = (item, torch.full((n,), 2), org, d, z + 1e-3, z, torch.ones((n, 3)),
+          torch.zeros((n, 3)), z + 1.0, z, org,
+          torch.zeros(n, dtype=torch.bool))
+    nst, died = P._advance_lane(scene, opts, st,
+                                P._vertex_uniforms(item, st[1], seed).T)
+    on = ~died[:, None]
+    b_org = torch.where(on, nst[2], org)
+    b_dir = torch.where(on, nst[3], d)
+
+    rng = np.random.default_rng(seed)
+    u = torch.from_numpy(rng.random((n, 4)).astype(np.float32))
+    lp = lights.sample_point_on_light(
+        scene, lights.sample_light(scene, u[:, 2]), b_org, u[:, 0:2],
+        u[:, 3])
+    to_l = lp.position - b_org
+    dist = torch.sqrt((to_l * to_l).sum(-1))
+    eps_s = shadow_eps(meta.scene_radius)
+    s_org = torch.where(on, b_org, org)
+    s_dir = torch.where(on, to_l / dist[:, None].clamp(min=1e-20), d)
+    s_far = torch.where(on[:, 0], (1.0 - eps_s) * dist, float('inf'))
+    eps_i = intersection_eps(meta.scene_radius)
+    inf = torch.full((n,), float('inf'))
+    rays = dict(camera=(org, d, z + eps_i, inf),
+                bounce=(b_org, b_dir, z + eps_i, inf),
+                shadow=(s_org, s_dir, z + eps_s, s_far))
+    return {k: tuple(x.contiguous().to(dev) for x in ray)
+            for k, ray in rays.items()}
 
 
 # Tolerances of one advance against its reference, per output: where both

@@ -1,0 +1,73 @@
+"""chip_smoke.py without a card: its ptxas summary books each kernel's
+registers and spills under that kernel's own name, and the script exits
+non-zero, printing no result, where torch.cuda.is_available() is False."""
+
+import importlib.util
+import os
+import subprocess
+import sys
+
+import pytest
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        'chip_smoke', os.path.join(REPO, 'chip_smoke.py'))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# An abridged nvcc -Xptxas -v log of two libraries, three kernels, two
+# instantiations of one of them.
+PTXAS_LOG = """\
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119render_fused_kernelILi1ELb0ELb0EEEvN2lj6TablesENS0_6CameraEiijxiPf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119render_fused_kernelILi1ELb0ELb0EEEvN2lj6TablesENS0_6CameraEiijxiPf
+    8 bytes stack frame, 44 bytes spill stores, 44 bytes spill loads
+ptxas info    : Used 80 registers, used 0 barriers, 8 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114advance_kernelILi3ELb1ELb1EEEvN2lj6TablesEiPKfS4_S4_S4_S4_S4_S4_S4_PKbPfS7_S7_S7_S7_Pb' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_114advance_kernelILi3ELb1ELb1EEEvN2lj6TablesEiPKfS4_S4_S4_S4_S4_S4_S4_PKbPfS7_S7_S7_S7_Pb
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 72 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114advance_kernelILi1ELb0ELb0EEEvN2lj6TablesEiPKfS4_S4_S4_S4_S4_S4_S4_PKbPfS7_S7_S7_S7_Pb' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_114advance_kernelILi1ELb0ELb0EEEvN2lj6TablesEiPKfS4_S4_S4_S4_S4_S4_S4_PKbPfS7_S7_S7_S7_Pb
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 60 registers, used 0 barriers
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122intersect_brute_kernelEPKfS1_PKiS3_iiS1_S1_S1_S1_PfPiS4_S4_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_122intersect_brute_kernelEPKfS1_PKiS3_iiS1_S1_S1_S1_PfPiS4_S4_
+    0 bytes stack frame, 4 bytes spill stores, 4 bytes spill loads
+ptxas info    : Used 29 registers, used 1 barriers, 9984 bytes smem
+ptxas info    : Compiling entry function 'plain_c_kernel' for 'sm_90a'
+ptxas info    : Used 12 registers, used 0 barriers
+"""
+
+
+def test_ptxas_summary_keys_each_kernel():
+    summary = _chip_smoke().ptxas_summary(PTXAS_LOG)
+    assert summary == (
+        "advance_kernel: <= 72 registers, <= 0 B spill stores; "
+        "intersect_brute_kernel: <= 29 registers, <= 4 B spill stores; "
+        "plain_c_kernel: <= 12 registers, <= 0 B spill stores; "
+        "render_fused_kernel: <= 80 registers, <= 44 B spill stores")
+
+
+@pytest.mark.parametrize('symbol,name', [
+    ('_ZN12_GLOBAL__N_121occluded_brute_kernelEPKfS1_iiS1_S1_S1_S1_Pb',
+     'occluded_brute_kernel'),
+    ('_Z13simple_kernelPf', 'simple_kernel'),
+    ('lj_unmangled', 'lj_unmangled')])
+def test_kernel_name_demangles(symbol, name):
+    assert _chip_smoke().kernel_name(symbol) == name
+
+
+def test_exits_nonzero_without_a_gpu(tmp_path):
+    env = dict(os.environ, PYTHONPATH=REPO, CUDA_VISIBLE_DEVICES='')
+    r = subprocess.run([sys.executable, os.path.join(REPO, 'chip_smoke.py')],
+                       cwd=tmp_path, env=env, capture_output=True, text=True,
+                       timeout=120)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout

@@ -58,3 +58,26 @@ def test_cornell_box_xml(tmp_path):
         if f.name != 'meta':
             assert np.array_equal(getattr(built, f.name).numpy(),
                                   getattr(ps, f.name).numpy()), f.name
+
+
+@pytest.mark.parametrize('name', ['furnace', 'textured'])
+def test_general_engine_fixture(name):
+    builder = getattr(PT, f'{name}_builder')
+    _assert_same(JC.compile_scene(builder()), PC.compile_scene(builder()))
+
+
+def test_furnace_matches_jax_fixture():
+    _assert_same(JT.make_furnace_scene(), PT.make_furnace_scene())
+
+
+def test_glass_cornell_box_xml(tmp_path):
+    """write_cornell_box_xml(variant='glass') writes what both parsers
+    read identically, and what cornell_box_builder(variant='glass')
+    builds in code."""
+    xml = PT.write_cornell_box_xml(str(tmp_path), 24, 16, variant='glass')
+    js, _ = JP.parse_scene(xml)
+    ps, popt = PP.parse_scene(xml)
+    _assert_same(js, ps)
+    assert popt.samples_per_pixel == 16
+    assert ps.meta.mat_types_present == (0, 1, 2) and ps.meta.needs_uv
+    _assert_same(js, PT.make_cornell_box(24, spp=16, variant='glass'))

@@ -109,9 +109,10 @@ def test_cuda_device_without_gpu_raises():
 
 
 def test_scene_outside_kernel_support_raises():
-    """A dielectric needs the general engine, which is not yet ported."""
+    """Scenes outside the kernels' support take the general engine, which
+    has no Disney BSDF yet."""
     b = PT.cornell_box_builder(8)
-    b.materials[0].type = T.MAT_ROUGH_DIELECTRIC
-    with pytest.raises(NotImplementedError, match="general engine"):
+    b.materials[0].type = T.MAT_DISNEY_DIFFUSE
+    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
         render(PT.compile_scene(b), RenderOptions(samples_per_pixel=1),
                device='cpu')
