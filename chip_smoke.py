@@ -24,10 +24,12 @@ exits non-zero and prints no final line:
  6. the main path through the CLI, with the launch counters reset before
     and read after: the Cornell box XML at 512x512 x 256 spp (K1) and at
     96x96 x 16 spp (a film that is not a whole number of 4096-pixel
-    blocks: the per-bounce driver and K2), and the glass Cornell box XML
-    at 512x512 x 16 spp (the general engine and K3); the EXRs must be
-    finite with mean luminance in (0.05, 5). Prints Mpaths/s of each
-    512x512 render for the whole CLI run and for render() alone;
+    blocks: the per-bounce driver and K2), the glass Cornell box XML at
+    512x512 x 16 spp (the general engine and K3), and the volumetric
+    Cornell box XML ('vol') at 512x512 x 256 spp (volpath, K8); the EXRs
+    must be finite with mean luminance in (0.05, 5), (0.005, 0.5) for the
+    foggy 'vol'. Prints Mpaths/s of each 512x512 render for the whole
+    CLI run and for render() alone;
  7. kernel K3 (intersect_brute_kernel, occluded_brute_kernel) against its
     plain forms on the 2^18 camera, bounce and shadow rays of the glass
     Cornell box and the sphere-light scene at 512x512
@@ -39,7 +41,17 @@ exits non-zero and prints no final line:
     Cornell box at 128x128 x 4 spp, median per-pixel relative difference
     < 1e-4, film means within 1%;
  9. the furnace through render() at 64x64 x 64 spp: the sphere's mean
-    within 3% of albedo x env radiance.
+    within 3% of albedo x env radiance;
+10. kernel K8 (render_fused_vol_kernel) against its plain form: 'vol' at
+    512x512 x 4 spp (median per-pixel relative difference < 1e-4, film
+    means within 1%), 'vol_hg' and the submerged sphere-light scene at
+    256x256 x 32 spp (the same, and the RMS difference of 8x8-pixel block
+    means over the film mean < 0.12); K8 and its plain form timed on
+    'vol' at 4 spp by CUDA events;
+11. the general volumetric engine (volpath._render_volpath_block) on the
+    card at 128x128 x 4 spp: on 'vol' against K8, and on 'vol_glass' with
+    K3 against it with the plain casts (it must launch K3 and not K8):
+    median < 1e-4, means within 1%; loop iterations and wall time.
 Then one JSON line of per-kernel results, and last the device line.
 """
 
@@ -54,6 +66,8 @@ from unittest import mock
 KERNEL_SOURCE = 'lajolla_tpu_torch/csrc/path_kernels.cu'
 K3_SOURCE = 'lajolla_tpu_torch/csrc/intersect_kernels.cu'
 K3_REPLACES = 'lajolla_tpu/ops/intersect_pallas.py:29'
+K8_SOURCE = 'lajolla_tpu_torch/csrc/volpath_kernels.cu'
+K8_REPLACES = 'lajolla_tpu/integrators/volpath_kernel.py:552'
 
 
 def cuda_ms(torch, fn, reps):
@@ -109,6 +123,26 @@ def ptxas_summary(log):
                      for k, (r, s) in sorted(out.items()))
 
 
+def film_agreement(got, want):
+    """(median per-pixel relative difference, relative difference of the
+    film means, largest absolute difference) of two (h, w, 3) images."""
+    import numpy as np
+    if not (np.isfinite(got).all() and np.isfinite(want).all()):
+        raise AssertionError("non-finite pixels")
+    rel = np.abs(got - want) / (want + 1e-3)
+    return (float(np.median(rel)), abs(got.mean() - want.mean()) /
+            want.mean(), float(np.abs(got - want).max()))
+
+
+def block_rms(got, want, b=8):
+    """RMS difference of the b x b-pixel block means over the film mean
+    (lajolla_tpu tests/test_vol_kernel.py's d8)."""
+    h, w = want.shape[:2]
+    a = got.reshape(h // b, b, w // b, b, 3).mean((1, 3))
+    c = want.reshape(h // b, b, w // b, b, 3).mean((1, 3))
+    return float(((a - c) ** 2).mean() ** 0.5 / c.mean())
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -121,6 +155,8 @@ def main():
     from lajolla_tpu_torch.integrators import path as PP
     from lajolla_tpu_torch.integrators import path_kernel as PK
     from lajolla_tpu_torch.integrators import path_megakernel as PMK
+    from lajolla_tpu_torch.integrators import volpath as PV
+    from lajolla_tpu_torch.integrators import volpath_kernel as PVK
     from lajolla_tpu_torch.integrators.path import (MAX_BOUNCES_CAP,
                                                     _render_block_kernel)
     from lajolla_tpu_torch.io.image import imread3
@@ -236,12 +272,12 @@ def main():
         raise AssertionError("white box mean off the analytic value")
 
     # ---- 6. the main path through the CLI
-    def luminance_of(path):
+    def luminance_of(path, lo, hi):
         im = imread3(path)
         lum = float((im @ np.array([0.212671, 0.715160, 0.072169])).mean())
         print(f"[6] {os.path.basename(path)} {im.shape} mean luminance "
               f"{lum:.5f}")
-        if not (np.isfinite(im).all() and 0.05 < lum < 5.0):
+        if not (np.isfinite(im).all() and lo < lum < hi):
             raise AssertionError(f"{path}: bad image")
 
     def render_alone(xml):
@@ -253,18 +289,21 @@ def main():
         return time.perf_counter() - t0
 
     with tempfile.TemporaryDirectory() as tmp:
-        runs = [  # (xml, exr, paths of a 512x512 film, or None)
+        runs = [  # (xml, exr, paths of a 512x512 film or None, luminance)
             (PT.write_cornell_box_xml(os.path.join(tmp, 'big'), 512, 256),
-             'cbox512.exr', 512 * 512 * 256),
+             'cbox512.exr', 512 * 512 * 256, (0.05, 5.0)),
             (PT.write_cornell_box_xml(os.path.join(tmp, 'small'), 96, 16),
-             'cbox96.exr', None),
+             'cbox96.exr', None, (0.05, 5.0)),
             (PT.write_cornell_box_xml(os.path.join(tmp, 'glass'), 512, 16,
                                       variant='glass'),
-             'glass512.exr', 512 * 512 * 16)]
+             'glass512.exr', 512 * 512 * 16, (0.05, 5.0)),
+            (PT.write_cornell_box_xml(os.path.join(tmp, 'vol'), 512, 256,
+                                      variant='vol'),
+             'vol512.exr', 512 * 512 * 256, (0.005, 0.5))]
         for k in kernels.LAUNCHES:
             kernels.LAUNCHES[k] = 0
         cli_s = []
-        for xml, exr, _ in runs:
+        for xml, exr, _, _ in runs:
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             if cli.main([xml, '-o', os.path.join(tmp, exr),
@@ -276,9 +315,9 @@ def main():
         for k, v in launches.items():
             if v < 1:
                 raise AssertionError(f"the main path never launched {k}")
-        for _, exr, _ in runs:
-            luminance_of(os.path.join(tmp, exr))
-        for (xml, exr, paths), cs in zip(runs, cli_s):
+        for _, exr, _, (lo, hi) in runs:
+            luminance_of(os.path.join(tmp, exr), lo, hi)
+        for (xml, exr, paths, _), cs in zip(runs, cli_s):
             if paths:
                 rs = render_alone(xml)
                 print(f"[6] {exr[:-4]} 512x512 x {paths // (512 * 512)} spp:"
@@ -370,6 +409,84 @@ def main():
             abs(sphere.mean() - albedo) / albedo < 0.03):
         raise AssertionError("furnace sphere off albedo x env")
 
+    # ---- 10. K8 against its plain form
+    vol_opts = RenderOptions(integrator='volpath')
+    vol512 = PT.make_cornell_box(512, variant='vol').to(dev)
+    for fixture, scene, spp, statistical in (
+            ('vol 512x512', vol512, 4, False),
+            ('vol_hg 256x256', PT.make_cornell_box(
+                256, variant='vol_hg').to(dev), 32, True),
+            ('submerged sphere lights 256x256', PC.compile_scene(
+                PT.submerged_sphere_builder(256)).to(dev), 32, True)):
+        img_k = PVK.render_fused_vol(scene, vol_opts, 0, 0, spp).cpu() \
+            .numpy() / spp
+        t0 = time.perf_counter()
+        img_p = PVK.render_fused_vol_plain(scene, vol_opts, 0, 0, spp) \
+            .cpu().numpy() / spp
+        plain_s = time.perf_counter() - t0
+        med, mean_rel, err = film_agreement(img_k, img_p)
+        d8 = block_rms(img_k, img_p)
+        print(f"[10] K8 vs plain, {fixture} x {spp} spp: median rel "
+              f"{med:.3g}, mean rel {mean_rel:.3g}, 8x8-block RMS {d8:.3g}, "
+              f"max |diff| {err:.3g}; means {img_k.mean():.6f} "
+              f"{img_p.mean():.6f}; plain form {plain_s:.2f} s")
+        if not (med < 1e-4 and mean_rel < 0.01 and
+                (d8 < 0.12 or not statistical)):
+            raise AssertionError(f"K8 disagrees with its plain form on "
+                                 f"{fixture}")
+        if scene is vol512:
+            k8_err = err
+    k8_ms = cuda_ms(torch, lambda: PVK.render_fused_vol(
+        vol512, vol_opts, 0, 0, 4), 10)
+    k8_plain_ms = cuda_ms(torch, lambda: PVK.render_fused_vol_plain(
+        vol512, vol_opts, 0, 0, 4), 1)
+    print(f"[10] K8 at 512x512 x 4 spp (vol): kernel {k8_ms:.3f} ms, plain "
+          f"{k8_plain_ms:.1f} ms ({smi})")
+
+    # ---- 11. the general volumetric engine on the card
+    spp = 4
+    vol128 = PT.make_cornell_box(128, variant='vol').to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    film_g, _, iters = PV._render_volpath_block(vol128, vol_opts, 0, 0, spp)
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    img_k = PVK.render_fused_vol(vol128, vol_opts, 0, 0, spp).cpu().numpy()
+    med, mean_rel, _ = film_agreement(img_k / spp, film_g.cpu().numpy()
+                                      .reshape(128, 128, 3) / spp)
+    print(f"[11] general engine vs K8, vol 128x128 x {spp} spp: median rel "
+          f"{med:.3g}, mean rel {mean_rel:.3g}; engine {iters} iterations "
+          f"in {engine_s:.3f} s")
+    if not (med < 1e-4 and mean_rel < 0.01):
+        raise AssertionError("the general volumetric engine disagrees with "
+                             "K8")
+    vol_glass = PT.make_cornell_box(128, variant='vol_glass').to(dev)
+    if PV._use_vol_kernel(vol_glass):
+        raise AssertionError("vol_glass is inside K8's class")
+    before = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    film_k, _, iters = PV._render_volpath_block(vol_glass, vol_opts, 0, 0,
+                                                spp)
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    ran = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    if not (ran['intersect_brute'] > 0 and ran['render_fused_vol'] == 0):
+        raise AssertionError(f"vol_glass launched {ran}: expected K3 and "
+                             "no K8")
+    with mock.patch.multiple(kernels, intersect_brute=_brute_force_batched,
+                             occluded_brute=_occluded_batched):
+        film_p, _, _ = PV._render_volpath_block(vol_glass, vol_opts, 0, 0,
+                                                spp)
+    med, mean_rel, _ = film_agreement(film_k.cpu().numpy() / spp,
+                                      film_p.cpu().numpy() / spp)
+    print(f"[11] general engine, K3 vs plain casts, vol_glass 128x128 x "
+          f"{spp} spp: median rel {med:.3g}, mean rel {mean_rel:.3g}; "
+          f"{iters} iterations in {engine_s:.3f} s; launches {ran}")
+    if not (med < 1e-4 and mean_rel < 0.01):
+        raise AssertionError("the general volumetric engine with K3 "
+                             "disagrees with it with the plain casts")
+
     print(json.dumps({"kernels": [
         {"name": "render_fused_kernel", "route": "cuda",
          "source": KERNEL_SOURCE,
@@ -389,7 +506,11 @@ def main():
          "source": K3_SOURCE, "replaces": K3_REPLACES,
          "launches": launches['occluded_brute'],
          "max_abs_err": k3['occ_err'], "ms": k3['occ_ms'],
-         "plain_ms": k3['occ_plain_ms']}]}))
+         "plain_ms": k3['occ_plain_ms']},
+        {"name": "render_fused_vol_kernel", "route": "cuda",
+         "source": K8_SOURCE, "replaces": K8_REPLACES,
+         "launches": launches['render_fused_vol'], "max_abs_err": k8_err,
+         "ms": k8_ms, "plain_ms": k8_plain_ms}]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

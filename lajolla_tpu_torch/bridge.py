@@ -1,9 +1,10 @@
 """Carry a compiled lajolla_tpu scene into the port.
 
 Tests hand the port the very arrays lajolla_tpu compiled, so both sides
-start from the same bytes. The caller takes `np.asarray` of each field
-of a lajolla_tpu Scene and `dataclasses.asdict(scene.meta)`: this module
-never imports JAX.
+start from the same bytes: the geometry, material, light, texture and
+media tables (`med_tab`, the `med_*` and `vol_*` arrays) alike. This
+module never imports JAX: it reads the lajolla_tpu Scene's fields with
+`np.asarray` and its SceneMeta with `dataclasses.asdict`.
 """
 
 import dataclasses
@@ -14,11 +15,12 @@ import torch
 from lajolla_tpu_torch.scene.types import Scene, SceneMeta
 
 
-def scene_from_jax_arrays(fields, meta, device):
-    """The port's Scene on `device` from {field name: ndarray} of a
-    compiled lajolla_tpu Scene and its SceneMeta as a dict. Fields the
-    port's Scene does not hold (BVH, cluster, grid tables) are ignored;
-    a missing field raises KeyError."""
-    tensors = {f.name: torch.from_numpy(np.array(fields[f.name])).to(device)
+def scene_from_jax(js, device='cpu'):
+    """The port's Scene on `device` from a compiled lajolla_tpu Scene.
+    Fields the port's Scene does not hold (BVH, cluster, grid tables) are
+    ignored; a field the port needs and `js` lacks raises
+    AttributeError."""
+    tensors = {f.name: torch.from_numpy(np.array(getattr(js, f.name)))
+               .to(device)
                for f in dataclasses.fields(Scene) if f.name != 'meta'}
-    return Scene(**tensors, meta=SceneMeta(**meta))
+    return Scene(**tensors, meta=SceneMeta(**dataclasses.asdict(js.meta)))

@@ -345,6 +345,211 @@ __device__ __forceinline__ float cone_pdf_area(V3 c, float r, V3 ref, V3 n,
   return inside ? uniform : pdf_area;
 }
 
+// ------------------------------------------------------- shared vertex parts
+// The pieces of a vertex that K1/K2 (advance_vertex below) and K8
+// (volpath_kernels.cu) compute alike.
+
+// Closest hit over triangles and spheres, with the winning records.
+struct Surf {
+  float t;             // closest distance, inf on a miss
+  bool sph_win;        // a sphere is closer than every triangle
+  const float* srow;   // the winning sphere's record (sph_win only)
+  float rw[34];        // the triangle record, zero where no triangle is hit
+  float ub, vb;        // barycentrics in the record's own triangle
+};
+
+template <bool QUADS, bool SPH>
+__device__ __forceinline__ void closest_hit(const Tables& tb, V3 o, V3 d,
+                                            Surf& s) {
+  const int T = tb.t;
+  float t_tri, qb;
+  int idx;
+  intersect<QUADS>(tb, o, d, t_tri, idx, s.ub, s.vb, qb);
+  const bool found = t_tri < inf_f();
+  s.t = t_tri;
+  s.sph_win = false;
+  s.srow = nullptr;
+  if (SPH) {
+    float t_sph = inf_f();
+    int sidx = 0;
+    for (int k = 0; k < tb.s; ++k) {
+      float ts = sphere_t(tb.sph + 24 * k, o, d, tb.eps_isect, inf_f());
+      if (ts < t_sph) {
+        t_sph = ts;
+        sidx = k;
+      }
+    }
+    s.sph_win = t_sph < t_tri;
+    s.t = mn(t_tri, t_sph);
+    if (s.sph_win) s.srow = tb.sph + 24 * sidx;
+  }
+  int prim = tb.cast_src[idx];
+  if (QUADS) {
+    bool back = qb > 0.0f && s.ub + s.vb > 1.0f;
+    if (back) {
+      prim = tb.cast_alt[idx];
+      float u2 = 1.0f - s.vb, v2 = s.ub + s.vb - 1.0f;
+      s.ub = u2;
+      s.vb = v2;
+    }
+  }
+  // zero on a miss, like the TPU kernels' one-hot row
+#pragma unroll
+  for (int k = 0; k < 34; ++k)
+    s.rw[k] = found ? __ldg(tb.tri + k * T + prim) : 0.0f;
+}
+
+// Shading data of the hit at point p: normals (the geometric one turned
+// toward the shading one), light and material parameters.
+struct Shade {
+  V3 ng, sn;
+  float h_light, h_pmf;
+  float inv_area;      // 1/area of the hit triangle (meaningless on spheres)
+  V3 le;
+  Mat m;
+  V3 sc;               // sphere center and radius (sph_win only)
+  float sr;
+};
+
+template <bool SPH>
+__device__ __forceinline__ void shade(const Surf& s, V3 p, Shade& h) {
+  const float* rw = s.rw;
+  h.ng = norm3(v3(rw[4] * rw[8] - rw[5] * rw[7], rw[5] * rw[6] - rw[3] * rw[8],
+                  rw[3] * rw[7] - rw[4] * rw[6]));
+  float wb = 1.0f - s.ub - s.vb;
+  V3 sn = v3(wb * rw[9] + s.ub * rw[12] + s.vb * rw[15],
+             wb * rw[10] + s.ub * rw[13] + s.vb * rw[16],
+             wb * rw[11] + s.ub * rw[14] + s.vb * rw[17]);
+  h.sn = norm3(rw[18] > 0.0f ? sn : h.ng);
+  if (dot3(h.ng, h.sn) < 0.0f) h.ng = neg(h.ng);
+  h.h_light = rw[19];
+  h.h_pmf = rw[27];
+  h.inv_area = rw[26];
+  h.le = v3(rw[23], rw[24], rw[25]);
+  h.m.kd = v3(rw[20], rw[21], rw[22]);
+  h.m.mt = rw[28];
+  h.m.ks = v3(rw[29], rw[30], rw[31]);
+  h.m.rough = rw[32];
+  h.m.eta = rw[33];
+  h.sc = v3(0.0f, 0.0f, 0.0f);
+  h.sr = 0.0f;
+  if (SPH && s.sph_win) {
+    const float* srow = s.srow;
+    h.sc = v3(srow[0], srow[1], srow[2]);
+    h.sr = srow[3];
+    float inv_r = 1.0f / mx(h.sr, 1e-20f);
+    h.ng = norm3(v3((p.x - h.sc.x) * inv_r, (p.y - h.sc.y) * inv_r,
+                    (p.z - h.sc.z) * inv_r));
+    h.sn = h.ng;
+    h.h_light = srow[4];
+    h.le = v3(srow[15], srow[16], srow[17]);
+    h.h_pmf = srow[14];
+    h.m.kd = v3(srow[6], srow[7], srow[8]);
+    h.m.mt = srow[5];
+    h.m.ks = v3(srow[9], srow[10], srow[11]);
+    h.m.rough = srow[12];
+    h.m.eta = srow[13];
+  }
+  h.m.rough = clampf(h.m.rough, 0.01f, 1.0f);
+}
+
+// A light point for NEE from p: light pick = #(cdf < u2), clamped; mesh
+// lights by the staircase triangle pick (u3) and a sqrt-uv barycentric
+// point (u0, u1); sphere lights by cone sampling with the inside-uniform
+// fallback (shapes/sphere.inl:156-204).
+struct LightSample {
+  V3 ln;               // the light point's normal
+  V3 l_int;            // radiance
+  float l_pmf, p1_area;  // pick pmf, area-measure pdf of the point
+  V3 dl;               // normalize(point - p)
+  float dist2, dist;   // |point - p|^2 (clamped at 1e-20) and its sqrt
+};
+
+template <bool SPH>
+__device__ __forceinline__ void sample_light(const Tables& tb, V3 p, float u0,
+                                             float u1, float u2, float u3,
+                                             LightSample& ls) {
+  const int T = tb.t, L = tb.l;
+  int lsel = 0;
+  for (int k = 0; k < L; ++k) lsel += __ldg(tb.light + k) < u2 ? 1 : 0;
+  lsel = min(lsel, L - 1);
+  auto lr_ = [&](int k) { return __ldg(tb.light + k * L + lsel); };
+  ls.l_pmf = lr_(1);
+  ls.l_int = v3(lr_(2), lr_(3), lr_(4));
+  ls.p1_area = lr_(5);
+  float key = lr_(6) + u3;
+  int tsel = 0;
+  for (int k = 0; k < T; ++k) tsel += __ldg(tb.stair + k) < key ? 1 : 0;
+  tsel = min(tsel, T - 1);
+  float lt[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) lt[k] = __ldg(tb.tri + k * T + tsel);
+  float a_s = sqrtf(clampf(u0, 0.0f, 1.0f));
+  float b1 = 1.0f - a_s;
+  float b2 = a_s * u1;
+  V3 lp = v3(lt[0] + b1 * lt[3] + b2 * lt[6], lt[1] + b1 * lt[4] + b2 * lt[7],
+             lt[2] + b1 * lt[5] + b2 * lt[8]);
+  ls.ln = norm3(v3(lt[4] * lt[8] - lt[5] * lt[7], lt[5] * lt[6] - lt[3] * lt[8],
+                   lt[3] * lt[7] - lt[4] * lt[6]));
+  bool is_sl = false;
+  V3 lc = v3(0.0f, 0.0f, 0.0f);
+  float lrad = 0.0f;
+  if (SPH) {
+    is_sl = lr_(7) > 0.0f;
+    if (is_sl) {
+      lc = v3(lr_(8), lr_(9), lr_(10));
+      lrad = lr_(11);
+      float dcx = lc.x - p.x, dcy = lc.y - p.y, dcz = lc.z - p.z;
+      float d2c = mx(dcx * dcx + dcy * dcy + dcz * dcz, 1e-20f);
+      V3 lns;
+      if (d2c < lrad * lrad) {
+        float zu = 1.0f - 2.0f * u0;
+        float ru = sqrtf(mx(1.0f - zu * zu, 0.0f));
+        float phiu = kTwoPi * u1;
+        lns = v3(ru * cosf(phiu), ru * sinf(phiu), zu);
+      } else {
+        V3 tc = norm3(v3(dcx, dcy, dcz));
+        V3 ft, fb;
+        onb(tc, ft, fb);
+        float sin_el_max_sq = lrad * lrad / d2c;
+        float cos_el_max = sqrtf(mx(1.0f - sin_el_max_sq, 0.0f));
+        float cos_el = (1.0f - u0) + u0 * cos_el_max;
+        float sin_el = sqrtf(mx(1.0f - cos_el * cos_el, 0.0f));
+        float azim = kTwoPi * u1;
+        float dc = sqrtf(d2c);
+        float ds = dc * cos_el -
+                   sqrtf(mx(lrad * lrad - dc * dc * sin_el * sin_el, 0.0f));
+        float cos_a = (dc * dc + lrad * lrad - ds * ds) / mx(2.0f * dc * lrad, 1e-20f);
+        float sin_a = sqrtf(mx(1.0f - cos_a * cos_a, 0.0f));
+        float ca = cosf(azim), sa = sinf(azim);
+        lns = v3(-(sin_a * ca * ft.x + sin_a * sa * fb.x + cos_a * tc.x),
+                 -(sin_a * ca * ft.y + sin_a * sa * fb.y + cos_a * tc.y),
+                 -(sin_a * ca * ft.z + sin_a * sa * fb.z + cos_a * tc.z));
+      }
+      lp = v3(lc.x + lrad * lns.x, lc.y + lrad * lns.y, lc.z + lrad * lns.z);
+      ls.ln = lns;
+    }
+  }
+  float dlx = lp.x - p.x, dly = lp.y - p.y, dlz = lp.z - p.z;
+  ls.dist2 = mx(dlx * dlx + dly * dly + dlz * dlz, 1e-20f);
+  ls.dl = norm3(v3(dlx, dly, dlz));
+  ls.dist = sqrtf(ls.dist2);
+  if (SPH && is_sl) ls.p1_area = cone_pdf_area(lc, lrad, p, ls.ln, ls.dl, ls.dist2);
+}
+
+// Shadow any-hit over the occluder subset and the spheres, in (eps_shadow,
+// tfar).
+template <bool QUADS, bool SPH>
+__device__ __forceinline__ bool occluded_any(const Tables& tb, V3 p, V3 dl,
+                                             float tfar) {
+  if (occluded<QUADS>(tb, p, dl, tfar)) return true;
+  if (SPH)
+    for (int k = 0; k < tb.s; ++k)
+      if (sphere_t(tb.sph + 24 * k, p, dl, tb.eps_shadow, tfar) < inf_f())
+        return true;
+  return false;
+}
+
 // ---------------------------------------------------------------- advance
 // Lane state carried from vertex to vertex.
 struct Lane {
@@ -362,98 +567,27 @@ __device__ __forceinline__ bool advance_vertex(const Tables& tb, Lane& st,
                                                float nv, const float* un,
                                                bool act) {
   const V3 o = st.o, d = st.d, thr = st.thr, prev = st.prev;
-  const int T = tb.t;
 
   // ---- closest hit: triangles + spheres
-  float t_tri, ub, vb, qb;
-  int idx;
-  intersect<QUADS>(tb, o, d, t_tri, idx, ub, vb, qb);
-  bool found = t_tri < inf_f();
-  float t_best = t_tri;
-  bool sph_win = false;
-  const float* srow = nullptr;
-  if (SPH) {
-    float t_sph = inf_f();
-    int sidx = 0;
-    for (int k = 0; k < tb.s; ++k) {
-      float ts = sphere_t(tb.sph + 24 * k, o, d, tb.eps_isect, inf_f());
-      if (ts < t_sph) {
-        t_sph = ts;
-        sidx = k;
-      }
-    }
-    sph_win = t_sph < t_tri;
-    t_best = mn(t_tri, t_sph);
-    if (sph_win) srow = tb.sph + 24 * sidx;
-  }
-  bool valid = t_best < inf_f() && act;
-  int prim = tb.cast_src[idx];
-  if (QUADS) {
-    bool back = qb > 0.0f && ub + vb > 1.0f;
-    if (back) {
-      prim = tb.cast_alt[idx];
-      float u2 = 1.0f - vb, v2 = ub + vb - 1.0f;
-      ub = u2;
-      vb = v2;
-    }
-  }
-  // triangle record (zero on a miss, like the TPU kernel's one-hot row)
-  float rw[34];
-#pragma unroll
-  for (int k = 0; k < 34; ++k) rw[k] = found ? __ldg(tb.tri + k * T + prim) : 0.0f;
-
-  float t_eff = valid ? t_best : 0.0f;
+  Surf s;
+  closest_hit<QUADS, SPH>(tb, o, d, s);
+  bool valid = s.t < inf_f() && act;
+  float t_eff = valid ? s.t : 0.0f;
   V3 p = v3(o.x + t_eff * d.x, o.y + t_eff * d.y, o.z + t_eff * d.z);
-
-  V3 ng = norm3(v3(rw[4] * rw[8] - rw[5] * rw[7], rw[5] * rw[6] - rw[3] * rw[8],
-                   rw[3] * rw[7] - rw[4] * rw[6]));
-  float wb = 1.0f - ub - vb;
-  V3 sn = v3(wb * rw[9] + ub * rw[12] + vb * rw[15],
-             wb * rw[10] + ub * rw[13] + vb * rw[16],
-             wb * rw[11] + ub * rw[14] + vb * rw[17]);
-  sn = norm3(rw[18] > 0.0f ? sn : ng);
-  if (dot3(ng, sn) < 0.0f) ng = neg(ng);
-
-  // unified per-hit record (light + material parameters)
-  float h_light = rw[19], h_pmf = rw[27];
-  V3 le = v3(rw[23], rw[24], rw[25]);
-  Mat m;
-  m.kd = v3(rw[20], rw[21], rw[22]);
-  m.mt = rw[28];
-  m.ks = v3(rw[29], rw[30], rw[31]);
-  m.rough = rw[32];
-  m.eta = rw[33];
-  V3 sc = v3(0.0f, 0.0f, 0.0f);
-  float sr = 0.0f;
-  if (SPH && sph_win) {
-    sc = v3(srow[0], srow[1], srow[2]);
-    sr = srow[3];
-    float inv_r = 1.0f / mx(sr, 1e-20f);
-    ng = norm3(v3((p.x - sc.x) * inv_r, (p.y - sc.y) * inv_r,
-                  (p.z - sc.z) * inv_r));
-    sn = ng;
-    h_light = srow[4];
-    le = v3(srow[15], srow[16], srow[17]);
-    h_pmf = srow[14];
-    m.kd = v3(srow[6], srow[7], srow[8]);
-    m.mt = srow[5];
-    m.ks = v3(srow[9], srow[10], srow[11]);
-    m.rough = srow[12];
-    m.eta = srow[13];
-  }
-  m.rough = clampf(m.rough, 0.01f, 1.0f);
-
+  Shade h;
+  shade<SPH>(s, p, h);
+  const V3 ng = h.ng;
   const V3 wi = neg(d);
 
   // ---- emissive hit + MIS (cached-pdf form)
-  bool hit_light = valid && h_light >= 0.0f;
-  if (!(dot3(ng, wi) > 0.0f)) le = v3(0.0f, 0.0f, 0.0f);
+  bool hit_light = valid && h.h_light >= 0.0f;
+  V3 le = dot3(ng, wi) > 0.0f ? h.le : v3(0.0f, 0.0f, 0.0f);
   float dpx = p.x - prev.x, dpy = p.y - prev.y, dpz = p.z - prev.z;
   float dist2p = mx(dpx * dpx + dpy * dpy + dpz * dpz, 1e-20f);
   float G2 = fabsf(dot3(d, ng)) / dist2p;
   float p2e = st.dir_pdf * G2;
-  float p1e = h_pmf * rw[26];
-  if (SPH && sph_win) p1e = h_pmf * cone_pdf_area(sc, sr, prev, ng, d, dist2p);
+  float p1e = h.h_pmf * h.inv_area;
+  if (SPH && s.sph_win) p1e = h.h_pmf * cone_pdf_area(h.sc, h.sr, prev, ng, d, dist2p);
   float w2 = (p2e * p2e) / mx(p1e * p1e + p2e * p2e, 1e-30f);
   if (nv <= 2.0f) w2 = 1.0f;
   float add = (hit_light ? 1.0f : 0.0f) * w2;
@@ -464,109 +598,35 @@ __device__ __forceinline__ bool advance_vertex(const Tables& tb, Lane& st,
                                        : nv >= 2.0f + (float)tb.max_cap;
   bool alive = valid && !depth_stop;
 
-  // ---- NEE: light pick = #(cdf < u), clamped
-  int lsel = 0;
-  for (int k = 0; k < tb.l; ++k) lsel += __ldg(tb.light + k) < un[2] ? 1 : 0;
-  lsel = min(lsel, tb.l - 1);
-  const int L = tb.l;
-  auto lr_ = [&](int k) { return __ldg(tb.light + k * L + lsel); };
-  float l_pmf = lr_(1);
-  V3 l_int = v3(lr_(2), lr_(3), lr_(4));
-  float p1_area = lr_(5);
-  // mesh lights: staircase triangle pick, sqrt-uv barycentric point
-  float key = lr_(6) + un[3];
-  int tsel = 0;
-  for (int k = 0; k < T; ++k) tsel += __ldg(tb.stair + k) < key ? 1 : 0;
-  tsel = min(tsel, T - 1);
-  float lt[9];
-#pragma unroll
-  for (int k = 0; k < 9; ++k) lt[k] = __ldg(tb.tri + k * T + tsel);
-  float a_s = sqrtf(clampf(un[0], 0.0f, 1.0f));
-  float b1 = 1.0f - a_s;
-  float b2 = a_s * un[1];
-  V3 lp = v3(lt[0] + b1 * lt[3] + b2 * lt[6], lt[1] + b1 * lt[4] + b2 * lt[7],
-             lt[2] + b1 * lt[5] + b2 * lt[8]);
-  V3 ln = norm3(v3(lt[4] * lt[8] - lt[5] * lt[7], lt[5] * lt[6] - lt[3] * lt[8],
-                   lt[3] * lt[7] - lt[4] * lt[6]));
-  bool is_sl = false;
-  V3 lc = v3(0.0f, 0.0f, 0.0f);
-  float lrad = 0.0f;
-  if (SPH) {
-    is_sl = lr_(7) > 0.0f;
-    if (is_sl) {
-      // sphere lights: cone sampling with inside-uniform fallback
-      // (shapes/sphere.inl:156-204)
-      lc = v3(lr_(8), lr_(9), lr_(10));
-      lrad = lr_(11);
-      float dcx = lc.x - p.x, dcy = lc.y - p.y, dcz = lc.z - p.z;
-      float d2c = mx(dcx * dcx + dcy * dcy + dcz * dcz, 1e-20f);
-      V3 lns;
-      if (d2c < lrad * lrad) {
-        float zu = 1.0f - 2.0f * un[0];
-        float ru = sqrtf(mx(1.0f - zu * zu, 0.0f));
-        float phiu = kTwoPi * un[1];
-        lns = v3(ru * cosf(phiu), ru * sinf(phiu), zu);
-      } else {
-        V3 tc = norm3(v3(dcx, dcy, dcz));
-        V3 ft, fb;
-        onb(tc, ft, fb);
-        float sin_el_max_sq = lrad * lrad / d2c;
-        float cos_el_max = sqrtf(mx(1.0f - sin_el_max_sq, 0.0f));
-        float cos_el = (1.0f - un[0]) + un[0] * cos_el_max;
-        float sin_el = sqrtf(mx(1.0f - cos_el * cos_el, 0.0f));
-        float azim = kTwoPi * un[1];
-        float dc = sqrtf(d2c);
-        float ds = dc * cos_el -
-                   sqrtf(mx(lrad * lrad - dc * dc * sin_el * sin_el, 0.0f));
-        float cos_a = (dc * dc + lrad * lrad - ds * ds) / mx(2.0f * dc * lrad, 1e-20f);
-        float sin_a = sqrtf(mx(1.0f - cos_a * cos_a, 0.0f));
-        float ca = cosf(azim), sa = sinf(azim);
-        lns = v3(-(sin_a * ca * ft.x + sin_a * sa * fb.x + cos_a * tc.x),
-                 -(sin_a * ca * ft.y + sin_a * sa * fb.y + cos_a * tc.y),
-                 -(sin_a * ca * ft.z + sin_a * sa * fb.z + cos_a * tc.z));
-      }
-      lp = v3(lc.x + lrad * lns.x, lc.y + lrad * lns.y, lc.z + lrad * lns.z);
-      ln = lns;
-    }
-  }
-  float dlx = lp.x - p.x, dly = lp.y - p.y, dlz = lp.z - p.z;
-  float dist2 = mx(dlx * dlx + dly * dly + dlz * dlz, 1e-20f);
-  V3 dl = norm3(v3(dlx, dly, dlz));
-  float dist = sqrtf(dist2);
-  if (SPH && is_sl) p1_area = cone_pdf_area(lc, lrad, p, ln, dl, dist2);
-
-  float sh_far = tb.shadow_far_scale * dist;
-  bool occ = occluded<QUADS>(tb, p, dl, sh_far);
-  if (SPH && !occ) {
-    for (int k = 0; k < tb.s; ++k)
-      if (sphere_t(tb.sph + 24 * k, p, dl, tb.eps_shadow, sh_far) < inf_f()) {
-        occ = true;
-        break;
-      }
-  }
-  float ln_dl = -dot3(dl, ln);
-  float Gn = occ ? 0.0f : mx(ln_dl, 0.0f) / dist2;
-  float p1 = l_pmf * p1_area;
+  // ---- NEE
+  LightSample ls;
+  sample_light<SPH>(tb, p, un[0], un[1], un[2], un[3], ls);
+  const V3 dl = ls.dl;
+  bool occ = occluded_any<QUADS, SPH>(tb, p, dl, tb.shadow_far_scale * ls.dist);
+  float ln_dl = -dot3(dl, ls.ln);
+  float Gn = occ ? 0.0f : mx(ln_dl, 0.0f) / ls.dist2;
+  float p1 = ls.l_pmf * ls.p1_area;
   // frame flip for the BSDF (lambertian.inl:10-13)
-  V3 fn = dot3(sn, wi) < 0.0f ? neg(sn) : sn;
+  V3 fn = dot3(h.sn, wi) < 0.0f ? neg(h.sn) : h.sn;
   V3 f_nee;
   float p2n_sa;
-  eval_pdf<MATS>(wi, dl, fn, ng, m, f_nee, p2n_sa);
+  eval_pdf<MATS>(wi, dl, fn, ng, h.m, f_nee, p2n_sa);
   float p2n = p2n_sa * Gn;
   bool nee_ok = alive && Gn > 0.0f && p1 > 0.0f && ln_dl > 0.0f;
   float w1 = (p1 * p1) / mx(p1 * p1 + p2n * p2n, 1e-30f);
   float c1 = nee_ok ? Gn / mx(p1, 1e-30f) * w1 : 0.0f;
+  const V3 l_int = ls.l_int;
   rad = v3(rad.x + thr.x * f_nee.x * l_int.x * c1,
            rad.y + thr.y * f_nee.y * l_int.y * c1,
            rad.z + thr.z * f_nee.z * l_int.z * c1);
 
   // ---- BSDF sampling
   bool samp_valid;
-  V3 dir_out = sample_dir<MATS>(wi, fn, ng, m, un[4], un[5], un[6], samp_valid);
+  V3 dir_out = sample_dir<MATS>(wi, fn, ng, h.m, un[4], un[5], un[6], samp_valid);
   alive = alive && samp_valid;
   V3 f2;
   float p2s;
-  eval_pdf<MATS>(wi, dir_out, fn, ng, m, f2, p2s);
+  eval_pdf<MATS>(wi, dir_out, fn, ng, h.m, f2, p2s);
   alive = alive && p2s > 0.0f;
 
   // ---- RR

@@ -9,8 +9,8 @@ machines with no nvcc and no GPU.
 The wrappers check device, dtype, shape and contiguity, allocate their
 outputs with torch.empty, launch on the current stream without
 synchronising, raise if the launch reports a CUDA error, and count their
-launches in LAUNCHES. They never fall back to the plain forms: K1 and K2
-take CUDA tensors only (their callers run the plain forms for CPU
+launches in LAUNCHES. They never fall back to the plain forms: K1, K2 and
+K8 take CUDA tensors only (their callers run the plain forms for CPU
 tensors); K3's wrappers run the plain form for CPU tensors themselves
 and launch the kernel for CUDA tensors.
 """
@@ -25,8 +25,9 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parent / 'csrc'
-_SOURCES = ('path_kernels.cu', 'path_advance.cuh', 'intersect_kernels.cu')
-_UNITS = ('path_kernels', 'intersect_kernels')   # one library per .cu
+_SOURCES = ('path_kernels.cu', 'path_advance.cuh', 'camera.cuh',
+            'intersect_kernels.cu', 'volpath_kernels.cu')
+_UNITS = ('path_kernels', 'intersect_kernels', 'volpath_kernels')  # per .cu
 BUILD_DIR = Path(__file__).resolve().parent.parent / 'build' / \
     'lajolla_tpu_torch'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
@@ -34,7 +35,7 @@ NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
 
 # Kernel launches by kernel name; a wrapper adds one where it launches.
 LAUNCHES = {'render_fused': 0, 'advance': 0, 'intersect_brute': 0,
-            'occluded_brute': 0}
+            'occluded_brute': 0, 'render_fused_vol': 0}
 
 _libs = None
 
@@ -56,9 +57,21 @@ class _Tables(ctypes.Structure):
 
 
 class _Camera(ctypes.Structure):
-    """Camera (csrc/path_kernels.cu)."""
+    """lj::Camera (csrc/camera.cuh)."""
     _fields_ = [('m', _F * 32), ('inv_w', _F), ('inv_h', _F),
                 ('fparam', _F), ('fhalf', _F), ('ftype', _I)]
+
+
+class _Medium(ctypes.Structure):
+    """lj::Medium (csrc/volpath_kernels.cu): sigma_a, sigma_s, HG g."""
+    _fields_ = [('sa', _F * 3), ('ss', _F * 3), ('g', _F)]
+
+
+class _VolSalts(ctypes.Structure):
+    """lj::VolSalts (csrc/volpath_kernels.cu): the draw-site salts of
+    integrators/volpath.py."""
+    _fields_ = [(k, ctypes.c_uint32) for k in ('ff', 'nee', 'nee_seg', 'phase', 'bsdf',
+                                  'rr', 'surf_nee', 'it0')]
 
 
 def _nvcc():
@@ -78,6 +91,7 @@ def _source_tag():
 
 def _bind(libs):
     path, isect = libs['path_kernels'], libs['intersect_kernels']
+    vol = libs['volpath_kernels']
     path.lj_render_fused.argtypes = [ctypes.POINTER(_Tables),
                                      ctypes.POINTER(_Camera), _I, _I, _I, _I,
                                      _I, ctypes.c_uint32, ctypes.c_longlong,
@@ -90,6 +104,11 @@ def _bind(libs):
     isect.lj_intersect_brute.restype = _I
     isect.lj_occluded_brute.argtypes = [_P, _P, _I, _I] + [_P] * 6
     isect.lj_occluded_brute.restype = _I
+    vol.lj_render_fused_vol.argtypes = [
+        ctypes.POINTER(_Tables), ctypes.POINTER(_Camera),
+        ctypes.POINTER(_Medium), ctypes.POINTER(_VolSalts), _I, _I, _I, _I,
+        _I, _I, ctypes.c_uint32, ctypes.c_longlong, _I, _P, _P]
+    vol.lj_render_fused_vol.restype = _I
 
 
 def build():
@@ -184,6 +203,16 @@ def _scene_args(scene, eps_isect, eps_shadow, max_depth, rr_depth, max_cap):
     return device, tb, mats, int(scene.meta.has_quads), int(S > 0)
 
 
+def _camera(cam, w, h, filter_type, filter_param):
+    """lj::Camera from the (32,) camera tensor and the film's filter."""
+    cam_f = cam.detach().to('cpu', torch.float32)
+    if cam_f.shape != (32,):
+        raise ValueError(f"camera: shape {tuple(cam_f.shape)}, expected (32,)")
+    return _Camera(m=(_F * 32)(*cam_f.tolist()), inv_w=1.0 / w,
+                   inv_h=1.0 / h, fparam=filter_param,
+                   fhalf=filter_param / 2.0, ftype=filter_type)
+
+
 def render_fused(scene, cam, seed_u32, s0, nspp, *, w, h, filter_type,
                  filter_param, eps_isect, eps_shadow, max_depth, rr_depth,
                  max_cap):
@@ -192,12 +221,7 @@ def render_fused(scene, cam, seed_u32, s0, nspp, *, w, h, filter_type,
     device, tb, mats, quads, sph = _scene_args(
         scene, eps_isect, eps_shadow, max_depth, rr_depth, max_cap)
     n = w * h
-    cam_f = cam.detach().to('cpu', torch.float32)
-    if cam_f.shape != (32,):
-        raise ValueError(f"camera: shape {tuple(cam_f.shape)}, expected (32,)")
-    camera = _Camera(m=(_F * 32)(*cam_f.tolist()), inv_w=1.0 / w,
-                     inv_h=1.0 / h, fparam=filter_param,
-                     fhalf=filter_param / 2.0, ftype=filter_type)
+    camera = _camera(cam, w, h, filter_type, filter_param)
     film = torch.empty((3, n), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
@@ -207,6 +231,39 @@ def render_fused(scene, cam, seed_u32, s0, nspp, *, w, h, filter_type,
     if rc != 0:
         raise RuntimeError(f"render_fused_kernel launch: CUDA error {rc}")
     LAUNCHES['render_fused'] += 1
+    return film
+
+
+def render_fused_vol(scene, cam, medium, su, s0, nspp, *, w, h, filter_type,
+                     filter_param, hg, eps_isect, eps_shadow, max_depth,
+                     rr_depth, max_cap):
+    """Kernel K8: the (3, w*h) film sum of samples s0..s0+nspp of a scene
+    inside volpath_kernel.supports. medium: (sigma_a (3,), sigma_s (3,),
+    g ()) of its one medium; su: the pre-hashed volpath stream root."""
+    from lajolla_tpu_torch.integrators import volpath as V
+    device, tb, mats, quads, sph = _scene_args(
+        scene, eps_isect, eps_shadow, max_depth, rr_depth, max_cap)
+    n = w * h
+    sa, ss, g = (x.detach().to('cpu', torch.float32) for x in medium)
+    if sa.shape != (3,) or ss.shape != (3,) or g.shape != ():
+        raise ValueError("medium: expected sigma_a (3,), sigma_s (3,), g ()")
+    med = _Medium(sa=(_F * 3)(*sa.tolist()), ss=(_F * 3)(*ss.tolist()),
+                  g=float(g))
+    salts = _VolSalts(ff=V._S_FF, nee=V._S_NEE, nee_seg=V._S_NEE_SEG,
+                      phase=V._S_PHASE, bsdf=V._S_BSDF, rr=V._S_RR,
+                      surf_nee=V._S_SURF_NEE, it0=V._IT0)
+    camera = _camera(cam, w, h, filter_type, filter_param)
+    lib = build()['volpath_kernels']
+    film = torch.empty((3, n), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.lj_render_fused_vol(
+            ctypes.byref(tb), ctypes.byref(camera), ctypes.byref(med),
+            ctypes.byref(salts), mats, quads, sph, int(bool(hg)), n, w, su,
+            s0, nspp, film.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"render_fused_vol_kernel launch: CUDA error {rc}")
+    LAUNCHES['render_fused_vol'] += 1
     return film
 
 

@@ -1,7 +1,8 @@
 """Render driver: integrator dispatch + film assembly.
 
 The analogue of render() (src/render.cpp:155-167) and of
-lajolla_tpu/render.py. Only the `path` integrator is ported so far.
+lajolla_tpu/render.py. The `path` integrator and the final `volpath`
+integrator for homogeneous media are ported.
 """
 
 import numpy as np
@@ -33,12 +34,12 @@ def render(scene, options=None, *, device, seed=0, checkpoint=None,
             f"integrator {options.integrator!r} not yet ported (ROADMAP "
             "queue 1: rest of the surface features, aux integrators)")
     if options.integrator == 'volpath':
-        raise NotImplementedError(
-            "integrator 'volpath' not yet ported (ROADMAP queue 1: "
-            "volumetrics)")
-    if options.integrator != 'path':
+        from lajolla_tpu_torch.integrators.volpath import \
+            render_volpath as driver
+    elif options.integrator == 'path':
+        from lajolla_tpu_torch.integrators.path import render_path as driver
+    else:
         raise ValueError(f"unknown integrator: {options.integrator}")
-    from lajolla_tpu_torch.integrators.path import render_path
-    img = render_path(scene.to(device), options, seed,
-                      checkpoint=checkpoint, progress=progress)
+    img = driver(scene.to(device), options, seed, checkpoint=checkpoint,
+                 progress=progress)
     return np.asarray(img, np.float32)

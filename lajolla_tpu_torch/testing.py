@@ -11,6 +11,13 @@ both packages.
 The Cornell box has a "glass" variant for the general engine: the tall
 box RoughDielectric, the short box RoughPlastic and a checkerboard floor
 (three material types and uv lookups, so outside path_kernel.supports).
+Its volumetric variants render under the volpath integrator, with one
+homogeneous medium bound to the sensor and to every shape's exterior:
+"vol" (isotropic) and "vol_hg" (Henyey-Greenstein) lie inside
+volpath_kernel.supports (kernel K8); "vol_glass" adds a denser medium
+inside a RoughDielectric tall box and inside a short box with no BSDF
+(an index-matching interface), over the checkerboard floor, for the
+general volumetric engine.
 """
 
 import os
@@ -21,8 +28,9 @@ from lajolla_tpu_torch.core import transform as xf
 from lajolla_tpu_torch.io.obj import _compute_smooth_normals
 from lajolla_tpu_torch.scene import types as T
 from lajolla_tpu_torch.scene.compile import compile_scene
-from lajolla_tpu_torch.scene.parser import (CameraB, LightB, MaterialB, MeshB,
-                                            SceneBuilder, ShapeB, TexDesc)
+from lajolla_tpu_torch.scene.parser import (CameraB, LightB, MaterialB,
+                                            MediumB, MeshB, SceneBuilder,
+                                            ShapeB, TexDesc)
 from lajolla_tpu_torch.scene.texture import TexturePool
 from lajolla_tpu_torch.scene.types import RenderOptions
 
@@ -195,7 +203,20 @@ CBOX_GLASS_SHAPES = {'floor': 'checker', 'short_box': 'plastic',
                      'tall_box': 'glass'}
 # The floor's OBJ texture coordinates (`vt` lines); the loader flips v.
 CBOX_FLOOR_VT = ((0.0, 0.0), (0.0, 1.0), (1.0, 1.0), (1.0, 0.0))
-CBOX_VARIANTS = (None, 'glass')
+CBOX_VARIANTS = (None, 'glass', 'vol', 'vol_hg', 'vol_glass')
+
+# The volumetric variants' medium 0, around and inside the room. Its
+# coefficients are chromatic so that the free flight's channel pick and
+# the spectral MIS matter; they are this fixture's own.
+CBOX_MEDIUM = dict(sigma_a=(0.10, 0.15, 0.20), sigma_s=(0.60, 0.50, 0.40))
+CBOX_HG_G = 0.4
+# 'vol_glass': medium 1 fills the RoughDielectric tall box and the short
+# box, whose surface has no BSDF (an index-matching interface)
+CBOX_INNER_MEDIUM = dict(sigma_a=(0.4, 0.6, 0.8), sigma_s=(1.6, 1.4, 1.2),
+                         g=-0.3)
+CBOX_VOL_GLASS_SHAPES = {'floor': 'checker', 'tall_box': 'glass',
+                         'short_box': None}
+CBOX_INNER_SHAPES = ('tall_box', 'short_box')
 
 
 def _glass_materials(b, mat_ids):
@@ -235,17 +256,52 @@ def _check_variant(variant):
         raise ValueError(f"unknown Cornell box variant {variant!r}")
 
 
+def _is_vol(variant):
+    return variant in ('vol', 'vol_hg', 'vol_glass')
+
+
+def _shape_material(variant, name, mat):
+    """The material name of shape `name` in `variant` (None: no BSDF)."""
+    if variant == 'glass':
+        return CBOX_GLASS_SHAPES.get(name, mat)
+    if variant == 'vol_glass':
+        return CBOX_VOL_GLASS_SHAPES.get(name, mat)
+    return mat
+
+
+def _cbox_media(variant):
+    """[(sigma_a, sigma_s, g or None for isotropic)] of the variant's
+    media, in id order."""
+    if not _is_vol(variant):
+        return []
+    g = CBOX_HG_G if variant == 'vol_hg' else None
+    media = [(CBOX_MEDIUM['sigma_a'], CBOX_MEDIUM['sigma_s'], g)]
+    if variant == 'vol_glass':
+        m = CBOX_INNER_MEDIUM
+        media.append((m['sigma_a'], m['sigma_s'], m['g']))
+    return media
+
+
 def cornell_box_builder(res, spp=4, variant=None):
     """The Cornell box as a SceneBuilder — the same scene the parser
     builds from write_cornell_box_xml. variant='glass' gives the glass
-    Cornell box (CBOX_GLASS_SHAPES)."""
+    Cornell box (CBOX_GLASS_SHAPES); 'vol', 'vol_hg' and 'vol_glass' the
+    volumetric variants (CBOX_MEDIUM, CBOX_VOL_GLASS_SHAPES)."""
     _check_variant(variant)
+    vol = _is_vol(variant)
     b = SceneBuilder(camera=CameraB(
         to_world=xf.look_at(CBOX_CAMERA['origin'], CBOX_CAMERA['target'],
                             CBOX_CAMERA['up']),
-        fov=CBOX_CAMERA['fov'], width=res, height=res),
-        options=RenderOptions(samples_per_pixel=spp),
+        fov=CBOX_CAMERA['fov'], width=res, height=res,
+        medium_id=0 if vol else -1),
+        options=RenderOptions(integrator='volpath' if vol else 'path',
+                              samples_per_pixel=spp),
         texture_pool=TexturePool())
+    for sigma_a, sigma_s, g in _cbox_media(variant):
+        b.media.append(MediumB(
+            sigma_a=sigma_a, sigma_s=sigma_s,
+            phase_type=T.PHASE_ISOTROPIC if g is None else T.PHASE_HG,
+            g=0.0 if g is None else g))
     mat_ids = {}
     for name, rgb in CBOX_MATERIALS.items():
         m = MaterialB(type=T.MAT_LAMBERTIAN)
@@ -255,18 +311,21 @@ def cornell_box_builder(res, spp=4, variant=None):
         m.tex[T.P_BASE_COLOR] = _const_tex(b, rgb)
         mat_ids[name] = len(b.materials)
         b.materials.append(m)
-    if variant == 'glass':
+    if variant in ('glass', 'vol_glass'):
         _glass_materials(b, mat_ids)
     for name, mat, quads, emitter in _cbox_shapes():
         pos, idx = _quads_mesh(quads)
         mesh = MeshB(positions=pos, indices=idx,
                      normals=_compute_smooth_normals(pos, idx))
-        if variant == 'glass':
-            mat = CBOX_GLASS_SHAPES.get(name, mat)
-            if name == 'floor':
-                mesh.uvs = np.array([(u, 1.0 - v) for u, v in CBOX_FLOOR_VT])
+        mat = _shape_material(variant, name, mat)
+        if mat == 'checker':
+            mesh.uvs = np.array([(u, 1.0 - v) for u, v in CBOX_FLOOR_VT])
         shape = ShapeB(type=T.SHAPE_MESH, mesh=mesh,
-                       material_id=mat_ids[mat])
+                       material_id=-1 if mat is None else mat_ids[mat])
+        if vol:
+            shape.exterior_medium_id = 0
+        if variant == 'vol_glass' and name in CBOX_INNER_SHAPES:
+            shape.interior_medium_id = 1
         if emitter:
             shape.area_light_id = len(b.lights)
             b.lights.append(LightB(type=T.LIGHT_AREA,
@@ -307,11 +366,28 @@ def _glass_xml(fmt):
     ]
 
 
+def _media_xml(variant, fmt):
+    """The variant's top-level <medium> elements (ids medium0, medium1)."""
+    rgb = lambda v: fmt(repr(float(c)) for c in v)
+    lines = []
+    for k, (sigma_a, sigma_s, g) in enumerate(_cbox_media(variant)):
+        lines += [f'  <medium type="homogeneous" id="medium{k}">',
+                  f'    <rgb name="sigmaA" value="{rgb(sigma_a)}"/>',
+                  f'    <rgb name="sigmaS" value="{rgb(sigma_s)}"/>']
+        if g is not None:
+            lines += [f'    <phase type="hg"><float name="g" '
+                      f'value="{float(g)!r}"/></phase>']
+        lines += ['  </medium>']
+    return lines
+
+
 def write_cornell_box_xml(directory, res, spp, variant=None):
     """Write the Cornell box as Mitsuba XML (cbox.xml) plus one OBJ file
     per shape into `directory`; returns the XML path. variant='glass'
-    writes the glass Cornell box (cornell_box_builder)."""
+    writes the glass Cornell box, 'vol', 'vol_hg' and 'vol_glass' the
+    volumetric variants (cornell_box_builder)."""
     _check_variant(variant)
+    vol = _is_vol(variant)
     os.makedirs(directory, exist_ok=True)
     fmt = ', '.join
     o, t, u = (fmt(repr(float(x)) for x in CBOX_CAMERA[k])
@@ -319,7 +395,8 @@ def write_cornell_box_xml(directory, res, spp, variant=None):
     lines = [
         '<?xml version="1.0" encoding="utf-8"?>',
         '<scene version="0.5.0">',
-        '  <integrator type="path"/>',
+        f'  <integrator type="{"volpath" if vol else "path"}"/>',
+        *_media_xml(variant, fmt),
         '  <sensor type="perspective">',
         f'    <float name="fov" value="{CBOX_CAMERA["fov"]!r}"/>',
         '    <transform name="toWorld">',
@@ -333,6 +410,7 @@ def write_cornell_box_xml(directory, res, spp, variant=None):
         f'      <integer name="height" value="{res}"/>',
         '      <rfilter type="box"/>',
         '    </film>',
+        *(['    <ref id="medium0"/>'] if vol else []),
         '  </sensor>',
     ]
     for name, rgb in CBOX_MATERIALS.items():
@@ -340,12 +418,11 @@ def write_cornell_box_xml(directory, res, spp, variant=None):
                   f'    <rgb name="reflectance" '
                   f'value="{fmt(repr(float(c)) for c in rgb)}"/>',
                   '  </bsdf>']
-    if variant == 'glass':
+    if variant in ('glass', 'vol_glass'):
         lines += _glass_xml(fmt)
     for name, mat, quads, emitter in _cbox_shapes():
-        uv = variant == 'glass' and name == 'floor'
-        if variant == 'glass':
-            mat = CBOX_GLASS_SHAPES.get(name, mat)
+        mat = _shape_material(variant, name, mat)
+        uv = mat == 'checker'
         with open(os.path.join(directory, f'{name}.obj'), 'w') as f:
             for qd in quads:
                 for p in qd:
@@ -358,8 +435,13 @@ def write_cornell_box_xml(directory, res, spp, variant=None):
                 f.write('f ' + ' '.join(f'{i}/{i}' if uv else f'{i}'
                                         for i in c) + '\n')
         lines += ['  <shape type="obj">',
-                  f'    <string name="filename" value="{name}.obj"/>',
-                  f'    <ref id="{mat}"/>']
+                  f'    <string name="filename" value="{name}.obj"/>']
+        if mat is not None:
+            lines += [f'    <ref id="{mat}"/>']
+        if vol:
+            lines += ['    <ref name="exterior" id="medium0"/>']
+        if variant == 'vol_glass' and name in CBOX_INNER_SHAPES:
+            lines += ['    <ref name="interior" id="medium1"/>']
         if emitter:
             rad = fmt(repr(float(c)) for c in CBOX_LIGHT_RADIANCE)
             lines += ['    <emitter type="area">',
@@ -424,6 +506,47 @@ def sphere_light_builder(res=32):
 
 def make_sphere_light_scene(res=32):
     return compile_scene(sphere_light_builder(res))
+
+
+# The sphere-light scene submerged in a thin homogeneous medium bound to
+# the camera and to every shape's exterior, as lajolla_tpu's
+# tests/test_vol_kernel.py `_SPHERE_SCENE` submerges its sphere (its
+# coefficients): sphere hits, sphere lights and both kernel materials
+# inside volpath_kernel.supports (K8's SPH branch).
+SUBMERGED_MEDIUM = dict(sigma_a=(0.02, 0.03, 0.02),
+                        sigma_s=(0.08, 0.06, 0.09))
+
+
+def submerged_sphere_builder(res=32, spp=4):
+    b = sphere_light_builder(res)
+    b.options = RenderOptions(integrator='volpath', samples_per_pixel=spp)
+    b.media.append(MediumB(**SUBMERGED_MEDIUM))
+    b.camera.medium_id = 0
+    for shape in b.shapes:
+        shape.exterior_medium_id = 0
+    return b
+
+
+# Media for the per-function tests, appended to 'vol_glass' as media 2-5
+# (bound to no shape): HG lobes of both signs, one below the |g| < 1e-3
+# cut (sampled uniformly), and one whose red and green sigma_t are 0 (the
+# free flight's channel guard).
+MEDIA_ZOO = (
+    dict(sigma_a=(0.3, 0.2, 0.1), sigma_s=(0.5, 0.7, 0.9),
+         phase_type=T.PHASE_HG, g=0.8),
+    dict(sigma_a=(0.05, 0.05, 0.05), sigma_s=(1.0, 2.0, 0.5),
+         phase_type=T.PHASE_HG, g=-0.7),
+    dict(sigma_a=(0.2, 0.2, 0.2), sigma_s=(0.2, 0.2, 0.2),
+         phase_type=T.PHASE_HG, g=5e-4),
+    dict(sigma_a=(0.0, 0.0, 0.3), sigma_s=(0.0, 0.0, 0.6)),
+)
+
+
+def media_zoo_builder(res=16):
+    """The 'vol_glass' Cornell box with MEDIA_ZOO appended."""
+    b = cornell_box_builder(res, variant='vol_glass')
+    b.media += [MediumB(**m) for m in MEDIA_ZOO]
+    return b
 
 
 def textured_builder(res=16):
@@ -541,6 +664,36 @@ def random_general_lanes(scene, n, seed=0):
         dir_pdf=t['dir_pdf'], prev_pos=t['prev'].T.copy(),
         done=rng.random(n) < 0.05,
         u=t['un'].T.copy())
+
+
+def random_vol_lanes(scene, n, seed=0):
+    """State of one bounce of the general volumetric engine
+    (integrators/volpath._advance_vol_lane) for n lanes, made with numpy
+    from `seed`, keyed by volpath.VOL_STATE in the lane-major layout:
+    positions, directions, throughput and radiance as random_lanes draws
+    them, the cached NEE origin where it draws the previous vertex, each
+    lane in a random medium of the scene or in vacuum (10%, id -1),
+    bounce 0..7 (0: the camera vertex), random work items, multi-trans
+    pdf, eta_scale in {1/eta^2, 1, eta^2} (eta 1.5), ray spread and
+    radius, 5% of lanes done. Item and bounces are int64, medium int32,
+    done bool, the rest float32."""
+    t = random_lanes(scene, n, seed)
+    rng = np.random.default_rng(seed + 2)
+    f32 = np.float32
+    nm = max(scene.meta.num_media, 1)
+    medium = np.where(rng.random(n) < 0.1, -1, rng.integers(0, nm, n))
+    return dict(
+        item=rng.integers(0, 1 << 30, n).astype(np.int64),
+        org=t['org'].T.copy(), d=t['dir'].T.copy(),
+        medium=medium.astype(np.int32),
+        T=t['thr'].T.copy(), L=t['rad'].T.copy(),
+        bounces=rng.integers(0, 8, n).astype(np.int64),
+        dir_pdf=t['dir_pdf'], nee_p=t['prev'].T.copy(),
+        multi_trans_pdf=rng.uniform(0.05, 1.0, (n, 3)).astype(f32),
+        eta_scale=rng.choice([1.0 / 2.25, 1.0, 2.25], n).astype(f32),
+        spread=rng.uniform(0.0, 0.01, n).astype(f32),
+        radius=rng.uniform(0.0, 0.05, n).astype(f32),
+        done=rng.random(n) < 0.05)
 
 
 # The fields of general-engine lane state, in _advance_lane's order.

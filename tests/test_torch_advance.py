@@ -9,7 +9,6 @@ output to rtol 1e-4 / atol 1e-5 (dir_pdf: rtol 1e-2; the reasons are in
 that module).
 """
 
-import dataclasses
 import functools
 
 import jax
@@ -23,18 +22,12 @@ import lajolla_tpu.scene.compile as JC
 import lajolla_tpu.testing as JT
 from lajolla_tpu.dtypes import intersection_eps, shadow_eps
 import lajolla_tpu_torch.testing as PT
-from lajolla_tpu_torch.bridge import scene_from_jax_arrays
+from lajolla_tpu_torch.bridge import scene_from_jax as to_port
 from lajolla_tpu_torch.integrators.path import MAX_BOUNCES_CAP
 from lajolla_tpu_torch.integrators.path_kernel import advance_plain_t
 from lajolla_tpu_torch.scene.types import RenderOptions
 
 LANES = 1 << 15
-
-
-def to_port(js):
-    fields = {f.name: np.asarray(getattr(js, f.name))
-              for f in dataclasses.fields(js) if f.name != 'meta'}
-    return scene_from_jax_arrays(fields, dataclasses.asdict(js.meta), 'cpu')
 
 
 def jax_advance(js, lanes, options):

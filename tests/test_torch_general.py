@@ -21,7 +21,6 @@
 - The CLI on the glass Cornell box XML at 32x32.
 """
 
-import dataclasses
 
 import jax
 import numpy as np
@@ -34,17 +33,11 @@ from lajolla_tpu.scene.types import RenderOptions as JOptions
 import lajolla_tpu_torch.integrators.path as PPATH
 import lajolla_tpu_torch.testing as PT
 from lajolla_tpu_torch import cli, render
-from lajolla_tpu_torch.bridge import scene_from_jax_arrays
+from lajolla_tpu_torch.bridge import scene_from_jax as to_port
 from lajolla_tpu_torch.io.image import imread3
 from lajolla_tpu_torch.scene.types import RenderOptions
 
 LANES = 1 << 14
-
-
-def to_port(js):
-    fields = {f.name: np.asarray(getattr(js, f.name))
-              for f in dataclasses.fields(js) if f.name != 'meta'}
-    return scene_from_jax_arrays(fields, dataclasses.asdict(js.meta), 'cpu')
 
 
 FIXTURES = {

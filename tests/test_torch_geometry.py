@@ -18,7 +18,6 @@ compiled tables (bridge.py).
   >= 99.9% of them.
 """
 
-import dataclasses
 import functools
 
 import jax
@@ -34,7 +33,7 @@ import lajolla_tpu.scene.compile as JC
 import lajolla_tpu.scene.geometry as JG
 import lajolla_tpu_torch.testing as PT
 from lajolla_tpu_torch import kernels
-from lajolla_tpu_torch.bridge import scene_from_jax_arrays
+from lajolla_tpu_torch.bridge import scene_from_jax as to_port
 from lajolla_tpu_torch.ops.intersect import (_brute_force_batched,
                                              _occluded_batched)
 from lajolla_tpu_torch.scene import geometry as PG
@@ -42,12 +41,6 @@ from lajolla_tpu_torch.scene import types as T
 
 RAYS = 4096
 EPS = 1e-4
-
-
-def to_port(js):
-    fields = {f.name: np.asarray(getattr(js, f.name))
-              for f in dataclasses.fields(js) if f.name != 'meta'}
-    return scene_from_jax_arrays(fields, dataclasses.asdict(js.meta), 'cpu')
 
 
 FIXTURES = {

@@ -17,6 +17,9 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     'lajolla_tpu_torch.bridge',
     'lajolla_tpu_torch.kernels',
     'lajolla_tpu_torch.integrators.path',
+    'lajolla_tpu_torch.integrators.media',
+    'lajolla_tpu_torch.integrators.volpath',
+    'lajolla_tpu_torch.integrators.volpath_kernel',
 ])
 def test_import_pulls_in_no_jax(module, tmp_path):
     code = (f"import importlib, sys; importlib.import_module({module!r}); "

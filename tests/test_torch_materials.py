@@ -19,7 +19,6 @@ lanes, which get rtol 1e-2 and must stay under 3% of the lanes:
   sqrt(1 - t1^2 - t2^2) cancels (up to 4e-4 relative).
 """
 
-import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -33,18 +32,12 @@ import lajolla_tpu.scene.geometry as JG
 import lajolla_tpu.scene.texeval as JTE
 import lajolla_tpu_torch.materials as PM
 import lajolla_tpu_torch.testing as PT
-from lajolla_tpu_torch.bridge import scene_from_jax_arrays
+from lajolla_tpu_torch.bridge import scene_from_jax as to_port
 from lajolla_tpu_torch.scene import geometry as PG
 from lajolla_tpu_torch.scene import texeval as PTE
 from lajolla_tpu_torch.scene import types as T
 
 N = 8192
-
-
-def to_port(js):
-    fields = {f.name: np.asarray(getattr(js, f.name))
-              for f in dataclasses.fields(js) if f.name != 'meta'}
-    return scene_from_jax_arrays(fields, dataclasses.asdict(js.meta), 'cpu')
 
 
 def _unit(rng, n):

@@ -8,7 +8,6 @@ holds lajolla_tpu's own kernels: median per-pixel relative difference
 below 1e-4 and film means within 1%.
 """
 
-import dataclasses
 
 import numpy as np
 import pytest
@@ -21,16 +20,10 @@ import lajolla_tpu_torch.integrators.path as PPATH
 import lajolla_tpu_torch.integrators.path_megakernel as PMK
 import lajolla_tpu_torch.testing as PT
 from lajolla_tpu_torch import cli, render
-from lajolla_tpu_torch.bridge import scene_from_jax_arrays
+from lajolla_tpu_torch.bridge import scene_from_jax as to_port
 from lajolla_tpu_torch.io.image import imread3
 from lajolla_tpu_torch.scene import types as T
 from lajolla_tpu_torch.scene.types import RenderOptions
-
-
-def to_port(js):
-    fields = {f.name: np.asarray(getattr(js, f.name))
-              for f in dataclasses.fields(js) if f.name != 'meta'}
-    return scene_from_jax_arrays(fields, dataclasses.asdict(js.meta), 'cpu')
 
 
 def jax_fused(js, spp, monkeypatch, block=None):
