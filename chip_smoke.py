@@ -28,8 +28,10 @@ exits non-zero and prints no final line:
     512x512 x 16 spp (the general engine and K3), and the volumetric
     Cornell box XML ('vol') at 512x512 x 256 spp (volpath, K8); the EXRs
     must be finite with mean luminance in (0.05, 5), (0.005, 0.5) for the
-    foggy 'vol'. Prints Mpaths/s of each 512x512 render for the whole
-    CLI run and for render() alone;
+    foggy 'vol'), and the heterogeneous Cornell box XML ('hetvol', a
+    128x128x50 density grid) at 768x576 x 32 spp (volpath, K9), mean
+    luminance in (0.02, 2). Prints Mpaths/s of each large render for the
+    whole CLI run and for render() alone;
  7. kernel K3 (intersect_brute_kernel, occluded_brute_kernel) against its
     plain forms on the 2^18 camera, bounce and shadow rays of the glass
     Cornell box and the sphere-light scene at 512x512
@@ -51,8 +53,25 @@ exits non-zero and prints no final line:
 11. the general volumetric engine (volpath._render_volpath_block) on the
     card at 128x128 x 4 spp: on 'vol' against K8, and on 'vol_glass' with
     K3 against it with the plain casts (it must launch K3 and not K8):
+    median < 1e-4, means within 1%; loop iterations and wall time;
+12. kernel K9 (render_fused_grid_kernel) against its plain form on
+    'hetvol' and 'hetvol_hg' (128x128x50 grids) at 128x128 x 2 spp and
+    on 'hetvol' at the main path's film, 768x576 x 1 spp: median
+    per-pixel relative difference < 1e-4, film means within 1%; K9
+    timed by CUDA events at 768x576 x 1 and 4 spp, its plain form at
+    768x576 x 1 spp (the plain form's counters give the work the bound
+    counts);
+13. the general event machine (volpath._render_volpath_block) on the card
+    against K9 on 'hetvol' at 64x64 x 2 spp (4096 pixels, two whole
+    2048-lane blocks, so K9 draws the engine's numbers): median < 1e-4,
+    means within 1%; and on 'hetvol_smooth' (outside K9's class) with K3
+    against it with the plain casts (it must launch K3 and not K9):
     median < 1e-4, means within 1%; loop iterations and wall time.
-Then one JSON line of per-kernel results, and last the device line.
+Then one JSON line of per-kernel results (each kernel's launches on the
+main path of [6], its largest difference from its plain form, its time,
+its plain form's time, its bound and what bounds it, and the time of a
+library call that computes the same function: none has one), and last
+the device line.
 """
 
 import json
@@ -68,6 +87,25 @@ K3_SOURCE = 'lajolla_tpu_torch/csrc/intersect_kernels.cu'
 K3_REPLACES = 'lajolla_tpu/ops/intersect_pallas.py:29'
 K8_SOURCE = 'lajolla_tpu_torch/csrc/volpath_kernels.cu'
 K8_REPLACES = 'lajolla_tpu/integrators/volpath_kernel.py:552'
+K9_SOURCE = 'lajolla_tpu_torch/csrc/volpath_grid_kernels.cu'
+K9_REPLACES = 'lajolla_tpu/integrators/volpath_grid_kernel.py:910'
+
+# Peak rates of one H100 SXM (NVIDIA's data sheet, at the full 700 W):
+# fp32 outside the tensor cores, and device memory.
+PEAK_FP32 = 67e12
+PEAK_BYTES = 3.35e12
+# fp32 operations of one piece of work, counted by hand in the CUDA
+# sources and rounded down: a closest-hit Woop test (intersect_range:
+# the three Woop rows 33, t, u, v 5, the limits 4, the compares 3); an
+# any-hit test (occluded: Woop rows 33, U, V and the limit 9, the four
+# sign tests 13); a sphere test (sphere_t); the rest of a path vertex
+# (shade 60, emission and MIS 25, the light sample 45, two BSDF
+# evaluations and a sample 240, roulette and merge 50); K8's closed-form
+# free flight and NEE transmittance; one K9 tracking step (ff_micro: the
+# slab 27, the supervoxel cell and its exit 80, the 8-corner density
+# read 53, the tracking update 30).
+OPS = dict(closest_test=45, any_test=55, sphere_test=28, vertex=420,
+           vol_flight=40, track_step=190)
 
 
 def cuda_ms(torch, fn, reps):
@@ -134,6 +172,34 @@ def film_agreement(got, want):
             want.mean(), float(np.abs(got - want).max()))
 
 
+def bound(ops, nbytes):
+    """(bound_ms, bound_by): the least time the card could take for ops
+    fp32 operations and nbytes bytes moved."""
+    t_ops = ops / PEAK_FP32 * 1e3
+    t_bytes = nbytes / PEAK_BYTES * 1e3
+    return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
+
+
+def table_bytes(scene):
+    """Bytes of the scene tables a fused kernel reads (each once)."""
+    return sum(t.numel() * t.element_size() for t in (
+        scene.fp_woop, scene.fp_woop_occ, scene.fp_tri, scene.cast_src,
+        scene.cast_alt, scene.cast_quad, scene.cast_occ_quad, scene.fp_light,
+        scene.tri_stair_cdf, scene.fp_sph))
+
+
+def vertex_ops(scene, vertices):
+    """fp32 operations of `vertices` path vertices of K1, K2 or K8: a
+    closest-hit scan of the cast table and of the spheres, one any-hit
+    test (the least an NEE shadow scan can take: its length depends on
+    where the first occluder sits in the table, which no count here
+    records), the vertex's other work."""
+    tc = scene.fp_woop.shape[0]
+    s = scene.meta.num_spheres
+    return vertices * (tc * OPS['closest_test'] + OPS['any_test'] +
+                       s * OPS['sphere_test'] + OPS['vertex'])
+
+
 def block_rms(got, want, b=8):
     """RMS difference of the b x b-pixel block means over the film mean
     (lajolla_tpu tests/test_vol_kernel.py's d8)."""
@@ -156,6 +222,7 @@ def main():
     from lajolla_tpu_torch.integrators import path_kernel as PK
     from lajolla_tpu_torch.integrators import path_megakernel as PMK
     from lajolla_tpu_torch.integrators import volpath as PV
+    from lajolla_tpu_torch.integrators import volpath_grid_kernel as PGK
     from lajolla_tpu_torch.integrators import volpath_kernel as PVK
     from lajolla_tpu_torch.integrators.path import (MAX_BOUNCES_CAP,
                                                     _render_block_kernel)
@@ -224,6 +291,11 @@ def main():
         cbox, options, *args, MAX_BOUNCES_CAP), 20)
     k2_plain_ms = cuda_ms(torch, lambda: PK.advance_plain_t(
         cbox, options, *args, MAX_BOUNCES_CAP), 5)
+    n2 = args[0].shape[1]
+    # lanes in (org, dir, thr, rad, prev 3 each, nv, dir_pdf, un 8: fp32;
+    # act: bool), lanes out (4 x 3 + 1 fp32, alive: bool), the tables
+    k2_bytes = n2 * (4 * (15 + 2 + 8) + 1 + 4 * 13 + 1) + table_bytes(cbox)
+    k2_bound = bound(vertex_ops(cbox, int(args[8].sum())), k2_bytes)
     print(f"[3] K2 at 2^18 lanes (Cornell box): kernel {k2_ms:.3f} ms, "
           f"plain {k2_plain_ms:.3f} ms ({smi})")
 
@@ -236,8 +308,14 @@ def main():
             ('per-bounce driver + K2, Cornell box 96x96',
              PT.make_cornell_box(96).to(dev), _render_block_kernel)):
         film_k = render_k(scene, options, 0, 0, spp)
+        vertices = []
+
+        def counting(scene_, options_, *a):   # a[8]: the active lanes
+            vertices.append(a[8].sum())
+            return PK.advance_plain_t(scene_, options_, *a)
         t0 = time.perf_counter()
-        film_p = PMK.render_fused_plain(scene, options, 0, 0, spp)
+        film_p = _render_block_kernel(scene, options, 0, 0, spp,
+                                      advance=counting)
         torch.cuda.synchronize()
         plain_ms = 1e3 * (time.perf_counter() - t0)
         img_k = film_k.cpu().numpy() / spp
@@ -255,6 +333,8 @@ def main():
                                  f"{fixture}")
         if scene is cbox:
             k1_err, k1_plain_ms = err, plain_ms
+            k1_bound = bound(vertex_ops(scene, int(sum(vertices))),
+                             table_bytes(scene) + 12 * 512 * 512)
     k1_ms = cuda_ms(torch, lambda: PMK.render_fused(cbox, options, 0, 0,
                                                      spp), 3)
     print(f"[4] K1 at 512x512 x {spp} spp (Cornell box): kernel "
@@ -281,25 +361,31 @@ def main():
             raise AssertionError(f"{path}: bad image")
 
     def render_alone(xml):
-        """render() of a parsed scene, warm, in seconds."""
+        """render() of a parsed scene, warm, in seconds (one render first,
+        for every scene: a kernel's first launch pays for its module
+        load)."""
         scene, opt = parse_scene(xml, dev)
+        render(scene, opt, device=dev)
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         render(scene, opt, device=dev)
         return time.perf_counter() - t0
 
     with tempfile.TemporaryDirectory() as tmp:
-        runs = [  # (xml, exr, paths of a 512x512 film or None, luminance)
+        runs = [  # (xml, exr, (w, h, spp) to time or None, luminance)
             (PT.write_cornell_box_xml(os.path.join(tmp, 'big'), 512, 256),
-             'cbox512.exr', 512 * 512 * 256, (0.05, 5.0)),
+             'cbox512.exr', (512, 512, 256), (0.05, 5.0)),
             (PT.write_cornell_box_xml(os.path.join(tmp, 'small'), 96, 16),
              'cbox96.exr', None, (0.05, 5.0)),
             (PT.write_cornell_box_xml(os.path.join(tmp, 'glass'), 512, 16,
                                       variant='glass'),
-             'glass512.exr', 512 * 512 * 16, (0.05, 5.0)),
+             'glass512.exr', (512, 512, 16), (0.05, 5.0)),
             (PT.write_cornell_box_xml(os.path.join(tmp, 'vol'), 512, 256,
                                       variant='vol'),
-             'vol512.exr', 512 * 512 * 256, (0.005, 0.5))]
+             'vol512.exr', (512, 512, 256), (0.005, 0.5)),
+            (PT.write_cornell_box_xml(os.path.join(tmp, 'hetvol'),
+                                      (768, 576), 32, variant='hetvol'),
+             'hetvol768.exr', (768, 576, 32), (0.02, 2.0))]
         for k in kernels.LAUNCHES:
             kernels.LAUNCHES[k] = 0
         cli_s = []
@@ -317,10 +403,11 @@ def main():
                 raise AssertionError(f"the main path never launched {k}")
         for _, exr, _, (lo, hi) in runs:
             luminance_of(os.path.join(tmp, exr), lo, hi)
-        for (xml, exr, paths, _), cs in zip(runs, cli_s):
-            if paths:
+        for (xml, exr, size, _), cs in zip(runs, cli_s):
+            if size:
+                paths = size[0] * size[1] * size[2]
                 rs = render_alone(xml)
-                print(f"[6] {exr[:-4]} 512x512 x {paths // (512 * 512)} spp:"
+                print(f"[6] {exr[:-4]} {size[0]}x{size[1]} x {size[2]} spp:"
                       f" {paths / cs / 1e6:.2f} Mpaths/s over the whole CLI "
                       f"run ({cs:.3f} s), {paths / rs / 1e6:.2f} Mpaths/s "
                       f"render() alone ({rs:.3f} s); {smi}")
@@ -359,6 +446,19 @@ def main():
                                 float((occ != pocc).float().max()))
         if fixture == 'glass cbox':
             bounce, shadow = rays['bounce'], rays['shadow']
+            nb, tc = bounce[0].shape[0], scene.fp_woop.shape[0]
+            ns, t_occ = shadow[0].shape[0], scene.fp_woop_occ.shape[0]
+            # rays in (o, d, tnear, tfar: 8 fp32), hits out (t, prim, u,
+            # v: 4 x 4 B) or bits out (1 B), the cast tables (12 fp32 and
+            # a quad flag per prim, and 2 ids per closest-hit prim)
+            k3['bound'] = bound(nb * tc * OPS['closest_test'],
+                                nb * (32 + 16) + tc * (52 + 8))
+            occluded = int(_occluded_batched(scene, *shadow).sum())
+            # an occluded ray's scan ends at its first occluder: counted
+            # at one test, the least it can take
+            k3['occ_bound'] = bound(
+                ((ns - occluded) * t_occ + occluded) * OPS['any_test'],
+                ns * (32 + 1) + t_occ * 52)
             k3['ms'] = cuda_ms(torch, lambda: kernels.intersect_brute(
                 scene, *bounce), 20)
             k3['plain_ms'] = cuda_ms(torch, lambda: _brute_force_batched(
@@ -420,9 +520,18 @@ def main():
                 PT.submerged_sphere_builder(256)).to(dev), 32, True)):
         img_k = PVK.render_fused_vol(scene, vol_opts, 0, 0, spp).cpu() \
             .numpy() / spp
+        vertices = []
+        real_core = PVK._advance_vol_core
+
+        def counting(scene_, o, d, thr, rad, bounces, dir_pdf, mtp, nee_p,
+                     act_in, *a, **k):
+            vertices.append(act_in.sum())
+            return real_core(scene_, o, d, thr, rad, bounces, dir_pdf, mtp,
+                             nee_p, act_in, *a, **k)
         t0 = time.perf_counter()
-        img_p = PVK.render_fused_vol_plain(scene, vol_opts, 0, 0, spp) \
-            .cpu().numpy() / spp
+        with mock.patch.object(PVK, '_advance_vol_core', counting):
+            img_p = PVK.render_fused_vol_plain(scene, vol_opts, 0, 0, spp) \
+                .cpu().numpy() / spp
         plain_s = time.perf_counter() - t0
         med, mean_rel, err = film_agreement(img_k, img_p)
         d8 = block_rms(img_k, img_p)
@@ -436,6 +545,9 @@ def main():
                                  f"{fixture}")
         if scene is vol512:
             k8_err = err
+            v = int(sum(vertices))
+            k8_bound = bound(vertex_ops(scene, v) + v * OPS['vol_flight'],
+                             table_bytes(scene) + 12 * 512 * 512)
     k8_ms = cuda_ms(torch, lambda: PVK.render_fused_vol(
         vol512, vol_opts, 0, 0, 4), 10)
     k8_plain_ms = cuda_ms(torch, lambda: PVK.render_fused_vol_plain(
@@ -487,30 +599,125 @@ def main():
         raise AssertionError("the general volumetric engine with K3 "
                              "disagrees with it with the plain casts")
 
+    # ---- 12. K9 against its plain form
+    for fixture in ('hetvol', 'hetvol_hg'):
+        scene = PT.make_cornell_box(128, 2, fixture).to(dev)
+        spp = 2
+        img_k = PGK.render_fused_grid(scene, vol_opts, 0, 0, spp).cpu() \
+            .numpy() / spp
+        t0 = time.perf_counter()
+        img_p = PGK.render_fused_grid_plain(scene, vol_opts, 0, 0, spp) \
+            .cpu().numpy() / spp
+        plain_s = time.perf_counter() - t0
+        med, mean_rel, err = film_agreement(img_k, img_p)
+        print(f"[12] K9 vs plain, {fixture} 128x128 x {spp} spp: median rel "
+              f"{med:.3g}, mean rel {mean_rel:.3g}, max |diff| {err:.3g}; "
+              f"means {img_k.mean():.6f} {img_p.mean():.6f}; plain form "
+              f"{plain_s:.2f} s")
+        if not (med < 1e-4 and mean_rel < 0.01):
+            raise AssertionError(f"K9 disagrees with its plain form on "
+                                 f"{fixture}")
+    # the main path's film: 768x576 = 216 whole 2048-lane blocks
+    het768 = PT.make_cornell_box((768, 576), 1, 'hetvol').to(dev)
+    k9_ms4 = cuda_ms(torch, lambda: PGK.render_fused_grid(
+        het768, vol_opts, 0, 0, 4), 3)
+    k9_ms = cuda_ms(torch, lambda: PGK.render_fused_grid(
+        het768, vol_opts, 0, 0, 1), 5)
+    img_k = PGK.render_fused_grid(het768, vol_opts, 0, 0, 1).cpu().numpy()
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    img_p = PGK.render_fused_grid_plain(het768, vol_opts, 0, 0, 1,
+                                        stats=stats).cpu().numpy()
+    k9_plain_ms = 1e3 * (time.perf_counter() - t0)
+    med, mean_rel, k9_err = film_agreement(img_k, img_p)
+    print(f"[12] K9 vs plain, hetvol 768x576 x 1 spp: median rel {med:.3g}, "
+          f"mean rel {mean_rel:.3g}, max |diff| {k9_err:.3g}; means "
+          f"{img_k.mean():.6f} {img_p.mean():.6f}")
+    if not (med < 1e-4 and mean_rel < 0.01):
+        raise AssertionError("K9 disagrees with its plain form on hetvol "
+                             "768x576")
+    n9 = 768 * 576
+    grid_bytes = het768.fp_grid.numel() * 4 + het768.svox_data.shape[0] * 8
+    k9_bound = bound(
+        stats['casts'] * (het768.fp_woop.shape[0] * OPS['closest_test'] +
+                          het768.meta.num_spheres * OPS['sphere_test']) +
+        stats['track_steps'] * OPS['track_step'] +
+        stats['vertices'] * OPS['vertex'],
+        table_bytes(het768) + grid_bytes + 12 * n9)
+    print(f"[12] K9 at 768x576 (hetvol, 128x128x50 grid): kernel "
+          f"{k9_ms:.3f} ms at 1 spp, {k9_ms4:.3f} ms at 4 spp; plain form "
+          f"{k9_plain_ms:.1f} ms at 1 spp; per path (plain form's counts) "
+          f"{stats['vertices'] / n9:.3f} vertices, {stats['casts'] / n9:.3f}"
+          f" casts, {stats['track_steps'] / n9:.3f} tracking steps; bound "
+          f"{k9_bound[0]:.3f} ms ({k9_bound[1]}) ({smi})")
+
+    # ---- 13. the general event machine on the card
+    spp = 2
+    het64 = PT.make_cornell_box(64, spp, 'hetvol').to(dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    film_g, _, iters = PV._render_volpath_block(het64, vol_opts, 0, 0, spp)
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    img_k = PGK.render_fused_grid(het64, vol_opts, 0, 0, spp).cpu().numpy()
+    med, mean_rel, _ = film_agreement(img_k / spp, film_g.cpu().numpy()
+                                      .reshape(64, 64, 3) / spp)
+    print(f"[13] event machine vs K9, hetvol 64x64 x {spp} spp: median rel "
+          f"{med:.3g}, mean rel {mean_rel:.3g}; engine {iters} iterations "
+          f"in {engine_s:.3f} s")
+    if not (med < 1e-4 and mean_rel < 0.01):
+        raise AssertionError("the event machine disagrees with K9")
+    smooth = PT.make_cornell_box(64, spp, 'hetvol_smooth').to(dev)
+    if PV._use_grid_kernel(smooth):
+        raise AssertionError("hetvol_smooth is inside K9's class")
+    before = dict(kernels.LAUNCHES)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    film_k, _, iters = PV._render_volpath_block(smooth, vol_opts, 0, 0, spp)
+    torch.cuda.synchronize()
+    engine_s = time.perf_counter() - t0
+    ran = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    if not (ran['intersect_brute'] > 0 and ran['render_fused_grid'] == 0):
+        raise AssertionError(f"hetvol_smooth launched {ran}: expected K3 "
+                             "and no K9")
+    with mock.patch.multiple(kernels, intersect_brute=_brute_force_batched,
+                             occluded_brute=_occluded_batched):
+        film_p, _, _ = PV._render_volpath_block(smooth, vol_opts, 0, 0, spp)
+    med, mean_rel, _ = film_agreement(film_k.cpu().numpy() / spp,
+                                      film_p.cpu().numpy() / spp)
+    print(f"[13] event machine, K3 vs plain casts, hetvol_smooth 64x64 x "
+          f"{spp} spp: median rel {med:.3g}, mean rel {mean_rel:.3g}; "
+          f"{iters} iterations in {engine_s:.3f} s; launches {ran}")
+    if not (med < 1e-4 and mean_rel < 0.01):
+        raise AssertionError("the event machine with K3 disagrees with it "
+                             "with the plain casts")
+
+    def line(name, source, replaces, launched, err, ms, plain_ms, bnd):
+        return {"name": name, "route": "cuda", "source": source,
+                "replaces": replaces, "launches": launched,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+
     print(json.dumps({"kernels": [
-        {"name": "render_fused_kernel", "route": "cuda",
-         "source": KERNEL_SOURCE,
-         "replaces": "lajolla_tpu/integrators/path_megakernel.py:105",
-         "launches": launches['render_fused'], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
-        {"name": "advance_kernel", "route": "cuda", "source": KERNEL_SOURCE,
-         "replaces": "lajolla_tpu/integrators/path_kernel.py:895",
-         "launches": launches['advance'], "max_abs_err": k2_err,
-         "ms": k2_ms, "plain_ms": k2_plain_ms},
-        {"name": "intersect_brute_kernel", "route": "cuda",
-         "source": K3_SOURCE, "replaces": K3_REPLACES,
-         "launches": launches['intersect_brute'],
-         "max_abs_err": k3['closest_err'], "ms": k3['ms'],
-         "plain_ms": k3['plain_ms']},
-        {"name": "occluded_brute_kernel", "route": "cuda",
-         "source": K3_SOURCE, "replaces": K3_REPLACES,
-         "launches": launches['occluded_brute'],
-         "max_abs_err": k3['occ_err'], "ms": k3['occ_ms'],
-         "plain_ms": k3['occ_plain_ms']},
-        {"name": "render_fused_vol_kernel", "route": "cuda",
-         "source": K8_SOURCE, "replaces": K8_REPLACES,
-         "launches": launches['render_fused_vol'], "max_abs_err": k8_err,
-         "ms": k8_ms, "plain_ms": k8_plain_ms}]}))
+        line("render_fused_kernel", KERNEL_SOURCE,
+             "lajolla_tpu/integrators/path_megakernel.py:105",
+             launches['render_fused'], k1_err, k1_ms, k1_plain_ms, k1_bound),
+        line("advance_kernel", KERNEL_SOURCE,
+             "lajolla_tpu/integrators/path_kernel.py:895",
+             launches['advance'], k2_err, k2_ms, k2_plain_ms, k2_bound),
+        line("intersect_brute_kernel", K3_SOURCE, K3_REPLACES,
+             launches['intersect_brute'], k3['closest_err'], k3['ms'],
+             k3['plain_ms'], k3['bound']),
+        line("occluded_brute_kernel", K3_SOURCE, K3_REPLACES,
+             launches['occluded_brute'], k3['occ_err'], k3['occ_ms'],
+             k3['occ_plain_ms'], k3['occ_bound']),
+        line("render_fused_vol_kernel", K8_SOURCE, K8_REPLACES,
+             launches['render_fused_vol'], k8_err, k8_ms, k8_plain_ms,
+             k8_bound),
+        line("render_fused_grid_kernel", K9_SOURCE, K9_REPLACES,
+             launches['render_fused_grid'], k9_err, k9_ms, k9_plain_ms,
+             k9_bound)]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -123,11 +123,14 @@ __device__ __forceinline__ Woop woop_rows(const float* __restrict__ W, V3 o,
   return r;
 }
 
-// Closest hit over the cast table: the first prim with the least t.
-template <bool QUADS>
-__device__ __forceinline__ void intersect(const Tables& tb, V3 o, V3 d,
-                                          float& t_best, int& idx, float& ub,
-                                          float& vb, float& qb) {
+// Closest hit over the cast table in (tnear, tfar), or beyond tnear
+// where FAR is false: the first prim with the least t.
+template <bool QUADS, bool FAR>
+__device__ __forceinline__ void intersect_range(const Tables& tb, V3 o, V3 d,
+                                                float tnear, float tfar,
+                                                float& t_best, int& idx,
+                                                float& ub, float& vb,
+                                                float& qb) {
   t_best = inf_f();
   idx = 0;
   ub = vb = qb = 0.0f;
@@ -143,7 +146,7 @@ __device__ __forceinline__ void intersect(const Tables& tb, V3 o, V3 d,
       if (q > 0.0f) lim = 1.0f - mx(u, v);
     }
     float m = mn(mn(u, v), lim);
-    if (m >= 0.0f && t > tb.eps_isect && t < t_best) {
+    if (m >= 0.0f && t > tnear && (!FAR || t < tfar) && t < t_best) {
       t_best = t;
       idx = c;
       ub = u;
@@ -151,6 +154,15 @@ __device__ __forceinline__ void intersect(const Tables& tb, V3 o, V3 d,
       qb = q;
     }
   }
+}
+
+// Closest hit over the cast table beyond eps_isect.
+template <bool QUADS>
+__device__ __forceinline__ void intersect(const Tables& tb, V3 o, V3 d,
+                                          float& t_best, int& idx, float& ub,
+                                          float& vb, float& qb) {
+  intersect_range<QUADS, false>(tb, o, d, tb.eps_isect, 0.0f, t_best, idx,
+                                ub, vb, qb);
 }
 
 // Any-hit over the occluder subset, division-free (see _occluded).
@@ -353,27 +365,33 @@ __device__ __forceinline__ float cone_pdf_area(V3 c, float r, V3 ref, V3 n,
 struct Surf {
   float t;             // closest distance, inf on a miss
   bool sph_win;        // a sphere is closer than every triangle
+  bool found;          // a triangle is hit
+  int prim;            // the hit triangle (found only)
   const float* srow;   // the winning sphere's record (sph_win only)
   float rw[34];        // the triangle record, zero where no triangle is hit
   float ub, vb;        // barycentrics in the record's own triangle
 };
 
-template <bool QUADS, bool SPH>
-__device__ __forceinline__ void closest_hit(const Tables& tb, V3 o, V3 d,
-                                            Surf& s) {
+// The closest hit in (tnear, tfar), or beyond tnear where FAR is false.
+template <bool QUADS, bool SPH, bool FAR>
+__device__ __forceinline__ void closest_hit_range(const Tables& tb, V3 o,
+                                                  V3 d, float tnear,
+                                                  float tfar, Surf& s) {
   const int T = tb.t;
   float t_tri, qb;
   int idx;
-  intersect<QUADS>(tb, o, d, t_tri, idx, s.ub, s.vb, qb);
+  intersect_range<QUADS, FAR>(tb, o, d, tnear, tfar, t_tri, idx, s.ub, s.vb,
+                              qb);
   const bool found = t_tri < inf_f();
   s.t = t_tri;
   s.sph_win = false;
+  s.found = found;
   s.srow = nullptr;
   if (SPH) {
     float t_sph = inf_f();
     int sidx = 0;
     for (int k = 0; k < tb.s; ++k) {
-      float ts = sphere_t(tb.sph + 24 * k, o, d, tb.eps_isect, inf_f());
+      float ts = sphere_t(tb.sph + 24 * k, o, d, tnear, FAR ? tfar : inf_f());
       if (ts < t_sph) {
         t_sph = ts;
         sidx = k;
@@ -393,10 +411,17 @@ __device__ __forceinline__ void closest_hit(const Tables& tb, V3 o, V3 d,
       s.vb = v2;
     }
   }
+  s.prim = prim;
   // zero on a miss, like the TPU kernels' one-hot row
 #pragma unroll
   for (int k = 0; k < 34; ++k)
     s.rw[k] = found ? __ldg(tb.tri + k * T + prim) : 0.0f;
+}
+
+template <bool QUADS, bool SPH>
+__device__ __forceinline__ void closest_hit(const Tables& tb, V3 o, V3 d,
+                                            Surf& s) {
+  closest_hit_range<QUADS, SPH, false>(tb, o, d, tb.eps_isect, 0.0f, s);
 }
 
 // Shading data of the hit at point p: normals (the geometric one turned
@@ -458,6 +483,7 @@ __device__ __forceinline__ void shade(const Surf& s, V3 p, Shade& h) {
 // point (u0, u1); sphere lights by cone sampling with the inside-uniform
 // fallback (shapes/sphere.inl:156-204).
 struct LightSample {
+  V3 lp;               // the light point
   V3 ln;               // the light point's normal
   V3 l_int;            // radiance
   float l_pmf, p1_area;  // pick pmf, area-measure pdf of the point
@@ -530,6 +556,7 @@ __device__ __forceinline__ void sample_light(const Tables& tb, V3 p, float u0,
       ls.ln = lns;
     }
   }
+  ls.lp = lp;
   float dlx = lp.x - p.x, dly = lp.y - p.y, dlz = lp.z - p.z;
   ls.dist2 = mx(dlx * dlx + dly * dly + dlz * dlz, 1e-20f);
   ls.dl = norm3(v3(dlx, dly, dlz));

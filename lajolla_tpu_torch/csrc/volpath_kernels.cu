@@ -42,19 +42,13 @@
 
 #include "camera.cuh"
 #include "path_advance.cuh"
+#include "volpath_common.cuh"
 
 namespace lj {
-
-constexpr float kInv4Pi = 0.07957747154594767f;
 
 // The class's one medium: sigma_a, sigma_s and the HG asymmetry g.
 struct Medium {
   float sa[3], ss[3], g;
-};
-
-// Draw-site salts (integrators/volpath.py _S_*, _IT0).
-struct VolSalts {
-  uint32_t ff, nee, nee_seg, phase, bsdf, rr, surf_nee, it0;
 };
 
 }  // namespace lj
@@ -62,23 +56,16 @@ struct VolSalts {
 namespace {
 
 using lj::Camera;
+using lj::max3;
 using lj::Medium;
+using lj::u_dim;
 using lj::V3;
 using lj::VolSalts;
 
 constexpr int kThreads = 128;
 
-// dim-th U[0,1) of the sub-stream rooted at hs (volpath._u)
-__device__ __forceinline__ float u_dim(uint32_t hs, uint32_t dim) {
-  return lj::u01(lj::pcg_hash(hs + dim * lj::kGold));
-}
-
 __device__ __forceinline__ float comp(V3 v, int ch) {
   return ch == 0 ? v.x : (ch == 1 ? v.y : v.z);
-}
-
-__device__ __forceinline__ float max3(V3 v) {
-  return lj::mx(lj::mx(v.x, v.y), v.z);
 }
 
 __device__ __forceinline__ int channel(float u) {

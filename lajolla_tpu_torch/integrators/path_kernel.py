@@ -79,24 +79,27 @@ def _woop_tuv(o, d, W):
     return t, ox + t * dx, oy + t * dy
 
 
-def _hit_mask(t, u, v, tnear, qf):
+def _hit_mask(t, u, v, tnear, qf, tfar=None):
     """qf: (T,) quad flags or None — flagged rows accept the
-    parallelogram max(u, v) <= 1 instead of the triangle u + v <= 1."""
+    parallelogram max(u, v) <= 1 instead of the triangle u + v <= 1.
+    tfar None: no far bound."""
     lim = 1.0 - u - v
     if qf is not None:
         lim = torch.where(qf[:, None] > 0.0, 1.0 - torch.maximum(u, v), lim)
     m = torch.minimum(torch.minimum(u, v), lim)
-    return (m >= 0.0) & (t > tnear)
+    hit = (m >= 0.0) & (t > tnear)
+    return hit if tfar is None else hit & (t < tfar)
 
 
-def _intersect(o, d, tnear, W, qf):
-    """Closest Woop hit over the cast table. Returns (t_best, idx, found,
-    ub, vb, qb), each (1, B): idx is the first cast prim with the least
-    t, and u, v are in the rep triangle's frame (the caller remaps
-    u + v > 1 quad hits). Where nothing is hit, t_best is inf and ub, vb,
-    qb are 0, as lajolla_tpu's all-zero one-hot row gives."""
+def _intersect(o, d, tnear, W, qf, tfar=None):
+    """Closest Woop hit over the cast table in (tnear, tfar). Returns
+    (t_best, idx, found, ub, vb, qb), each (1, B): idx is the first cast
+    prim with the least t, and u, v are in the rep triangle's frame (the
+    caller remaps u + v > 1 quad hits). Where nothing is hit, t_best is
+    inf and ub, vb, qb are 0, as lajolla_tpu's all-zero one-hot row
+    gives."""
     t, u, v = _woop_tuv(o, d, W)
-    t = torch.where(_hit_mask(t, u, v, tnear, qf), t, INF)
+    t = torch.where(_hit_mask(t, u, v, tnear, qf, tfar), t, INF)
     t_best, idx = torch.min(t, dim=0, keepdim=True)
     found = t_best < INF
     ub = torch.where(found, u.gather(0, idx), 0.0)

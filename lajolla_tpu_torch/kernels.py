@@ -9,10 +9,11 @@ machines with no nvcc and no GPU.
 The wrappers check device, dtype, shape and contiguity, allocate their
 outputs with torch.empty, launch on the current stream without
 synchronising, raise if the launch reports a CUDA error, and count their
-launches in LAUNCHES. They never fall back to the plain forms: K1, K2 and
-K8 take CUDA tensors only (their callers run the plain forms for CPU
-tensors); K3's wrappers run the plain form for CPU tensors themselves
-and launch the kernel for CUDA tensors.
+launches in LAUNCHES. They never fall back to the plain forms: K1, K2,
+K8 and K9 take CUDA tensors only (their callers run the plain forms for
+CPU tensors); K3's wrappers run the plain form for CPU tensors
+themselves and launch the kernel for CUDA tensors. K9's library is built
+with -fmad=false (csrc/volpath_grid_kernels.cu says why).
 """
 
 import ctypes
@@ -26,16 +27,20 @@ import torch
 
 _CSRC = Path(__file__).resolve().parent / 'csrc'
 _SOURCES = ('path_kernels.cu', 'path_advance.cuh', 'camera.cuh',
-            'intersect_kernels.cu', 'volpath_kernels.cu')
-_UNITS = ('path_kernels', 'intersect_kernels', 'volpath_kernels')  # per .cu
+            'intersect_kernels.cu', 'volpath_kernels.cu',
+            'volpath_common.cuh', 'volpath_grid_kernels.cu')
+_UNITS = ('path_kernels', 'intersect_kernels', 'volpath_kernels',
+          'volpath_grid_kernels')  # one library per .cu
 BUILD_DIR = Path(__file__).resolve().parent.parent / 'build' / \
     'lajolla_tpu_torch'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+UNIT_FLAGS = {'volpath_grid_kernels': ('-fmad=false',)}
 
 # Kernel launches by kernel name; a wrapper adds one where it launches.
 LAUNCHES = {'render_fused': 0, 'advance': 0, 'intersect_brute': 0,
-            'occluded_brute': 0, 'render_fused_vol': 0}
+            'occluded_brute': 0, 'render_fused_vol': 0,
+            'render_fused_grid': 0}
 
 _libs = None
 
@@ -74,6 +79,16 @@ class _VolSalts(ctypes.Structure):
                                   'rr', 'surf_nee', 'it0')]
 
 
+class _GridMedium(ctypes.Structure):
+    """lj::GridMedium (csrc/volpath_grid_kernels.cu)."""
+    _fields_ = [('pmin', _F * 3), ('pmax', _F * 3), ('res', _I * 3),
+                ('gres', _I * 3), ('rows', _I), ('maxval', _F),
+                ('albedo', _F * 3), ('g', _F), ('hg_a', _F), ('hg_b', _F),
+                ('hg_c', _F), ('hg_d', _F), ('hg_num', _F),
+                ('hg_sample', _I), ('cam_med', _I), ('max_null', _I),
+                ('max_segments', _I)]
+
+
 def _nvcc():
     found = shutil.which('nvcc')
     if found:
@@ -109,6 +124,13 @@ def _bind(libs):
         ctypes.POINTER(_Medium), ctypes.POINTER(_VolSalts), _I, _I, _I, _I,
         _I, _I, ctypes.c_uint32, ctypes.c_longlong, _I, _P, _P]
     vol.lj_render_fused_vol.restype = _I
+    grid = libs['volpath_grid_kernels']
+    grid.lj_render_fused_grid.argtypes = [
+        ctypes.POINTER(_Tables), ctypes.POINTER(_Camera),
+        ctypes.POINTER(_GridMedium), ctypes.POINTER(_VolSalts), _I, _I, _I,
+        _I, _P, _P, _I, _I, ctypes.c_longlong, ctypes.c_uint32,
+        ctypes.c_longlong, _I, _P, _P]
+    grid.lj_render_fused_grid.restype = _I
 
 
 def build():
@@ -126,7 +148,8 @@ def build():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = BUILD_DIR / f'.liblj_{unit}_{tag}.{os.getpid()}.so'
-        cmd = [_nvcc(), *NVCC_FLAGS, '-o', str(tmp), str(_CSRC / f'{unit}.cu')]
+        cmd = [_nvcc(), *NVCC_FLAGS, *UNIT_FLAGS.get(unit, ()), '-o',
+               str(tmp), str(_CSRC / f'{unit}.cu')]
         log = BUILD_DIR / f'build_{unit}_{tag}.log'
         with open(log, 'w') as f:          # the child holds its own copy
             f.write(' '.join(cmd) + '\n')
@@ -240,7 +263,6 @@ def render_fused_vol(scene, cam, medium, su, s0, nspp, *, w, h, filter_type,
     """Kernel K8: the (3, w*h) film sum of samples s0..s0+nspp of a scene
     inside volpath_kernel.supports. medium: (sigma_a (3,), sigma_s (3,),
     g ()) of its one medium; su: the pre-hashed volpath stream root."""
-    from lajolla_tpu_torch.integrators import volpath as V
     device, tb, mats, quads, sph = _scene_args(
         scene, eps_isect, eps_shadow, max_depth, rr_depth, max_cap)
     n = w * h
@@ -249,9 +271,7 @@ def render_fused_vol(scene, cam, medium, su, s0, nspp, *, w, h, filter_type,
         raise ValueError("medium: expected sigma_a (3,), sigma_s (3,), g ()")
     med = _Medium(sa=(_F * 3)(*sa.tolist()), ss=(_F * 3)(*ss.tolist()),
                   g=float(g))
-    salts = _VolSalts(ff=V._S_FF, nee=V._S_NEE, nee_seg=V._S_NEE_SEG,
-                      phase=V._S_PHASE, bsdf=V._S_BSDF, rr=V._S_RR,
-                      surf_nee=V._S_SURF_NEE, it0=V._IT0)
+    salts = _vol_salts()
     camera = _camera(cam, w, h, filter_type, filter_param)
     lib = build()['volpath_kernels']
     film = torch.empty((3, n), dtype=torch.float32, device=device)
@@ -264,6 +284,65 @@ def render_fused_vol(scene, cam, medium, su, s0, nspp, *, w, h, filter_type,
     if rc != 0:
         raise RuntimeError(f"render_fused_vol_kernel launch: CUDA error {rc}")
     LAUNCHES['render_fused_vol'] += 1
+    return film
+
+
+def _vol_salts():
+    from lajolla_tpu_torch.integrators import volpath as V
+    return _VolSalts(ff=V._S_FF, nee=V._S_NEE, nee_seg=V._S_NEE_SEG,
+                     phase=V._S_PHASE, bsdf=V._S_BSDF, rr=V._S_RR,
+                     surf_nee=V._S_SURF_NEE, it0=V._IT0)
+
+
+def render_fused_grid(scene, cam, svox2, su, s0, nspp, *, n_q, w, h,
+                      filter_type, filter_param, pmin, pmax, res, gres,
+                      maxval, albedo, g1, hg, max_null, eps_isect,
+                      eps_shadow, max_depth, rr_depth, max_cap):
+    """Kernel K9: the (3, w*h) film sum of samples s0..s0+nspp of a scene
+    inside volpath_grid_kernel.supports, lane k of the n_q-lane pool
+    taking items k + s*n_q. svox2: the (2, R) supervoxel [majorant |
+    empty-skip] table; the density is scene.fp_grid; the other keywords
+    are volpath_grid_kernel.grid_statics. su: the pre-hashed volpath
+    stream root. The supervoxel table sits in the kernel's shared memory,
+    sized for compile.SVOX_ROWS_MAX rows (kMaxSvoxRows)."""
+    from lajolla_tpu_torch.integrators import volpath as V
+    from lajolla_tpu_torch.integrators.media import INV_4PI
+    from lajolla_tpu_torch.scene.compile import SVOX_ROWS_MAX
+    device, tb, mats, quads, sph = _scene_args(
+        scene, eps_isect, eps_shadow, max_depth, rr_depth, max_cap)
+    n = w * h
+    rows = gres[0] * gres[1] * gres[2]
+    if rows > SVOX_ROWS_MAX:
+        raise ValueError(f"{rows} supervoxel rows, K9 takes at most "
+                         f"{SVOX_ROWS_MAX}")
+    if n_q < n:
+        raise ValueError(f"lane pool {n_q} smaller than the film ({n})")
+    f32 = torch.float32
+    sv = _check(svox2, 'svox2', (2, rows), f32, device)
+    grid = _check(scene.fp_grid, 'fp_grid', (res[2] * res[1], res[0]), f32,
+                  device)
+    g = float(g1)
+    gm = _GridMedium(
+        pmin=(_F * 3)(*pmin), pmax=(_F * 3)(*pmax), res=(_I * 3)(*res),
+        gres=(_I * 3)(*gres), rows=rows, maxval=maxval,
+        albedo=(_F * 3)(*albedo), g=g, hg_a=g * g - 1.0, hg_b=g + 1.0,
+        hg_c=1.0 + g * g, hg_d=2.0 * g, hg_num=INV_4PI * (1.0 - g * g),
+        hg_sample=int(bool(hg) and abs(g) >= 1e-3),
+        cam_med=int(scene.meta.camera_medium_id), max_null=int(max_null),
+        max_segments=V.MAX_SHADOW_SEGMENTS)
+    camera = _camera(cam, w, h, filter_type, filter_param)
+    salts = _vol_salts()
+    lib = build()['volpath_grid_kernels']
+    film = torch.empty((3, n), dtype=f32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.lj_render_fused_grid(
+            ctypes.byref(tb), ctypes.byref(camera), ctypes.byref(gm),
+            ctypes.byref(salts), mats, quads, sph, int(bool(hg)), sv, grid,
+            n, w, n_q, su, s0, nspp, film.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"render_fused_grid_kernel launch: CUDA error {rc}")
+    LAUNCHES['render_fused_grid'] += 1
     return film
 
 

@@ -2,7 +2,8 @@
 
 The analogue of render() (src/render.cpp:155-167) and of
 lajolla_tpu/render.py. The `path` integrator and the final `volpath`
-integrator for homogeneous media are ported.
+integrator (homogeneous and heterogeneous media, versions 3-5) are
+ported.
 """
 
 import numpy as np

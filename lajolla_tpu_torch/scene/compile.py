@@ -7,10 +7,14 @@ instead of Embree state and std::vectors. The tables are built in numpy
 exactly as lajolla_tpu/scene/compile.py builds them and become CPU torch
 tensors at the end; `Scene.to(device)` moves them.
 
-Not yet ported (each raises NotImplementedError, ROADMAP queue 1):
-scenes of BVH_MIN_TRIS triangles or more, which need the BVH and the
-binned cluster tables ("large-scene casting"), and grid volumes, which
-need the supervoxel majorant tables ("volumetrics").
+Grid volumes compile to lajolla_tpu's tables byte for byte: the
+octo-packed trilinear rows (`volume_data`), the supervoxel majorant,
+empty-skip and minorant rows (`svox_data`) and, for the fused grid-media
+kernel's class, the mono density as a (Z*Y, X) array (`fp_grid`).
+
+Not yet ported (raises NotImplementedError, ROADMAP queue 1): scenes of
+BVH_MIN_TRIS triangles or more, which need the BVH and the binned
+cluster tables ("large-scene casting").
 """
 
 import numpy as np
@@ -30,6 +34,16 @@ BVH_MIN_TRIS = 192
 # Parallelogram cast-merge (lajolla_tpu/scene/compile.py). False = cast
 # tables carry raw triangles; the kernels' has_quads=False branch.
 MERGE_QUADS = True
+
+# Supervoxel majorant cells cover SVOX_DIVISOR fine cells per axis; the
+# compiler doubles the divisor up to SVOX_DIVISOR_MAX while the total
+# supervoxel row count exceeds SVOX_ROWS_MAX. The bound is lajolla_tpu's
+# one-hot gather limit (its ops/gather.py ONEHOT_LIMIT, 512): the same
+# bound picks the same divisor, so the majorant tables, and with them
+# every null collision and every random number, equal lajolla_tpu's.
+SVOX_DIVISOR = 8
+SVOX_DIVISOR_MAX = 16
+SVOX_ROWS_MAX = 512
 
 
 def fov_to_fov_x(fov, fov_axis, width, height):
@@ -426,6 +440,80 @@ def compile_scene(b):
     # and one wide row fetch replaces many narrow gathers.
     # layout: [type, phase, g, dvol, avol, sa3, ss3, maxval3, pad2]
 
+    def _super_majorants(g, gres):
+        """Conservative per-supervoxel majorants of a (Z,Y,X,3) grid and
+        the matching minorants. Supervoxel (i,j,k) of a (gx,gy,gz)
+        partition of the volume's [pmin,pmax] box bounds the trilinear
+        density anywhere inside it, plus a one-node margin for the DDA's
+        boundary nudges: the max (min) over the fine nodes with index in
+        [floor(lo)-1, floor(hi)+2] per axis. The minorant is the control
+        of residual ratio tracking (volpath._majorant_segment); it is 0
+        wherever the majorant is 0."""
+        gx, gy, gz = gres
+        out_hi = g
+        out_lo = g
+        for axis, gdim in ((2, gx), (1, gy), (0, gz)):
+            n_nodes = out_hi.shape[axis]
+            chunks_hi, chunks_lo = [], []
+            for i in range(gdim):
+                lo = int(np.floor(i * (n_nodes - 1) / gdim)) - 1
+                hi = int(np.floor((i + 1) * (n_nodes - 1) / gdim)) + 2
+                lo, hi = max(lo, 0), min(hi, n_nodes - 1)
+                sl = [slice(None)] * out_hi.ndim
+                sl[axis] = slice(lo, hi + 1)
+                chunks_hi.append(
+                    out_hi[tuple(sl)].max(axis=axis, keepdims=True))
+                chunks_lo.append(
+                    out_lo[tuple(sl)].min(axis=axis, keepdims=True))
+            out_hi = np.concatenate(chunks_hi, axis=axis)
+            out_lo = np.concatenate(chunks_lo, axis=axis)
+        return out_hi, out_lo  # each (gz, gy, gx, 3)
+
+    def _empty_skip(sv):
+        """Chebyshev distance to the nearest occupied supervoxel (capped at
+        255; 0 on occupied cells): a free flight in a cell with skip s > 0
+        advances to the exit of its cell box grown by s-1 cells per axis
+        as one zero-majorant segment."""
+        occ = sv.max(axis=-1) > 0
+        gz, gy, gx = occ.shape
+        big = 10 ** 6
+        dist = np.where(occ, 0, big).astype(np.int64)
+        for _ in range(max(gz, gy, gx)):
+            p = np.pad(dist, 1, constant_values=big)
+            m = dist
+            for dz in range(3):
+                for dy in range(3):
+                    for dx in range(3):
+                        m = np.minimum(m, p[dz:dz + gz, dy:dy + gy,
+                                            dx:dx + gx] + 1)
+            m = np.where(occ, 0, m)
+            if (m == dist).all():
+                break
+            dist = m
+        return np.minimum(dist, 255).astype(np.float32)
+
+    def _svox_gres(shape_zyx, div):
+        """Supervoxel grid resolution (gx, gy, gz) of a (z, y, x) density
+        grid at `div` cells per supervoxel: the one rule for the divisor
+        search and for the tables it picks."""
+        z, y, x = shape_zyx
+        return tuple(int(np.clip((r - 1 + div - 1) // div, 1, 32))
+                     for r in (x, y, z))
+
+    def _svox_rows_at(div):
+        return sum(int(np.prod(_svox_gres(v.grid.shape[:3], div)))
+                   for v in b.volumes if v.kind == T.VOL_GRID)
+
+    # the smallest divisor (SVOX_DIVISOR doubling up to SVOX_DIVISOR_MAX)
+    # whose total supervoxel row count is at most SVOX_ROWS_MAX; plain
+    # SVOX_DIVISOR when even the largest does not fit
+    svox_div = SVOX_DIVISOR
+    while (_svox_rows_at(svox_div) > SVOX_ROWS_MAX and
+           svox_div < SVOX_DIVISOR_MAX):
+        svox_div *= 2
+    if _svox_rows_at(svox_div) > SVOX_ROWS_MAX:
+        svox_div = SVOX_DIVISOR
+
     nv = max(len(b.volumes), 1)
     vol_kind = np.zeros(nv, np.int32)
     vol_const = np.zeros((nv, 3))
@@ -436,14 +524,81 @@ def compile_scene(b):
     vol_maxval = np.zeros((nv, 3))
     svox_offset = np.zeros(nv, np.int32)
     svox_res = np.ones((nv, 3), np.int32)
+    vchunks = []
+    schunks = []
+    voff = 0
+    soff = 0
     for i, v in enumerate(b.volumes):
         vol_kind[i] = v.kind
         vol_const[i] = np.asarray(v.const) * v.scale
-        if v.kind == T.VOL_GRID:
-            raise NotImplementedError(
-                "grid volumes need the supervoxel majorant tables, which "
-                "are not yet ported (ROADMAP queue 1: volumetrics)")
-        vol_maxval[i] = vol_const[i]
+        if v.kind != T.VOL_GRID:
+            vol_maxval[i] = vol_const[i]
+            continue
+        g = v.grid  # (Z,Y,X,3)
+        z, y, x = g.shape[:3]
+        vol_offset[i] = voff
+        vol_res[i] = (x, y, z)
+        vol_pmin[i] = v.pmin
+        vol_pmax[i] = v.pmax
+        vol_maxval[i] = g.reshape(-1, 3).max(0) * v.scale
+        # octo-packed rows: node (z,y,x) carries the 8 edge-clamped corners
+        # of its cell, so one trilinear lookup is one 24-float row gather
+        gs = g * v.scale
+        xi = np.minimum(np.arange(x) + 1, x - 1)
+        yi = np.minimum(np.arange(y) + 1, y - 1)
+        zi = np.minimum(np.arange(z) + 1, z - 1)
+        oct_ = np.concatenate([
+            gs,                      # c000
+            gs[:, :, xi],            # c001 (x+1)
+            gs[:, yi, :],            # c010 (y+1)
+            gs[:, yi][:, :, xi],     # c011
+            gs[zi],                  # c100 (z+1)
+            gs[zi][:, :, xi],        # c101
+            gs[zi][:, yi, :],        # c110
+            gs[zi][:, yi][:, :, xi]  # c111
+        ], axis=-1)
+        vchunks.append(oct_.reshape(-1, 24))
+        voff += x * y * z
+        gres = _svox_gres(g.shape[:3], svox_div)
+        sv, sv_lo = _super_majorants(g, gres)
+        sv = sv * v.scale
+        sv_lo = sv_lo * v.scale
+        svox_offset[i] = soff
+        svox_res[i] = gres
+        skip = _empty_skip(sv)
+        # row: majorant rgb | empty-skip | control (minorant) rgb | pad
+        schunks.append(np.concatenate(
+            [sv.reshape(-1, 3), skip.reshape(-1, 1), sv_lo.reshape(-1, 3),
+             np.zeros((sv_lo.reshape(-1, 3).shape[0], 1))], axis=-1))
+        soff += gres[0] * gres[1] * gres[2]
+    volume_data = (np.concatenate(vchunks) if vchunks
+                   else np.zeros((1, 24))).astype(np.float32)
+    svox_data = (np.concatenate(schunks) if schunks
+                 else np.zeros((1, 8))).astype(np.float32)
+
+    # ---- the fused grid-media kernel's class and its density table: ONE
+    # heterogeneous medium with a monochrome density grid and a constant
+    # albedo (a scalar sigma_t field), a small supervoxel table, and the
+    # grid as a (Z*Y, X) array (integrators/volpath_grid_kernel.py)
+    fp_grid = np.zeros((1, 1), np.float32)
+    grid_kernel_ok = False
+    if nmed == 1 and med_type[0] == T.MED_HETEROGENEOUS:
+        dvi = int(med_density_vol[0])
+        avi = int(med_albedo_vol[0])
+        dv_ = b.volumes[dvi] if 0 <= dvi < len(b.volumes) else None
+        av_ = b.volumes[avi] if 0 <= avi < len(b.volumes) else None
+        if (dv_ is not None and dv_.kind == T.VOL_GRID and
+                av_ is not None and av_.kind != T.VOL_GRID):
+            g = dv_.grid                                   # (Z,Y,X,3)
+            z_, y_, x_ = g.shape[:3]
+            mono = bool((g[..., 0] == g[..., 1]).all() and
+                        (g[..., 0] == g[..., 2]).all())
+            srows = int(np.prod(svox_res[dvi]))
+            if mono and srows <= SVOX_ROWS_MAX and \
+                    z_ * y_ * x_ <= (1 << 20):
+                fp_grid = np.ascontiguousarray(
+                    (g[..., 0] * dv_.scale).reshape(z_ * y_, x_))
+                grid_kernel_ok = True
 
     # layout documented in media.py (MT_*/VL_* constants)
     med_tab = np.zeros((nmed, 46), np.float32)
@@ -708,12 +863,18 @@ def compile_scene(b):
         needs_tangent=any(m.type in (T.MAT_DISNEY_METAL, T.MAT_DISNEY_GLASS,
                                      T.MAT_DISNEY_BSDF)
                           for m in b.materials),
-        has_grid_volumes=False,
+        has_grid_volumes=any(v.kind == T.VOL_GRID for v in b.volumes),
         has_quads=bool((cast_alt != cast_src).any()),
         # control == sigma_t for homogeneous media (exact analytic NEE
-        # transmittance); grids, the other case, raise above
-        svox_ctrl=T.MED_HOMOGENEOUS in med_present,
-        grid_kernel_ok=False,
+        # transmittance); for grids only where the supervoxel minorants
+        # are nontrivial (a wispy grid has ~0 minima everywhere and takes
+        # the plain tracking loop)
+        svox_ctrl=bool(
+            T.MED_HOMOGENEOUS in med_present or
+            (T.MED_HETEROGENEOUS in med_present and
+             svox_data[:, 4:7].max() > 1e-4 * max(svox_data[:, :3].max(),
+                                                  1e-20))),
+        grid_kernel_ok=grid_kernel_ok,
         uniform_medium=bool(
             len(b.media) == 1 and med_present == (T.MED_HOMOGENEOUS,) and
             cam.medium_id == 0 and len(b.shapes) > 0 and
@@ -764,7 +925,9 @@ def compile_scene(b):
         vol_kind=_i32(vol_kind), vol_const=_f32(vol_const),
         vol_offset=_i32(vol_offset), vol_res=_i32(vol_res),
         vol_pmin=_f32(vol_pmin), vol_pmax=_f32(vol_pmax),
-        vol_maxval=_f32(vol_maxval), med_tab=_f32(med_tab),
+        vol_maxval=_f32(vol_maxval), volume_data=_f32(volume_data),
+        svox_data=_f32(svox_data), fp_grid=_f32(fp_grid),
+        med_tab=_f32(med_tab),
         tri_shade=_f32(tri_shade), shape_tab=_f32(shape_tab),
         light_tab=_f32(light_tab), mat_tab=_f32(mat_tab),
         tex_tab=_f32(tex_tab),

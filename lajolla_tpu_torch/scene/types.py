@@ -146,8 +146,8 @@ class RenderOptions:
 class Scene:
     """Compiled scene: every field but `meta` is a torch tensor.
 
-    The BVH, cluster, sweep and grid-volume tables of lajolla_tpu's Scene
-    are absent: scene/compile.py raises for scenes that need them."""
+    The BVH, cluster and sweep tables of lajolla_tpu's Scene are absent:
+    scene/compile.py raises for scenes that need them."""
     # --- geometry ---------------------------------------------------------
     vertices: Any        # (V,3) f32
     normals: Any         # (V,3) f32 shading normals (geometric fallback filled in)
@@ -245,7 +245,13 @@ class Scene:
     vol_pmin: Any        # (NV,3) f32
     vol_pmax: Any        # (NV,3) f32
     vol_maxval: Any      # (NV,3) f32  (max grid value × scale)
-    med_tab: Any         # (NM,16) f32 wide medium row (see compile.py)
+    volume_data: Any     # (TOTALV,24) f32 octo-packed cell corners (compile.py)
+    svox_data: Any       # (TOTS,8) f32 per-supervoxel majorant rgb |
+                         # empty-skip distance | control (minorant) rgb | pad
+    fp_grid: Any         # (Z*Y, X) f32 mono density grid (x scale) of the
+                         # fused grid kernel K9 ((1,1) unless
+                         # meta.grid_kernel_ok)
+    med_tab: Any         # (NM,46) f32 wide medium row (see compile.py)
 
     # --- merged wide-row tables (lajolla_tpu/scene/soa.py) ----------------------------
     tri_shade: Any       # (T, 25) f32 denormalized per-triangle shading record

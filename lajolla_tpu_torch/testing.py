@@ -17,7 +17,11 @@ homogeneous medium bound to the sensor and to every shape's exterior:
 volpath_kernel.supports (kernel K8); "vol_glass" adds a denser medium
 inside a RoughDielectric tall box and inside a short box with no BSDF
 (an index-matching interface), over the checkerboard floor, for the
-general volumetric engine.
+general volumetric engine. Its heterogeneous variants ("hetvol",
+"hetvol_hg", "hetvol_smooth") put a grid medium, read from a .vol file
+that `write_vol` writes, inside a BSDF-less cube in a vacuum room: the
+first two lie inside volpath_grid_kernel.supports (kernel K9), the smooth
+one takes the general engine's event machine.
 """
 
 import os
@@ -30,7 +34,7 @@ from lajolla_tpu_torch.scene import types as T
 from lajolla_tpu_torch.scene.compile import compile_scene
 from lajolla_tpu_torch.scene.parser import (CameraB, LightB, MaterialB,
                                             MediumB, MeshB, SceneBuilder,
-                                            ShapeB, TexDesc)
+                                            ShapeB, TexDesc, VolumeB)
 from lajolla_tpu_torch.scene.texture import TexturePool
 from lajolla_tpu_torch.scene.types import RenderOptions
 
@@ -203,7 +207,8 @@ CBOX_GLASS_SHAPES = {'floor': 'checker', 'short_box': 'plastic',
                      'tall_box': 'glass'}
 # The floor's OBJ texture coordinates (`vt` lines); the loader flips v.
 CBOX_FLOOR_VT = ((0.0, 0.0), (0.0, 1.0), (1.0, 1.0), (1.0, 0.0))
-CBOX_VARIANTS = (None, 'glass', 'vol', 'vol_hg', 'vol_glass')
+CBOX_VARIANTS = (None, 'glass', 'vol', 'vol_hg', 'vol_glass', 'hetvol',
+                 'hetvol_hg', 'hetvol_smooth')
 
 # The volumetric variants' medium 0, around and inside the room. Its
 # coefficients are chromatic so that the free flight's channel pick and
@@ -217,11 +222,27 @@ CBOX_INNER_MEDIUM = dict(sigma_a=(0.4, 0.6, 0.8), sigma_s=(1.6, 1.4, 1.2),
 CBOX_VOL_GLASS_SHAPES = {'floor': 'checker', 'tall_box': 'glass',
                          'short_box': None}
 CBOX_INNER_SHAPES = ('tall_box', 'short_box')
+# The heterogeneous variants ('hetvol', 'hetvol_hg', 'hetvol_smooth'): in
+# place of the tall box an axis-aligned closed cube with no BSDF (an
+# index-matching interface) whose interior is medium 0, a heterogeneous
+# medium: a mono density grid read from a .vol file written beside the
+# XML, a constant albedo and an isotropic phase (HG g CBOX_HG_G for
+# 'hetvol_hg'). Outside the cube and at the camera is vacuum; the short
+# box is RoughPlastic. HETVOL_GRID_RES (X, Y, Z) is the hetvol class's
+# grid size. The density (hetvol_density) is wispy, so that the scene is
+# inside the fused grid kernel's class; 'hetvol_smooth' is positive
+# everywhere, for the general engine's residual ratio tracking.
+HETVOL_VARIANTS = ('hetvol', 'hetvol_hg', 'hetvol_smooth')
+HETVOL_GRID_RES = (128, 128, 50)
+HETVOL_CUBE = dict(center=(-0.4, -0.55, -0.4), half=0.4)
+HETVOL_ALBEDO = 0.8
+HETVOL_SEED = 2024
+HETVOL_SHAPES = {'short_box': 'plastic'}
 
 
-def _glass_materials(b, mat_ids):
-    """Append the glass variant's materials, their texture descriptors in
-    the parser's order (each BSDF's defaults first, then its children)."""
+def _checker_material(b, mat_ids):
+    """Each material's texture descriptors go in the parser's order (each
+    BSDF's defaults first, then its children)."""
     m = MaterialB(type=T.MAT_LAMBERTIAN)
     _const_tex(b, (0.5, 0.5, 0.5))
     b.texdescs.append(TexDesc(
@@ -232,6 +253,8 @@ def _glass_materials(b, mat_ids):
     mat_ids['checker'] = len(b.materials)
     b.materials.append(m)
 
+
+def _plastic_material(b, mat_ids):
     eta = CBOX_IOR[0] / CBOX_IOR[1]
     m = MaterialB(type=T.MAT_ROUGH_PLASTIC, eta=eta)
     _const_tex(b, (0.5, 0.5, 0.5))
@@ -242,6 +265,12 @@ def _glass_materials(b, mat_ids):
     mat_ids['plastic'] = len(b.materials)
     b.materials.append(m)
 
+
+def _glass_materials(b, mat_ids):
+    """Append the glass variant's materials."""
+    _checker_material(b, mat_ids)
+    _plastic_material(b, mat_ids)
+    eta = CBOX_IOR[0] / CBOX_IOR[1]
     m = MaterialB(type=T.MAT_ROUGH_DIELECTRIC, eta=eta)
     m.tex[T.P_BASE_COLOR] = _const_tex(b, (1.0, 1.0, 1.0))
     m.tex[T.P_AUX_COLOR] = _const_tex(b, (1.0, 1.0, 1.0))
@@ -257,7 +286,7 @@ def _check_variant(variant):
 
 
 def _is_vol(variant):
-    return variant in ('vol', 'vol_hg', 'vol_glass')
+    return variant in ('vol', 'vol_hg', 'vol_glass') + HETVOL_VARIANTS
 
 
 def _shape_material(variant, name, mat):
@@ -266,13 +295,86 @@ def _shape_material(variant, name, mat):
         return CBOX_GLASS_SHAPES.get(name, mat)
     if variant == 'vol_glass':
         return CBOX_VOL_GLASS_SHAPES.get(name, mat)
+    if variant in HETVOL_VARIANTS:
+        return HETVOL_SHAPES.get(name, mat)
     return mat
+
+
+def _film(res):
+    """(width, height) of a film given as one size or a (w, h) pair."""
+    return (res, res) if np.isscalar(res) else tuple(res)
+
+
+def _variant_shapes(variant):
+    """_cbox_shapes, with the tall box replaced by the heterogeneous
+    variants' closed cube ('cube', no BSDF, six outward-wound faces)."""
+    shapes = _cbox_shapes()
+    if variant not in HETVOL_VARIANTS:
+        return shapes
+    c = np.asarray(HETVOL_CUBE['center'], np.float64)
+    h = HETVOL_CUBE['half']
+    faces = _box_faces(c, (h, h, h), 0.0)
+    faces.append([c + h * np.array(p, np.float64) for p in
+                  ((-1, -1, -1), (1, -1, -1), (1, -1, 1), (-1, -1, 1))])
+    return [('cube', None, faces, False) if name == 'tall_box' else
+            (name, mat, quads, emitter)
+            for name, mat, quads, emitter in shapes]
+
+
+def hetvol_box():
+    """(pmin, pmax) of the heterogeneous variants' grid: the cube, as the
+    float32 bounding box a .vol file stores."""
+    c = np.asarray(HETVOL_CUBE['center'], np.float64)
+    h = HETVOL_CUBE['half']
+    return (tuple(np.float32(c - h).astype(np.float64)),
+            tuple(np.float32(c + h).astype(np.float64)))
+
+
+def hetvol_density(grid_res=HETVOL_GRID_RES, smooth=False,
+                   seed=HETVOL_SEED):
+    """The heterogeneous variants' mono density, (Z, Y, X) float32, for a
+    grid of grid_res = (X, Y, Z) nodes: twelve Gaussian puffs with
+    numpy-seeded centres, widths and heights over [0, 1]^3. Wispy (the
+    default): the sum less a threshold, clipped at 0, and zero on every
+    4th x slice. Smooth: the sum plus a floor, positive everywhere."""
+    rng = np.random.default_rng(seed)
+    nx, ny, nz = grid_res
+    z, y, x = np.meshgrid(np.linspace(0.0, 1.0, nz),
+                          np.linspace(0.0, 1.0, ny),
+                          np.linspace(0.0, 1.0, nx), indexing='ij')
+    d = np.zeros((nz, ny, nx))
+    for _ in range(12):
+        cx, cy, cz = rng.uniform(0.15, 0.85, 3)
+        s = rng.uniform(0.08, 0.2)
+        a = rng.uniform(2.0, 8.0)
+        d += a * np.exp(-((x - cx) ** 2 + (y - cy) ** 2 + (z - cz) ** 2) /
+                        (2.0 * s * s))
+    if smooth:
+        return (d + 0.5).astype(np.float32)
+    d = np.maximum(d - 1.0, 0.0)
+    d[:, :, ::4] = 0.0
+    return d.astype(np.float32)
+
+
+def write_vol(path, grid, pmin, pmax):
+    """Write a Mitsuba .vol file, the format io/vol.load_vol reads: grid
+    (Z, Y, X) or (Z, Y, X, C) float32 with C 1 or 3, bounding box pmin,
+    pmax."""
+    g = np.asarray(grid, np.float32)
+    if g.ndim == 3:
+        g = g[..., None]
+    nz, ny, nx, ch = g.shape
+    with open(path, 'wb') as f:
+        f.write(b'VOL' + bytes([3]))
+        f.write(np.array([1, nx, ny, nz, ch], '<i4').tobytes())
+        f.write(np.array(list(pmin) + list(pmax), '<f4').tobytes())
+        f.write(np.ascontiguousarray(g, '<f4').tobytes())
 
 
 def _cbox_media(variant):
     """[(sigma_a, sigma_s, g or None for isotropic)] of the variant's
-    media, in id order."""
-    if not _is_vol(variant):
+    homogeneous media, in id order."""
+    if not _is_vol(variant) or variant in HETVOL_VARIANTS:
         return []
     g = CBOX_HG_G if variant == 'vol_hg' else None
     media = [(CBOX_MEDIUM['sigma_a'], CBOX_MEDIUM['sigma_s'], g)]
@@ -282,21 +384,49 @@ def _cbox_media(variant):
     return media
 
 
-def cornell_box_builder(res, spp=4, variant=None):
+def _hetvol_phase(variant):
+    """The heterogeneous variants' phase: None for isotropic, else HG g."""
+    return CBOX_HG_G if variant == 'hetvol_hg' else None
+
+
+def _hetvol_medium(b, variant, grid_res):
+    """Append the heterogeneous variants' volumes (the density grid, the
+    constant albedo) and medium 0, in the parser's order."""
+    pmin, pmax = hetvol_box()
+    g = hetvol_density(grid_res, smooth=variant == 'hetvol_smooth')
+    b.volumes.append(VolumeB(kind=T.VOL_GRID, pmin=pmin, pmax=pmax,
+                             grid=np.repeat(g[..., None], 3, axis=-1)))
+    b.volumes.append(VolumeB(kind=T.VOL_CONSTANT,
+                             const=(HETVOL_ALBEDO,) * 3))
+    g_hg = _hetvol_phase(variant)
+    b.media.append(MediumB(
+        type=T.MED_HETEROGENEOUS, density_vol=0, albedo_vol=1,
+        phase_type=T.PHASE_ISOTROPIC if g_hg is None else T.PHASE_HG,
+        g=0.0 if g_hg is None else g_hg))
+
+
+def cornell_box_builder(res, spp=4, variant=None, grid_res=HETVOL_GRID_RES):
     """The Cornell box as a SceneBuilder — the same scene the parser
-    builds from write_cornell_box_xml. variant='glass' gives the glass
-    Cornell box (CBOX_GLASS_SHAPES); 'vol', 'vol_hg' and 'vol_glass' the
-    volumetric variants (CBOX_MEDIUM, CBOX_VOL_GLASS_SHAPES)."""
+    builds from write_cornell_box_xml. res: the film, one size or (width,
+    height). variant='glass' gives the glass Cornell box
+    (CBOX_GLASS_SHAPES); 'vol', 'vol_hg' and 'vol_glass' the homogeneous
+    volumetric variants (CBOX_MEDIUM, CBOX_VOL_GLASS_SHAPES); 'hetvol',
+    'hetvol_hg' and 'hetvol_smooth' the heterogeneous ones (HETVOL_*),
+    with a density grid of grid_res = (X, Y, Z) nodes."""
     _check_variant(variant)
     vol = _is_vol(variant)
+    het = variant in HETVOL_VARIANTS
+    w, h = _film(res)
     b = SceneBuilder(camera=CameraB(
         to_world=xf.look_at(CBOX_CAMERA['origin'], CBOX_CAMERA['target'],
                             CBOX_CAMERA['up']),
-        fov=CBOX_CAMERA['fov'], width=res, height=res,
-        medium_id=0 if vol else -1),
+        fov=CBOX_CAMERA['fov'], width=w, height=h,
+        medium_id=0 if vol and not het else -1),
         options=RenderOptions(integrator='volpath' if vol else 'path',
                               samples_per_pixel=spp),
         texture_pool=TexturePool())
+    if het:
+        _hetvol_medium(b, variant, grid_res)
     for sigma_a, sigma_s, g in _cbox_media(variant):
         b.media.append(MediumB(
             sigma_a=sigma_a, sigma_s=sigma_s,
@@ -313,7 +443,9 @@ def cornell_box_builder(res, spp=4, variant=None):
         b.materials.append(m)
     if variant in ('glass', 'vol_glass'):
         _glass_materials(b, mat_ids)
-    for name, mat, quads, emitter in _cbox_shapes():
+    elif het:
+        _plastic_material(b, mat_ids)
+    for name, mat, quads, emitter in _variant_shapes(variant):
         pos, idx = _quads_mesh(quads)
         mesh = MeshB(positions=pos, indices=idx,
                      normals=_compute_smooth_normals(pos, idx))
@@ -322,10 +454,12 @@ def cornell_box_builder(res, spp=4, variant=None):
             mesh.uvs = np.array([(u, 1.0 - v) for u, v in CBOX_FLOOR_VT])
         shape = ShapeB(type=T.SHAPE_MESH, mesh=mesh,
                        material_id=-1 if mat is None else mat_ids[mat])
-        if vol:
+        if vol and not het:
             shape.exterior_medium_id = 0
         if variant == 'vol_glass' and name in CBOX_INNER_SHAPES:
             shape.interior_medium_id = 1
+        if het and name == 'cube':
+            shape.interior_medium_id = 0
         if emitter:
             shape.area_light_id = len(b.lights)
             b.lights.append(LightB(type=T.LIGHT_AREA,
@@ -335,15 +469,31 @@ def cornell_box_builder(res, spp=4, variant=None):
     return b
 
 
-def make_cornell_box(res, spp=4, variant=None):
-    return compile_scene(cornell_box_builder(res, spp, variant))
+def make_cornell_box(res, spp=4, variant=None, grid_res=HETVOL_GRID_RES):
+    return compile_scene(cornell_box_builder(res, spp, variant, grid_res))
+
+
+def _ior_xml():
+    return [f'    <float name="intIOR" value="{CBOX_IOR[0]!r}"/>',
+            f'    <float name="extIOR" value="{CBOX_IOR[1]!r}"/>']
+
+
+def _plastic_xml(fmt):
+    """The RoughPlastic <bsdf> element."""
+    rgb = lambda v: fmt(repr(float(c)) for c in v)
+    return [
+        '  <bsdf type="roughplastic" id="plastic">',
+        f'    <rgb name="diffuseReflectance" '
+        f'value="{rgb(CBOX_PLASTIC["diffuse"])}"/>',
+        f'    <float name="roughness" value="{CBOX_PLASTIC["roughness"]!r}"/>',
+        *_ior_xml(),
+        '  </bsdf>',
+    ]
 
 
 def _glass_xml(fmt):
     """The glass variant's <texture> and <bsdf> elements."""
     rgb = lambda v: fmt(repr(float(c)) for c in v)
-    ior = [f'    <float name="intIOR" value="{CBOX_IOR[0]!r}"/>',
-           f'    <float name="extIOR" value="{CBOX_IOR[1]!r}"/>']
     return [
         '  <texture type="checkerboard" id="checker_tex">',
         f'    <rgb name="color0" value="{rgb(CBOX_CHECKER["color0"])}"/>',
@@ -353,21 +503,39 @@ def _glass_xml(fmt):
         '  <bsdf type="diffuse" id="checker">',
         '    <ref name="reflectance" id="checker_tex"/>',
         '  </bsdf>',
-        '  <bsdf type="roughplastic" id="plastic">',
-        f'    <rgb name="diffuseReflectance" '
-        f'value="{rgb(CBOX_PLASTIC["diffuse"])}"/>',
-        f'    <float name="roughness" value="{CBOX_PLASTIC["roughness"]!r}"/>',
-        *ior,
-        '  </bsdf>',
+        *_plastic_xml(fmt),
         '  <bsdf type="roughdielectric" id="glass">',
         f'    <float name="roughness" value="{CBOX_GLASS_ROUGHNESS!r}"/>',
-        *ior,
+        *_ior_xml(),
         '  </bsdf>',
     ]
 
 
+def _hetvol_xml(directory, variant, grid_res, fmt):
+    """The heterogeneous variants' <medium> element; writes its density
+    grid as density.vol into `directory`."""
+    pmin, pmax = hetvol_box()
+    write_vol(os.path.join(directory, 'density.vol'),
+              hetvol_density(grid_res, smooth=variant == 'hetvol_smooth'),
+              pmin, pmax)
+    lines = ['  <medium type="heterogeneous" id="medium0">',
+             '    <volume name="density" type="gridvolume">',
+             '      <string name="filename" value="density.vol"/>',
+             '    </volume>',
+             '    <volume name="albedo" type="constvolume">',
+             f'      <rgb name="value" '
+             f'value="{fmt(repr(float(HETVOL_ALBEDO)) for _ in range(3))}"/>',
+             '    </volume>']
+    g = _hetvol_phase(variant)
+    if g is not None:
+        lines += [f'    <phase type="hg"><float name="g" '
+                  f'value="{float(g)!r}"/></phase>']
+    return lines + ['  </medium>']
+
+
 def _media_xml(variant, fmt):
-    """The variant's top-level <medium> elements (ids medium0, medium1)."""
+    """The homogeneous variants' top-level <medium> elements (ids medium0,
+    medium1)."""
     rgb = lambda v: fmt(repr(float(c)) for c in v)
     lines = []
     for k, (sigma_a, sigma_s, g) in enumerate(_cbox_media(variant)):
@@ -381,13 +549,16 @@ def _media_xml(variant, fmt):
     return lines
 
 
-def write_cornell_box_xml(directory, res, spp, variant=None):
+def write_cornell_box_xml(directory, res, spp, variant=None,
+                          grid_res=HETVOL_GRID_RES):
     """Write the Cornell box as Mitsuba XML (cbox.xml) plus one OBJ file
-    per shape into `directory`; returns the XML path. variant='glass'
-    writes the glass Cornell box, 'vol', 'vol_hg' and 'vol_glass' the
-    volumetric variants (cornell_box_builder)."""
+    per shape into `directory` (and, for the heterogeneous variants, the
+    density grid as density.vol); returns the XML path. res, variant and
+    grid_res as cornell_box_builder takes them."""
     _check_variant(variant)
     vol = _is_vol(variant)
+    het = variant in HETVOL_VARIANTS
+    w, h = _film(res)
     os.makedirs(directory, exist_ok=True)
     fmt = ', '.join
     o, t, u = (fmt(repr(float(x)) for x in CBOX_CAMERA[k])
@@ -396,7 +567,8 @@ def write_cornell_box_xml(directory, res, spp, variant=None):
         '<?xml version="1.0" encoding="utf-8"?>',
         '<scene version="0.5.0">',
         f'  <integrator type="{"volpath" if vol else "path"}"/>',
-        *_media_xml(variant, fmt),
+        *(_hetvol_xml(directory, variant, grid_res, fmt) if het else
+          _media_xml(variant, fmt)),
         '  <sensor type="perspective">',
         f'    <float name="fov" value="{CBOX_CAMERA["fov"]!r}"/>',
         '    <transform name="toWorld">',
@@ -406,11 +578,11 @@ def write_cornell_box_xml(directory, res, spp, variant=None):
         f'      <integer name="sampleCount" value="{spp}"/>',
         '    </sampler>',
         '    <film type="hdrfilm">',
-        f'      <integer name="width" value="{res}"/>',
-        f'      <integer name="height" value="{res}"/>',
+        f'      <integer name="width" value="{w}"/>',
+        f'      <integer name="height" value="{h}"/>',
         '      <rfilter type="box"/>',
         '    </film>',
-        *(['    <ref id="medium0"/>'] if vol else []),
+        *(['    <ref id="medium0"/>'] if vol and not het else []),
         '  </sensor>',
     ]
     for name, rgb in CBOX_MATERIALS.items():
@@ -420,7 +592,9 @@ def write_cornell_box_xml(directory, res, spp, variant=None):
                   '  </bsdf>']
     if variant in ('glass', 'vol_glass'):
         lines += _glass_xml(fmt)
-    for name, mat, quads, emitter in _cbox_shapes():
+    elif het:
+        lines += _plastic_xml(fmt)
+    for name, mat, quads, emitter in _variant_shapes(variant):
         mat = _shape_material(variant, name, mat)
         uv = mat == 'checker'
         with open(os.path.join(directory, f'{name}.obj'), 'w') as f:
@@ -438,10 +612,12 @@ def write_cornell_box_xml(directory, res, spp, variant=None):
                   f'    <string name="filename" value="{name}.obj"/>']
         if mat is not None:
             lines += [f'    <ref id="{mat}"/>']
-        if vol:
+        if vol and not het:
             lines += ['    <ref name="exterior" id="medium0"/>']
         if variant == 'vol_glass' and name in CBOX_INNER_SHAPES:
             lines += ['    <ref name="interior" id="medium1"/>']
+        if het and name == 'cube':
+            lines += ['    <ref name="interior" id="medium0"/>']
         if emitter:
             rad = fmt(repr(float(c)) for c in CBOX_LIGHT_RADIANCE)
             lines += ['    <emitter type="area">',
@@ -694,6 +870,40 @@ def random_vol_lanes(scene, n, seed=0):
         spread=rng.uniform(0.0, 0.01, n).astype(f32),
         radius=rng.uniform(0.0, 0.05, n).astype(f32),
         done=rng.random(n) < 0.05)
+
+
+# lajolla_tpu's dtypes of the event-machine state fields that differ from
+# the port's (the port keeps hash words and counters in int64)
+EVENT_STATE_JAX_DTYPES = dict(item=np.int32, bounces=np.int32, ph=np.int32,
+                              ff_hs=np.uint32, nb_hs=np.uint32,
+                              ff_it=np.int32, sh_seg=np.int32)
+
+
+def random_event_lanes(scene, options, n, seed=0, max_steps=8):
+    """State of the event machine (integrators/volpath._advance_event) for
+    n lanes, keyed by volpath.EVENT_STATE, lane-major numpy arrays in the
+    port's dtypes: fresh paths of random work items (numpy-seeded from
+    `seed`), each advanced by the machine itself a random 0..max_steps-1
+    times, so that every phase of the machine occurs with a coherent
+    state; a path that ended on the way is marked done. On the CPU."""
+    import torch
+
+    from lajolla_tpu_torch.integrators import volpath as V
+
+    scene = scene.to('cpu')
+    rng = np.random.default_rng(seed)
+    item = torch.from_numpy(rng.integers(0, 1 << 30, n).astype(np.int64))
+    steps = torch.from_numpy(rng.integers(0, max_steps, n))
+    su = V.stream_root(seed)
+    st = V._fresh_state(scene, options, item, su, True) + (
+        torch.zeros(n, dtype=torch.bool),)
+    for k in range(max_steps - 1):
+        nst, died = V._advance_event(scene, options, st, su)
+        nst = nst[:-1] + (nst[-1] | died,)
+        go = k < steps
+        st = tuple(torch.where(go if a.dim() == 1 else go[:, None], a, b)
+                   for a, b in zip(nst, st))
+    return {k: x.numpy() for k, x in zip(V.EVENT_STATE, st)}
 
 
 # The fields of general-engine lane state, in _advance_lane's order.

@@ -20,7 +20,7 @@ def _chip_smoke():
     return mod
 
 
-# An abridged nvcc -Xptxas -v log of three libraries, five kernels, two
+# An abridged nvcc -Xptxas -v log of four libraries, six kernels, two
 # instantiations of one of them.
 PTXAS_LOG = """\
 ptxas info    : 0 bytes gmem
@@ -48,6 +48,11 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123render_fused_vol_ke
 ptxas info    : Function properties for _ZN12_GLOBAL__N_123render_fused_vol_kernelILi3ELb1ELb1ELb1EEEvN2lj6TablesENS1_6CameraENS1_6MediumENS1_8VolSaltsEiijxiPf
     16 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
 ptxas info    : Used 96 registers, used 0 barriers, 16 bytes cumulative stack size
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_124render_fused_grid_kernelILi3ELb1ELb0ELb1EEEvN2lj6TablesENS1_6CameraENS1_10GridMediumENS1_8VolSaltsEPKfS9_ixjxiPf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_124render_fused_grid_kernelILi3ELb1ELb0ELb1EEEvN2lj6TablesENS1_6CameraENS1_10GridMediumENS1_8VolSaltsEPKfS9_ixjxiPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 128 registers, used 1 barriers, 4096 bytes smem
 """
 
 
@@ -57,6 +62,7 @@ def test_ptxas_summary_keys_each_kernel():
         "advance_kernel: <= 72 registers, <= 0 B spill stores; "
         "intersect_brute_kernel: <= 29 registers, <= 4 B spill stores; "
         "plain_c_kernel: <= 12 registers, <= 0 B spill stores; "
+        "render_fused_grid_kernel: <= 128 registers, <= 0 B spill stores; "
         "render_fused_kernel: <= 80 registers, <= 44 B spill stores; "
         "render_fused_vol_kernel: <= 96 registers, <= 8 B spill stores")
 
@@ -67,6 +73,9 @@ def test_ptxas_summary_keys_each_kernel():
     ('_ZN12_GLOBAL__N_123render_fused_vol_kernelILi1ELb0ELb0ELb0EEEvN2lj6'
      'TablesENS1_6CameraENS1_6MediumENS1_8VolSaltsEiijxiPf',
      'render_fused_vol_kernel'),
+    ('_ZN12_GLOBAL__N_124render_fused_grid_kernelILi1ELb0ELb0ELb0EEEvN2lj6'
+     'TablesENS1_6CameraENS1_10GridMediumENS1_8VolSaltsEPKfS9_ixjxiPf',
+     'render_fused_grid_kernel'),
     ('_Z13simple_kernelPf', 'simple_kernel'),
     ('lj_unmangled', 'lj_unmangled')])
 def test_kernel_name_demangles(symbol, name):

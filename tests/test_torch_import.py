@@ -20,6 +20,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     'lajolla_tpu_torch.integrators.media',
     'lajolla_tpu_torch.integrators.volpath',
     'lajolla_tpu_torch.integrators.volpath_kernel',
+    'lajolla_tpu_torch.integrators.volpath_grid_kernel',
 ])
 def test_import_pulls_in_no_jax(module, tmp_path):
     code = (f"import importlib, sys; importlib.import_module({module!r}); "

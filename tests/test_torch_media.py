@@ -11,7 +11,8 @@ lajolla_tpu's on the CPU.
   (quadrature in cos theta), and the directions phase_sample draws fall
   into cos-theta bins as phase_pdf says (each bin within 5 sigma of its
   expected count).
-- Heterogeneous media raise NotImplementedError.
+- Heterogeneous media (the 'hetvol' Cornell box's grid medium): the
+  coefficients and the volume lookups against lajolla_tpu's.
 """
 
 import dataclasses
@@ -183,23 +184,37 @@ def test_phase_sample_histogram_matches_pdf(g):
 
 
 def test_heterogeneous_media_raise(scenes):
+    """Heterogeneous media no longer raise: on the 'hetvol' Cornell box
+    (a 16x16x8 grid medium) the majorant, the coefficients and the raw
+    volume sub-row lookup agree with lajolla_tpu's; on a scene with no
+    grid volume the lookup is the sub-row's constant."""
     _, ps = scenes
-    het = dataclasses.replace(ps, meta=dataclasses.replace(
-        ps.meta, med_types_present=(T.MED_HOMOGENEOUS,
-                                    T.MED_HETEROGENEOUS)))
-    ids = torch.zeros(4, dtype=torch.int32)
-    z3 = torch.zeros((4, 3))
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        PM.get_majorant(het, ids, z3, z3, torch.ones(4))
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        PM.get_sigma_s(het, ids, z3)
-    with pytest.raises(NotImplementedError, match="queue 1"):
-        PM.check_homogeneous(het.meta)
-    # the constant volume lookup is ported; the grid one is not
     vrow = torch.arange(14.0)[None]
-    assert torch.equal(PM.lookup_volume_vrow(ps, vrow, z3[:1]),
+    assert torch.equal(PM.lookup_volume_vrow(ps, vrow, torch.zeros((1, 3))),
                        vrow[:, PM.VL_CONST:PM.VL_CONST + 3])
-    grid = dataclasses.replace(ps, meta=dataclasses.replace(
-        ps.meta, has_grid_volumes=True))
-    with pytest.raises(NotImplementedError):
-        PM.lookup_volume_vrow(grid, vrow, z3[:1])
+    js = JC.compile_scene(PT.cornell_box_builder(8, variant='hetvol',
+                                                 grid_res=(16, 16, 8)))
+    het = to_port(js)
+    assert het.meta.med_types_present == (T.MED_HETEROGENEOUS,)
+    rng = np.random.default_rng(7)
+    ids = np.where(rng.random(N) < 0.1, -1, 0).astype(np.int32)
+    p = rng.uniform(-1.0, 0.2, (N, 3)).astype(np.float32)
+    d = unit(rng, N)
+    tfar = rng.uniform(0.01, 3.0, N).astype(np.float32)
+    for name, jf, pf in (
+            ('majorant', lambda m, o, d, tf: JM.get_majorant(js, m, o, d, tf),
+             lambda: PM.get_majorant(het, t(ids), t(p), t(d), t(tfar))),
+            ('sigma_s', lambda m, o, d, tf: JM.get_sigma_s(js, m, o),
+             lambda: PM.get_sigma_s(het, t(ids), t(p))),
+            ('sigma_a', lambda m, o, d, tf: JM.get_sigma_a(js, m, o),
+             lambda: PM.get_sigma_a(het, t(ids), t(p)))):
+        want = np.asarray(jax.vmap(jf)(ids, p, d, tfar))
+        got = pf().numpy()
+        np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7,
+                                   err_msg=name)
+        assert (got > 0).any() and (got == 0).any(), name
+    rows = PM.med_row(het, t(ids))[:, PM.MT_DLOOK:PM.MT_DLOOK + 14]
+    want = np.asarray(jax.vmap(lambda r, x: JM.lookup_volume_vrow(js, r, x))(
+        rows.numpy(), p))
+    np.testing.assert_allclose(PM.lookup_volume_vrow(het, rows, t(p)).numpy(),
+                               want, rtol=1e-6, atol=1e-7)

@@ -21,7 +21,8 @@ random numbers.
   scene at lajolla_tpu's own statistical gates (median < 1e-4, 8x8-block
   RMS difference over the mean < 0.12, means within 1%).
 - `supports` on every fixture; render() and the CLI on the CPU; the
-  unported parts raise NotImplementedError.
+  unported versions 1 and 2 raise NotImplementedError, a heterogeneous
+  medium of constant volumes renders.
 """
 
 
@@ -318,13 +319,19 @@ def test_versions_1_and_2_raise(version):
 
 
 def test_heterogeneous_medium_raises():
-    """A heterogeneous medium of constant volumes compiles, and the
-    renderer refuses it (lajolla_tpu tracks it with its majorant loop)."""
+    """A heterogeneous medium of constant volumes compiles and no longer
+    raises: render() takes the general engine, whose free flight runs the
+    heterogeneous tracking loop (tests/test_torch_grid_media.py holds its
+    films against lajolla_tpu's)."""
     b = PT.cornell_box_builder(8, variant='vol')
     b.volumes += [VolumeB(const=(1.0, 1.0, 1.0)),
                   VolumeB(const=(0.8, 0.8, 0.8))]
     b.media[0] = MediumB(type=T.MED_HETEROGENEOUS, density_vol=0,
                          albedo_vol=1)
     scene = PT.compile_scene(b)
-    with pytest.raises(NotImplementedError, match="heterogeneous"):
-        render(scene, RenderOptions(integrator='volpath'), device='cpu')
+    opts = RenderOptions(integrator='volpath', samples_per_pixel=2)
+    img = render(scene, opts, device='cpu')
+    assert img.shape == (8, 8, 3) and np.isfinite(img).all()
+    assert img.mean() > 0
+    engine = PV._render_volpath_block(scene, opts, 0, 0, 2)[0].numpy()
+    assert np.array_equal(img.reshape(-1, 3), engine / 2)
