@@ -66,12 +66,43 @@ exits non-zero and prints no final line:
     2048-lane blocks, so K9 draws the engine's numbers): median < 1e-4,
     means within 1%; and on 'hetvol_smooth' (outside K9's class) with K3
     against it with the plain casts (it must launch K3 and not K9):
-    median < 1e-4, means within 1%; loop iterations and wall time.
+    median < 1e-4, means within 1%; loop iterations and wall time;
+14. kernels K4-K7 (the cluster sweeps of scenes with a BVH) against their
+    plain forms on the mesh Cornell box (a displaced sphere of ~56k
+    triangles), on the 2^16 camera, bounce and shadow rays of its
+    256x256 film: K5 and K4 on K5's hits, K6 (full-width lists) and K7
+    (the tables repacked at 64 triangles a cluster), closest and any hit;
+    and K5 on a ~3.5k-triangle sphere with lists of one entry per
+    supercluster, so that blocks overflow into supercluster mode. Gates:
+    t bit-equal on >= 99.9% of rays and within rtol 3e-4 / atol 3e-5 on
+    all, prim equal on >= 99.9%, u and v within 1e-4 where prim agrees,
+    occlusion equal on all, prim >= 0 exactly where t is finite. A second witness on 2^14
+    rays of each kind and each route (K5 + K4; K6, forced by
+    RESIDENT_BYTES = 0; K7): the independent intersect_binned, at the same
+    tolerances. Then each kernel timed by CUDA events at 2^18 rays
+    (bounce rays for closest hit, shadow rays for any hit), each plain
+    form once (its counters give the work the bound counts), and a whole
+    cast (sort, lists, kernel) beside its kernel;
+15. the large-scene main path through the CLI, launch counters reset
+    before each run and read after: `bigmesh-683` (the mesh Cornell box
+    at ~56k triangles, 683x512 x 2 spp: K5 + K4) and `hugemesh-768`
+    (~260k triangles, 768x575 x 1 spp: K6); finite EXRs, mean luminance
+    in (0.05, 5); parse + compile, BVH, cluster, packing, upload and
+    render() seconds, loop iterations, Mpaths/s. Each film at 128x96 x 2
+    spp against the same render with the casts patched to
+    intersect_binned: median < 1e-4, means within 1%. K7 on a path of
+    its own: render() of the mesh Cornell box (~3.5k triangles, 128x96 x
+    1 spp) with its tables repacked at 64 triangles a cluster, against
+    the unrepacked scene's film.
 Then one JSON line of per-kernel results (each kernel's launches on the
-main path of [6], its largest difference from its plain form, its time,
+main path of [6] or, for K4-K7, of [15], its largest difference from its plain form, its time,
 its plain form's time, its bound and what bounds it, and the time of a
-library call that computes the same function: none has one), and last
-the device line.
+library call that computes the same function: none has one; K5, K6 and K7
+also carry their any-hit variant's numbers as `any_hit_*`), and last the
+device line.
+`python3 chip_smoke.py --sweep-only` runs [1], [2], [14] and [15] and
+prints neither of the two last lines (a shorter run while working on the
+sweeps).
 """
 
 import json
@@ -89,6 +120,16 @@ K8_SOURCE = 'lajolla_tpu_torch/csrc/volpath_kernels.cu'
 K8_REPLACES = 'lajolla_tpu/integrators/volpath_kernel.py:552'
 K9_SOURCE = 'lajolla_tpu_torch/csrc/volpath_grid_kernels.cu'
 K9_REPLACES = 'lajolla_tpu/integrators/volpath_grid_kernel.py:910'
+SWEEP_SOURCE = 'lajolla_tpu_torch/csrc/sweep_kernels.cu'
+SWEEP_REPLACES = dict(
+    sweep_resolve='lajolla_tpu/ops/intersect_sweep.py:368',
+    sweep_resident='lajolla_tpu/ops/intersect_sweep.py:220',
+    sweep_list='lajolla_tpu/ops/intersect_sweep.py:547',
+    sweep_streaming='lajolla_tpu/ops/intersect_sweep.py:713')
+# Triangle counts asked of the mesh Cornell box: its sweep table stays
+# under ops/intersect_sweep.RESIDENT_BYTES (K5 + K4) or exceeds it (K6).
+BIGMESH_TRIANGLES = 56000
+HUGEMESH_TRIANGLES = 260000
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, at the full 700 W):
 # fp32 outside the tensor cores, and device memory.
@@ -103,9 +144,11 @@ PEAK_BYTES = 3.35e12
 # evaluations and a sample 240, roulette and merge 50); K8's closed-form
 # free flight and NEE transmittance; one K9 tracking step (ff_micro: the
 # slab 27, the supervoxel cell and its exit 80, the 8-corner density
-# read 53, the tracking update 30).
+# read 53, the tracking update 30); a sweep's slab test against one
+# cluster (per axis two differences, two products and four min/max, and
+# the compare).
 OPS = dict(closest_test=45, any_test=55, sphere_test=28, vertex=420,
-           vol_flight=40, track_step=190)
+           vol_flight=40, track_step=190, slab_test=25)
 
 
 def cuda_ms(torch, fn, reps):
@@ -209,6 +252,375 @@ def block_rms(got, want, b=8):
     return float(((a - c) ** 2).mean() ** 0.5 / c.mean())
 
 
+def hits_agree(torch, label, got, want):
+    """Hold closest hits (t, prim, u, v) against their reference at the
+    gates of phase 14; returns the largest |t| difference."""
+    t, p, u, v = got
+    pt, pp, pu, pv = want
+    same_t = float((t == pt).float().mean())
+    close = torch.allclose(t, pt, rtol=3e-4, atol=3e-5)
+    same_p = float((p == pp).float().mean())
+    hit = (p == pp) & (pp >= 0)
+    uv = max(float((a[hit] - b[hit]).abs().max()) if bool(hit.any()) else 0.0
+             for a, b in ((u, pu), (v, pv)))
+    paired = bool(((p >= 0) == torch.isfinite(t)).all())
+    both = torch.isfinite(t) & torch.isfinite(pt)
+    err = float((t[both] - pt[both]).abs().max()) if bool(both.any()) else 0.0
+    print(f"[14] {label} ({t.shape[0]} rays, hits "
+          f"{float((pp >= 0).float().mean()):.3f}): t bit-equal "
+          f"{same_t:.6f}, prim equal {same_p:.6f}, max |t diff| {err:.3g}, "
+          f"max |u,v diff| {uv:.3g}")
+    if not (same_t >= 0.999 and close and same_p >= 0.999 and uv <= 1e-4
+            and paired):
+        raise AssertionError(f"{label}: outside the gates (t close {close}, "
+                             f"prim >= 0 where t finite {paired})")
+    return err
+
+
+def same_occlusion(label, got, want):
+    share = float((got == want).float().mean())
+    print(f"[14] {label}: occlusion equal {share:.6f} (occluded "
+          f"{float(want.float().mean()):.3f})")
+    if share != 1.0:
+        raise AssertionError(f"{label}: occlusion differs")
+
+
+def sweep_phases(torch, np, dev, smi):
+    """Phases 14 and 15; returns the JSON entries of K4-K7."""
+    from lajolla_tpu_torch import cli, kernels, parse_scene, render
+    from lajolla_tpu_torch import testing as PT
+    from lajolla_tpu_torch.integrators import path as PP
+    from lajolla_tpu_torch.io.image import imread3
+    from lajolla_tpu_torch.ops import intersect_binned as IB
+    from lajolla_tpu_torch.ops import intersect_sweep as SW
+    from lajolla_tpu_torch.scene import compile as PC
+    from lajolla_tpu_torch.scene import geometry as PG
+    from lajolla_tpu_torch.scene.types import RenderOptions
+
+    plain = dict(sweep_resident=SW.sweep_resident_plain,
+                 sweep_resolve=SW.sweep_resolve_plain,
+                 sweep_list=SW.sweep_list_plain,
+                 sweep_streaming=SW.sweep_streaming_plain)
+
+    def fixture(res, triangles=BIGMESH_TRIANGLES):
+        return PT.make_cornell_box(res, 1, 'mesh',
+                                   triangles=triangles).to(dev)
+
+    def rays_of(scene):
+        """The camera, bounce and shadow rays of a film, made on the card
+        with the plain forms, each kind sorted as a cast sorts it."""
+        with mock.patch.multiple(kernels, **plain):
+            rays = PT.general_rays(scene, seed=13, device=dev)
+        out = {}
+        for kind, (o, d, tn, tf) in rays.items():
+            perm = torch.argsort(SW._sort_keys(scene, o, d), stable=True)
+            out[kind] = tuple(x[perm].contiguous() for x in (o, d, tn, tf))
+        return out
+
+    def packed(ray):
+        o, d, tn, tf = SW._pad_rays(*ray, SW.BLOCK_R)
+        return SW._pack_rays(o, tn, d, tf)
+
+    # ---- 14. K4-K7 against their plain forms
+    mesh = fixture(256)
+    mesh64 = PT.repack_clusters(mesh, 64)
+    K, _, C = mesh.sw_lane.shape
+    S = mesh.sw_saabb.shape[0]
+    print(f"[14] mesh Cornell box: {mesh.meta.num_triangles} triangles, "
+          f"{K} clusters of {C} in {S} superclusters, sweep table "
+          f"{mesh.sw_lane.numel() * 4} B (resident up to "
+          f"{SW.RESIDENT_BYTES} B); at 64 a cluster "
+          f"{mesh64.sw_aabb.shape[0]} clusters")
+    if mesh.sw_lane.numel() * 4 > SW.RESIDENT_BYTES:
+        raise AssertionError("the mesh fixture's table is not resident")
+    errs = dict.fromkeys(plain, 0.0)
+    overflowed = 0
+    zeros = lambda x: torch.zeros_like(x, dtype=torch.float32)
+    def resident_agrees(scene, kind, ray, L, label):
+        """K5 (closest and any hit) and K4 on K5's hits against their
+        plain forms for lists of L entries; returns (largest |t|
+        difference, blocks in supercluster mode)."""
+        args = SW.list_inputs(scene, *ray, SW.LIST_B, L)
+        lists = (scene.sw_lane, scene.sw_aabb, *args[1:])
+        t, kid = kernels.sweep_resident(args[0], *lists, False)
+        pt, pkid = SW.sweep_resident_plain(args[0], *lists, False)
+        z = zeros(t)
+        err = hits_agree(torch, f"{label} vs plain, {kind} rays, lists of "
+                         f"{L}", (t, kid, z, z), (pt, pkid, z, z))
+        ta, _ = kernels.sweep_resident(args[0], *lists, True)
+        pta, _ = SW.sweep_resident_plain(args[0], *lists, True)
+        same_occlusion(f"{label} any hit vs plain, {kind} rays",
+                       torch.isfinite(ta), torch.isfinite(pta))
+        hits = torch.cat([args[0][:, :7], t[:, None]], dim=1).contiguous()
+        got = kernels.sweep_resolve(hits, kid, scene.sw_lane)
+        want = SW.sweep_resolve_plain(hits, kid, scene.sw_lane)
+        hits_agree(torch, f"K4 on {label}'s hits vs plain, {kind} rays",
+                   (t, *got), (t, *want))
+        return err, int((args[1] < 0).sum())
+
+    # K5's supercluster mode: a mesh of few clusters with lists of one
+    # entry per supercluster, the shortest the list build takes
+    few = fixture(256, 3500)
+    for kind, ray in rays_of(few).items():
+        err, over = resident_agrees(few, kind, ray, few.sw_saabb.shape[0],
+                                    'K5 overflow')
+        errs['sweep_resident'] = max(errs['sweep_resident'], err)
+        overflowed += over
+    print(f"[14] K5 overflow ({few.meta.num_triangles} triangles, "
+          f"{few.sw_aabb.shape[0]} clusters): {overflowed} blocks swept "
+          f"superclusters")
+    if overflowed == 0:
+        raise AssertionError("no block of K5 overflowed its list")
+
+    for kind, ray in rays_of(mesh).items():
+        err, _ = resident_agrees(mesh, kind, ray, min(SW.LIST_LEN, K), 'K5')
+        errs['sweep_resident'] = max(errs['sweep_resident'], err)
+        args = SW.list_inputs(mesh, *ray, SW.LANE_R, K)
+        lists = (mesh.sw_lane, mesh.sw_aabb, *args[1:])
+        errs['sweep_list'] = max(errs['sweep_list'], hits_agree(
+            torch, f"K6 vs plain, {kind} rays",
+            kernels.sweep_list(args[0], *lists, False),
+            SW.sweep_list_plain(args[0], *lists, False)))
+        same_occlusion(f"K6 any hit vs plain, {kind} rays",
+                       kernels.sweep_list(args[0], *lists, True)[1] >= 0,
+                       SW.sweep_list_plain(args[0], *lists, True)[1] >= 0)
+        tabs = (mesh64.sw_saabb, mesh64.sw_aabb, mesh64.sw_A, mesh64.sw_prim)
+        errs['sweep_streaming'] = max(errs['sweep_streaming'], hits_agree(
+            torch, f"K7 vs plain, {kind} rays",
+            kernels.sweep_streaming(packed(ray), *tabs, False),
+            SW.sweep_streaming_plain(packed(ray), *tabs, False)))
+        same_occlusion(
+            f"K7 any hit vs plain, {kind} rays",
+            kernels.sweep_streaming(packed(ray), *tabs, True)[1] >= 0,
+            SW.sweep_streaming_plain(packed(ray), *tabs, True)[1] >= 0)
+
+        # the second witness, through the public casts
+        sub = tuple(x[::4].contiguous() for x in ray)
+        want = IB.intersect_binned(mesh, *sub)
+        want_occ = IB.occluded_binned(mesh, *sub)
+        for route, scene, resident in (
+                ('K5 + K4', mesh, SW.RESIDENT_BYTES), ('K6', mesh, 0),
+                ('K7', mesh64, SW.RESIDENT_BYTES)):
+            before = dict(kernels.LAUNCHES)
+            with mock.patch.object(SW, 'RESIDENT_BYTES', resident):
+                got = SW.intersect_sweep(scene, *sub)
+                occ = SW.occluded_sweep(scene, *sub)
+            ran = [k for k in plain if kernels.LAUNCHES[k] > before[k]]
+            hits_agree(torch, f"{route} vs intersect_binned, {kind} rays, "
+                       f"launched {ran}", got, want)
+            same_occlusion(f"{route} vs occluded_binned, {kind} rays", occ,
+                           want_occ)
+    errs['sweep_resolve'] = 0.0     # K4 returns no t; prim, u, v gated above
+
+    # times at 2^18 rays: bounce rays closest hit, shadow rays any hit
+    big = fixture(512)
+    big64 = PT.repack_clusters(big, 64)
+    rays = rays_of(big)
+    n = rays['bounce'][0].shape[0]
+    entries = {}
+
+    def timed(name, any_hit, kernel_fn, plain_fn, nbytes, tris):
+        """A kernel's and its plain form's time and the bound of the work
+        the plain form counted."""
+        stats = {}
+        ms = cuda_ms(torch, kernel_fn, 10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain_fn(stats)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        ops = (stats.get('slab_tests', 0) * OPS['slab_test'] +
+               stats['cluster_tests'] * tris *
+               OPS['any_test' if any_hit else 'closest_test'])
+        bnd = bound(ops, nbytes)
+        which = 'any hit, shadow' if any_hit else 'closest hit, bounce'
+        print(f"[14] {name} at 2^18 {which} rays: kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.1f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); per ray "
+              f"{stats.get('slab_tests', 0) / n:.2f} slab tests, "
+              f"{stats['cluster_tests'] / n:.3f} clusters of {tris} "
+              f"triangles tested"
+              + (f", {stats['entries']} list entries swept by a block"
+                 if 'entries' in stats else '') + f" ({smi})")
+        return ms, plain_ms, bnd
+
+    def nbytes_of(*tensors):
+        return sum(x.numel() * x.element_size() for x in tensors)
+
+    for any_hit, ray in ((False, rays['bounce']), (True, rays['shadow'])):
+        key = 'any' if any_hit else 'closest'
+        Kb = big.sw_aabb.shape[0]
+        args = SW.list_inputs(big, *ray, SW.LIST_B, min(SW.LIST_LEN, Kb))
+        lists = (big.sw_lane, big.sw_aabb, *args[1:])
+        entries[('sweep_resident', key)] = timed(
+            'K5', any_hit,
+            lambda: kernels.sweep_resident(args[0], *lists, any_hit),
+            lambda st: SW.sweep_resident_plain(args[0], *lists, any_hit,
+                                               stats=st),
+            nbytes_of(args[0], *lists) + 8 * n, C)
+        if not any_hit:
+            t, kid = kernels.sweep_resident(args[0], *lists, False)
+            hits = torch.cat([args[0][:, :7], t[:, None]], dim=1).contiguous()
+            n_hit = int((kid >= 0).sum())
+            entries[('sweep_resolve', key)] = timed(
+                'K4', False,
+                lambda: kernels.sweep_resolve(hits, kid, big.sw_lane),
+                lambda st: (st.update(cluster_tests=n_hit),
+                            SW.sweep_resolve_plain(hits, kid, big.sw_lane)),
+                nbytes_of(hits, kid, big.sw_lane) + 12 * n, C)
+        args6 = SW.list_inputs(big, *ray, SW.LANE_R, Kb)
+        lists6 = (big.sw_lane, big.sw_aabb, *args6[1:])
+        entries[('sweep_list', key)] = timed(
+            'K6', any_hit,
+            lambda: kernels.sweep_list(args6[0], *lists6, any_hit),
+            lambda st: SW.sweep_list_plain(args6[0], *lists6, any_hit,
+                                           stats=st),
+            nbytes_of(args6[0], *lists6) + 16 * n, C)
+        tabs = (big64.sw_saabb, big64.sw_aabb, big64.sw_A, big64.sw_prim)
+        pk = packed(ray)
+        entries[('sweep_streaming', key)] = timed(
+            'K7', any_hit,
+            lambda: kernels.sweep_streaming(pk, *tabs, any_hit),
+            lambda st: SW.sweep_streaming_plain(pk, *tabs, any_hit, stats=st),
+            nbytes_of(pk, *tabs) + 16 * n, 64)
+        cast = SW.occluded_sweep if any_hit else SW.intersect_sweep
+        for route, resident in (('K5 + K4', SW.RESIDENT_BYTES), ('K6', 0)):
+            with mock.patch.object(SW, 'RESIDENT_BYTES', resident):
+                ms = cuda_ms(torch, lambda: cast(big, *ray), 5)
+            print(f"[14] a whole {'any-hit' if any_hit else 'closest-hit'} "
+                  f"cast of 2^18 rays through {route} (sort, lists, kernel):"
+                  f" {ms:.3f} ms ({smi})")
+
+    # ---- 15. large scenes end to end through the CLI
+    def luminance(im):
+        return float((im @ np.array([0.212671, 0.715160, 0.072169])).mean())
+
+    def counted(fn):
+        """fn() with the queue's loop iterations counted."""
+        iters = []
+        real = PP._render_block_sc
+
+        def counting(*a, **k):
+            out = real(*a, **k)
+            iters.append(out[2])
+            return out
+        with mock.patch.object(PP, '_render_block_sc', counting):
+            out = fn()
+        return out, sum(iters)
+
+    launches = dict.fromkeys(plain, 0)
+    with tempfile.TemporaryDirectory() as tmp:
+        for cell, triangles, size, spp, expect, never in (
+                ('bigmesh-683', BIGMESH_TRIANGLES, (683, 512), 2,
+                 ('sweep_resident', 'sweep_resolve'), 'sweep_list'),
+                ('hugemesh-768', HUGEMESH_TRIANGLES, (768, 575), 1,
+                 ('sweep_list',), 'sweep_resident')):
+            t0 = time.perf_counter()
+            xml = PT.write_cornell_box_xml(os.path.join(tmp, cell), size, spp,
+                                           variant='mesh',
+                                           triangles=triangles)
+            write_s = time.perf_counter() - t0
+            exr = os.path.join(tmp, cell + '.exr')
+            for k in kernels.LAUNCHES:
+                kernels.LAUNCHES[k] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if cli.main([xml, '-o', exr, '--device', 'cuda']) != 0:
+                raise AssertionError("CLI failed")
+            cli_s = time.perf_counter() - t0
+            ran = dict(kernels.LAUNCHES)
+            print(f"[15] {cell}: CLI launches {ran}")
+            if not (all(ran[k] > 0 for k in expect) and ran[never] == 0):
+                raise AssertionError(f"{cell} launched {ran}: expected "
+                                     f"{expect} and no {never}")
+            for k in expect:
+                launches[k] += ran[k]
+            im = imread3(exr)
+            lum = luminance(im)
+            if not (im.shape == (size[1], size[0], 3) and
+                    np.isfinite(im).all() and 0.05 < lum < 5.0):
+                raise AssertionError(f"{cell}: bad image, luminance {lum}")
+            t0 = time.perf_counter()
+            scene_cpu, opt = parse_scene(xml, 'cpu')
+            parse_s = time.perf_counter() - t0
+            build = dict(PC.BUILD_SECONDS)
+            t0 = time.perf_counter()
+            scene = scene_cpu.to(dev)
+            torch.cuda.synchronize()
+            upload_s = time.perf_counter() - t0
+            render(scene, opt, device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, iters = counted(lambda: render(scene, opt, device=dev))
+            render_s = time.perf_counter() - t0
+            paths = size[0] * size[1] * spp
+            Kc = scene.sw_aabb.shape[0]
+            print(f"[15] {cell} {size[0]}x{size[1]} x {spp} spp, "
+                  f"{scene.meta.num_triangles} triangles, {Kc} clusters, "
+                  f"sweep table {scene.sw_lane.numel() * 4} B: mean "
+                  f"luminance {lum:.5f}; scene files written in "
+                  f"{write_s:.2f} s; parse + compile {parse_s:.2f} s, of it "
+                  f"BVH {build['bvh']:.2f} s, clusters "
+                  f"{build['clusters']:.2f} s, packing {build['pack']:.2f} "
+                  f"s; upload {upload_s:.3f} s; render() {render_s:.3f} s, "
+                  f"{iters} loop iterations, "
+                  f"{paths / render_s / 1e6:.4f} Mpaths/s; whole CLI run "
+                  f"{cli_s:.2f} s, {paths / cli_s / 1e6:.4f} Mpaths/s; {smi}")
+
+            # the same geometry on a small film against the plain casts
+            small = PT.make_cornell_box((128, 96), 2, 'mesh',
+                                        triangles=triangles).to(dev)
+            opt2 = RenderOptions(samples_per_pixel=2)
+            got = render(small, opt2, device=dev)
+            with mock.patch.multiple(PG, intersect_sweep=IB.intersect_binned,
+                                     occluded_sweep=IB.occluded_binned):
+                want = render(small, opt2, device=dev)
+            med, mean_rel, _ = film_agreement(got, want)
+            lum_rel = abs(luminance(got) - luminance(want)) / luminance(want)
+            print(f"[15] {cell} geometry at 128x96 x 2 spp, kernels vs "
+                  f"intersect_binned: median rel {med:.3g}, mean rel "
+                  f"{mean_rel:.3g}, luminance rel {lum_rel:.3g}")
+            if not (med < 1e-4 and mean_rel < 0.01 and lum_rel < 0.01):
+                raise AssertionError(f"{cell}: the kernels' film disagrees "
+                                     "with the plain casts'")
+
+    # K7 on a path of its own: render() of a scene whose tables are packed
+    # at 64 triangles a cluster
+    small = PT.make_cornell_box((128, 96), 1, 'mesh', triangles=3500).to(dev)
+    small64 = PT.repack_clusters(small, 64)
+    opt1 = RenderOptions(samples_per_pixel=1)
+    want = render(small, opt1, device=dev)
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    got = render(small64, opt1, device=dev)
+    ran = dict(kernels.LAUNCHES)
+    med, mean_rel, _ = film_agreement(got, want)
+    print(f"[15] mesh Cornell box ({small.meta.num_triangles} triangles) at "
+          f"128x96 x 1 spp, tables at 64 a cluster: launches {ran}; against "
+          f"the film at 128 a cluster: median rel {med:.3g}, mean rel "
+          f"{mean_rel:.3g}")
+    if not (ran['sweep_streaming'] > 0 and ran['sweep_resident'] == 0 and
+            ran['sweep_list'] == 0 and med < 1e-4 and mean_rel < 0.01):
+        raise AssertionError("the repacked scene did not render through K7, "
+                             "or its film differs")
+    launches['sweep_streaming'] = ran['sweep_streaming']
+
+    lines = []
+    for name in ('sweep_resolve', 'sweep_resident', 'sweep_list',
+                 'sweep_streaming'):
+        ms, plain_ms, bnd = entries[(name, 'closest')]
+        entry = {"name": name + "_kernel", "route": "cuda",
+                 "source": SWEEP_SOURCE, "replaces": SWEEP_REPLACES[name],
+                 "launches": launches[name], "max_abs_err": errs[name],
+                 "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
+                 "bound_by": bnd[1], "library_ms": None}
+        if (name, 'any') in entries:
+            ms, plain_ms, bnd = entries[(name, 'any')]
+            entry.update(any_hit_ms=ms, any_hit_plain_ms=plain_ms,
+                         any_hit_bound_ms=bnd[0], any_hit_bound_by=bnd[1])
+        lines.append(entry)
+    return lines
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -251,6 +663,9 @@ def main():
     kernels.build()
     print(f"[2] nvcc build + load {time.perf_counter() - t0:.1f} s; "
           f"{ptxas_summary(kernels.build_log())}")
+    if sys.argv[1:] == ['--sweep-only']:
+        sweep_phases(torch, np, dev, smi)
+        return
 
     # ---- 3. K2 against plain
     def lanes_on(scene, n, seed):
@@ -399,7 +814,8 @@ def main():
         launches = dict(kernels.LAUNCHES)
         print(f"[6] main-path launches {launches}")
         for k, v in launches.items():
-            if v < 1:
+            # the cluster sweeps are on the main path of phase 15
+            if v < 1 and not k.startswith('sweep_'):
                 raise AssertionError(f"the main path never launched {k}")
         for _, exr, _, (lo, hi) in runs:
             luminance_of(os.path.join(tmp, exr), lo, hi)
@@ -693,6 +1109,8 @@ def main():
         raise AssertionError("the event machine with K3 disagrees with it "
                              "with the plain casts")
 
+    sweep_lines = sweep_phases(torch, np, dev, smi)
+
     def line(name, source, replaces, launched, err, ms, plain_ms, bnd):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launched,
@@ -717,7 +1135,7 @@ def main():
              k8_bound),
         line("render_fused_grid_kernel", K9_SOURCE, K9_REPLACES,
              launches['render_fused_grid'], k9_err, k9_ms, k9_plain_ms,
-             k9_bound)]}))
+             k9_bound)] + sweep_lines}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -14,7 +14,14 @@ Two engines, dispatched as lajolla_tpu's `_render_block` does:
 - every other scene takes the general engine: `_advance_lane` (one path
   vertex for a batch of lanes: hit records, textures, any ported BSDF,
   area and environment lights, ray differentials) inside the queue
-  `_render_block_sc`. Its casts are kernel K3 (scene/geometry.py).
+  `_render_block_sc`. Its casts are kernel K3 or, for a scene with a
+  BVH (192 triangles or more), the cluster sweeps K4-K7
+  (scene/geometry.py). Such a scene renders one sample per block with a
+  pool of SWEEP_LANES or SWEEP_LANES_BIG lanes (`_schedule`), as in
+  lajolla_tpu. lajolla_tpu then stops the queue early, compacts the
+  survivors on the host and drains them in smaller pools; the estimator
+  does not depend on that (every random number is keyed on the work item
+  and the bounce), so here the queue runs to its end on the device.
 
 Every uniform comes from the counter hash of (seed, work item, bounce,
 dim), so the port draws lajolla_tpu's random numbers bit for bit and a
@@ -42,6 +49,10 @@ MAX_BOUNCES_CAP = 64  # absolute safety cap on path length (RR terminates
                       # far earlier; bias at this cap is ~0.75^59)
 KERNEL_SPP_BLOCK = 256   # samples per pixel in one render_fused launch
 SPP_BLOCK = 16           # samples per pixel in one general-engine block
+# Lane pools of a scene whose casts are the cluster sweeps (one sample per
+# block): below 2^17 triangles and from there on (lajolla_tpu's values).
+SWEEP_LANES = 8192
+SWEEP_LANES_BIG = 16384
 
 # Counter-based hash RNG (Jarzynski & Olano, "Hash Functions for GPU
 # Rendering"): every uniform is a pure function of (seed, work item,
@@ -375,18 +386,32 @@ def _render_block_sc(scene, options, seed, s0, nspp, lanes=None):
     return film, st, iters
 
 
-def _render_block(scene, options, seed, s0, nspp):
+def _schedule(scene):
+    """(samples per pixel in one block, lanes) of a render, as
+    lajolla_tpu's render_path sets them: a scene whose casts are the
+    cluster sweeps takes one sample per block and a small lane pool
+    (short launches of the heavy casts); lanes < pixels pads the queue
+    stride n_q to a multiple of the pool, which sets every work item and
+    so every random number."""
+    n = scene.meta.width * scene.meta.height
+    if scene.meta.use_binned:
+        big = scene.meta.num_triangles >= (1 << 17)
+        return 1, min(n, SWEEP_LANES_BIG if big else SWEEP_LANES)
+    return (KERNEL_SPP_BLOCK if _use_kernel(scene) else SPP_BLOCK), n
+
+
+def _render_block(scene, options, seed, s0, nspp, lanes=None):
     """Film sum (h, w, 3) of samples s0..s0+nspp, dispatched as
     lajolla_tpu's `_render_block` (without its TPU-only test): scenes
     inside path_kernel.supports take the fused kernels — K1 for films of
     more than one 4096-pixel block, a whole number of them, else the
     per-bounce driver with K2 — and every other scene the general
-    engine."""
+    engine, with a pool of `lanes` lanes (default: one per pixel)."""
     from lajolla_tpu_torch.integrators import path_megakernel
     w, h = scene.meta.width, scene.meta.height
     n = w * h
     if not _use_kernel(scene):
-        film, _, _ = _render_block_sc(scene, options, seed, s0, nspp)
+        film, _, _ = _render_block_sc(scene, options, seed, s0, nspp, lanes)
         return film[:n].reshape(h, w, 3)
     if n % path_megakernel.BLOCK == 0 and n > path_megakernel.BLOCK:
         return path_megakernel.render_fused(scene, options, seed, s0, nspp)
@@ -402,7 +427,7 @@ def render_path(scene, options, seed=0, checkpoint=None, progress=False):
     from lajolla_tpu_torch.utils.progress import ProgressReporter
 
     spp = options.samples_per_pixel
-    spp_block = KERNEL_SPP_BLOCK if _use_kernel(scene) else SPP_BLOCK
+    spp_block, lanes = _schedule(scene)
     h, w = scene.meta.height, scene.meta.width
     img, s0 = None, 0
     if checkpoint:
@@ -411,7 +436,8 @@ def render_path(scene, options, seed=0, checkpoint=None, progress=False):
     rep.done = s0
     while s0 < spp:
         ns = min(spp_block, spp - s0)
-        block = _render_block(scene, options, seed, s0, ns).cpu().numpy()
+        block = _render_block(scene, options, seed, s0, ns,
+                              lanes).cpu().numpy()
         img = block if img is None else img + block
         s0 += ns
         rep.update(ns)

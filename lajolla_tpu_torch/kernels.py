@@ -12,8 +12,11 @@ synchronising, raise if the launch reports a CUDA error, and count their
 launches in LAUNCHES. They never fall back to the plain forms: K1, K2,
 K8 and K9 take CUDA tensors only (their callers run the plain forms for
 CPU tensors); K3's wrappers run the plain form for CPU tensors
-themselves and launch the kernel for CUDA tensors. K9's library is built
-with -fmad=false (csrc/volpath_grid_kernels.cu says why).
+themselves and launch the kernel for CUDA tensors, and so do the
+wrappers of the sweep casters K4-K7 (`sweep_resolve`, `sweep_resident`,
+`sweep_list`, `sweep_streaming`; plain forms in ops/intersect_sweep.py).
+K9's library is built with -fmad=false (csrc/volpath_grid_kernels.cu
+says why).
 """
 
 import ctypes
@@ -28,9 +31,10 @@ import torch
 _CSRC = Path(__file__).resolve().parent / 'csrc'
 _SOURCES = ('path_kernels.cu', 'path_advance.cuh', 'camera.cuh',
             'intersect_kernels.cu', 'volpath_kernels.cu',
-            'volpath_common.cuh', 'volpath_grid_kernels.cu')
+            'volpath_common.cuh', 'volpath_grid_kernels.cu',
+            'sweep_kernels.cu')
 _UNITS = ('path_kernels', 'intersect_kernels', 'volpath_kernels',
-          'volpath_grid_kernels')  # one library per .cu
+          'volpath_grid_kernels', 'sweep_kernels')  # one library per .cu
 BUILD_DIR = Path(__file__).resolve().parent.parent / 'build' / \
     'lajolla_tpu_torch'
 NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
@@ -40,7 +44,8 @@ UNIT_FLAGS = {'volpath_grid_kernels': ('-fmad=false',)}
 # Kernel launches by kernel name; a wrapper adds one where it launches.
 LAUNCHES = {'render_fused': 0, 'advance': 0, 'intersect_brute': 0,
             'occluded_brute': 0, 'render_fused_vol': 0,
-            'render_fused_grid': 0}
+            'render_fused_grid': 0, 'sweep_resolve': 0,
+            'sweep_resident': 0, 'sweep_list': 0, 'sweep_streaming': 0}
 
 _libs = None
 
@@ -131,6 +136,14 @@ def _bind(libs):
         _I, _P, _P, _I, _I, ctypes.c_longlong, ctypes.c_uint32,
         ctypes.c_longlong, _I, _P, _P]
     grid.lj_render_fused_grid.restype = _I
+    sweep = libs['sweep_kernels']
+    sweep.lj_sweep_resident.argtypes = [_P] * 6 + [_I] * 6 + [_P] * 3
+    sweep.lj_sweep_resolve.argtypes = [_P] * 3 + [_I] * 2 + [_P] * 4
+    sweep.lj_sweep_list.argtypes = [_P] * 6 + [_I] * 5 + [_P] * 5
+    sweep.lj_sweep_streaming.argtypes = [_P] * 5 + [_I] * 5 + [_P] * 5
+    for fn in (sweep.lj_sweep_resident, sweep.lj_sweep_resolve,
+               sweep.lj_sweep_list, sweep.lj_sweep_streaming):
+        fn.restype = _I
 
 
 def build():
@@ -460,3 +473,161 @@ def occluded_brute(scene, o, d, tnear, tfar):
         raise RuntimeError(f"occluded_brute_kernel launch: CUDA error {rc}")
     LAUNCHES['occluded_brute'] += 1
     return occ
+
+
+# ---------------------------------------------------------------------------
+# K4-K7: the cluster-sweep casters (csrc/sweep_kernels.cu)
+# ---------------------------------------------------------------------------
+
+def _check16(t, name, shape, device):
+    """_check of a float32 tensor that a kernel reads as float4 (rays and
+    AABB rows of 8 floats, cluster rows of C floats)."""
+    ptr = _check(t, name, shape, torch.float32, device)
+    if ptr % 16:
+        raise ValueError(f"{name}: not 16-byte aligned")
+    return ptr
+
+
+def _sweep_rays(rays, device):
+    """Pointer of (Np, 8) rays [o, tnear, d, tfar]."""
+    return _check16(rays, 'rays', (rays.shape[0], 8), device)
+
+
+def _sweep_lists(rays, lane, aabb, counts, clist, tlist, device):
+    """(R, B, L, K, C, pointers) of a list sweep's arguments."""
+    f32, i32 = torch.float32, torch.int32
+    K, _, C = lane.shape
+    R, L = clist.shape
+    Np = rays.shape[0]
+    if R == 0 or Np % R:
+        raise ValueError(f"{Np} rays do not fill {R} blocks")
+    ptrs = [_sweep_rays(rays, device),
+            _check16(lane, 'sw_lane', (K, 16, C), device),
+            _check16(aabb, 'sw_aabb', (K, 8), device),
+            _check(counts, 'counts', (R,), i32, device),
+            _check(clist, 'clist', (R, L), i32, device),
+            _check(tlist, 'tlist', (R, L), f32, device)]
+    return R, Np // R, L, K, C, ptrs
+
+
+def _hit_outputs(n, device):
+    """(t, prim, u, v) outputs of n rays."""
+    return (torch.empty(n, dtype=torch.float32, device=device),
+            torch.empty(n, dtype=torch.int32, device=device),
+            torch.empty(n, dtype=torch.float32, device=device),
+            torch.empty(n, dtype=torch.float32, device=device))
+
+
+def sweep_resident(rays, lane, aabb, counts, clist, tlist, any_hit):
+    """Kernel K5: the front-to-back list sweep of blocks of rays over a
+    cluster table small enough to stay in the L2 cache. Arguments and
+    results as ops/intersect_sweep.sweep_resident_plain, which CPU
+    tensors run; CUDA tensors launch the kernel, anything else raises.
+    Returns (t (Np,) f32, kid (Np,) i32)."""
+    if rays.device.type == 'cpu':
+        from lajolla_tpu_torch.ops.intersect_sweep import sweep_resident_plain
+        return sweep_resident_plain(rays, lane, aabb, counts, clist, tlist,
+                                    any_hit)
+    from lajolla_tpu_torch.ops.intersect_sweep import GROUP
+    device = rays.device
+    R, B, L, K, C, ptrs = _sweep_lists(rays, lane, aabb, counts, clist,
+                                       tlist, device)
+    if K % GROUP:
+        raise ValueError(f"{K} clusters are no whole superclusters of {GROUP}")
+    lib = build()['sweep_kernels']
+    t = torch.empty(R * B, dtype=torch.float32, device=device)
+    kid = torch.empty(R * B, dtype=torch.int32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.lj_sweep_resident(*ptrs, R, B, L, C, GROUP, int(any_hit),
+                                   t.data_ptr(), kid.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"sweep_resident_kernel launch: CUDA error {rc}")
+    LAUNCHES['sweep_resident'] += 1
+    return t, kid
+
+
+def sweep_resolve(rays, kid, lane):
+    """Kernel K4: (prim i32, u, v) of each ray's hit, found again in its
+    winning cluster `kid` at the distance in the ray's tfar slot.
+    Arguments and results as ops/intersect_sweep.sweep_resolve_plain,
+    which CPU tensors run; CUDA tensors launch the kernel."""
+    if rays.device.type == 'cpu':
+        from lajolla_tpu_torch.ops.intersect_sweep import sweep_resolve_plain
+        return sweep_resolve_plain(rays, kid, lane)
+    device = rays.device
+    n = rays.shape[0]
+    K, _, C = lane.shape
+    ptrs = [_sweep_rays(rays, device),
+            _check(kid, 'kid', (n,), torch.int32, device),
+            _check(lane, 'sw_lane', (K, 16, C), torch.float32, device)]
+    lib = build()['sweep_kernels']
+    _, p, u, v = _hit_outputs(n, device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.lj_sweep_resolve(*ptrs, n, C, p.data_ptr(), u.data_ptr(),
+                                  v.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"sweep_resolve_kernel launch: CUDA error {rc}")
+    LAUNCHES['sweep_resolve'] += 1
+    return p, u, v
+
+
+def sweep_list(rays, lane, aabb, counts, clist, tlist, any_hit):
+    """Kernel K6: the list sweep over a cluster table of any size, each
+    listed cluster staged in shared memory, (t, prim i32, u, v) in one
+    pass. Arguments and results as ops/intersect_sweep.sweep_list_plain,
+    which CPU tensors run; CUDA tensors launch the kernel."""
+    if rays.device.type == 'cpu':
+        from lajolla_tpu_torch.ops.intersect_sweep import sweep_list_plain
+        return sweep_list_plain(rays, lane, aabb, counts, clist, tlist,
+                                any_hit)
+    device = rays.device
+    R, B, L, K, C, ptrs = _sweep_lists(rays, lane, aabb, counts, clist,
+                                       tlist, device)
+    if C % 4:
+        raise ValueError(f"cluster size {C}: K6 stages rows as float4")
+    lib = build()['sweep_kernels']
+    outs = _hit_outputs(R * B, device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.lj_sweep_list(*ptrs, R, B, L, C, int(any_hit),
+                               *[x.data_ptr() for x in outs], stream)
+    if rc != 0:
+        raise RuntimeError(f"sweep_list_kernel launch: CUDA error {rc}")
+    LAUNCHES['sweep_list'] += 1
+    return outs
+
+
+def sweep_streaming(rays, saabb, aabb, A, prim, any_hit):
+    """Kernel K7: every ray walks the superclusters in id order behind two
+    slab gates, over the row-major (K*C, 12) table. Arguments and results
+    as ops/intersect_sweep.sweep_streaming_plain, which CPU tensors run;
+    CUDA tensors launch the kernel."""
+    if rays.device.type == 'cpu':
+        from lajolla_tpu_torch.ops.intersect_sweep import \
+            sweep_streaming_plain
+        return sweep_streaming_plain(rays, saabb, aabb, A, prim, any_hit)
+    device = rays.device
+    f32 = torch.float32
+    n = rays.shape[0]
+    S, K = saabb.shape[0], aabb.shape[0]
+    if S == 0 or K % S or A.shape[0] % K:
+        raise ValueError(f"{K} clusters, {S} superclusters, {A.shape[0]} "
+                         "rows: no whole groups")
+    C = A.shape[0] // K
+    ptrs = [_sweep_rays(rays, device),
+            _check16(saabb, 'sw_saabb', (S, 8), device),
+            _check16(aabb, 'sw_aabb', (K, 8), device),
+            _check(A, 'sw_A', (K * C, 12), f32, device),
+            _check(prim, 'sw_prim', (K * C, 1), f32, device)]
+    lib = build()['sweep_kernels']
+    outs = _hit_outputs(n, device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.lj_sweep_streaming(*ptrs, n, S, K // S, C, int(any_hit),
+                                    *[x.data_ptr() for x in outs], stream)
+    if rc != 0:
+        raise RuntimeError(f"sweep_streaming_kernel launch: CUDA error {rc}")
+    LAUNCHES['sweep_streaming'] += 1
+    return outs

@@ -71,6 +71,14 @@ def _col(x, like):
     return x.reshape(-1, 1)
 
 
+def ray_bounds(o, tnear, tfar):
+    """Ray bounds, each a scalar or an (N,) tensor, as (N,) float32 tensors
+    on the rays' device."""
+    return tuple(x.to(torch.float32) if torch.is_tensor(x) else
+                 torch.full((o.shape[0],), float(x), dtype=torch.float32,
+                            device=o.device) for x in (tnear, tfar))
+
+
 def _woop_tuv(o, d, A, b):
     """Rays (N, 3) in every cast prim's unit space: A (3, 3T) Woop rows
     grouped [x | y | z], b (3T,). Returns (t, u, v, dz_ok), each (N, T)."""

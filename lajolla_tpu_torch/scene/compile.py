@@ -12,10 +12,15 @@ octo-packed trilinear rows (`volume_data`), the supervoxel majorant,
 empty-skip and minorant rows (`svox_data`) and, for the fused grid-media
 kernel's class, the mono density as a (Z*Y, X) array (`fp_grid`).
 
-Not yet ported (raises NotImplementedError, ROADMAP queue 1): scenes of
-BVH_MIN_TRIS triangles or more, which need the BVH and the binned
-cluster tables ("large-scene casting").
+Scenes of BVH_MIN_TRIS triangles or more get a SAH BVH (ops/bvh.py), cut
+into clusters of at most SWEEP_CLUSTER_TRIS triangles
+(ops/intersect_binned.build_clusters) and packed into the sweep casters'
+tables (ops/intersect_sweep.pack_sweep); their casts go to kernels K4-K7.
+Smaller scenes carry one-row placeholders of those tables. The host time
+of the three steps of the last compile is in BUILD_SECONDS.
 """
+
+import time
 
 import numpy as np
 import torch
@@ -27,9 +32,15 @@ from lajolla_tpu_torch.core.distribution import (build_alias, build_cdf_1d,
 from lajolla_tpu_torch.scene import types as T
 from lajolla_tpu_torch.scene.types import Scene, SceneMeta
 
-# At this many triangles lajolla_tpu switches from brute force to its BVH
-# and binned casters; the port has only the brute-force casts so far.
+# At this many triangles the casts switch from brute force (kernel K3) to
+# the BVH's clusters and the sweep casters (kernels K4-K7).
 BVH_MIN_TRIS = 192
+# Triangles per cluster: a multiple of 128, which the resident and list
+# sweep kernels' tables need (pack_sweep asserts it).
+SWEEP_CLUSTER_TRIS = 128
+# Host seconds of the last compile_scene: BVH build, cluster build, sweep
+# packing (zeros for a scene without a BVH).
+BUILD_SECONDS = dict(bvh=0.0, clusters=0.0, pack=0.0)
 
 # Parallelogram cast-merge (lajolla_tpu/scene/compile.py). False = cast
 # tables carry raw triangles; the kernels' has_quads=False branch.
@@ -139,6 +150,65 @@ def _merge_parallelograms(vertices, indices, num_tris):
         alt[ta] = tb
         consumed[tb] = True
     return alt, consumed
+
+
+def bvh_tables(bvh, p0, e1, e2, num_tris, use_binned):
+    """The Scene's bvh_*, cl_* and sw_* arrays from a threaded BVH (the
+    dict ops.bvh.build_bvh returns) and the (T, 3) triangle arrays:
+    clusters and sweep tables where use_binned, one-row placeholders
+    otherwise, and the merged node (N, 9) and leaf-triangle (T, 10)
+    tables of the BVH traversal."""
+    from lajolla_tpu_torch.ops.intersect_binned import build_clusters
+    from lajolla_tpu_torch.ops.intersect_sweep import pack_sweep
+    if use_binned:
+        t0 = time.perf_counter()
+        cl = build_clusters(bvh, p0.astype(np.float32),
+                            e1.astype(np.float32), e2.astype(np.float32),
+                            max_tris=SWEEP_CLUSTER_TRIS)
+        t1 = time.perf_counter()
+        sw = pack_sweep(cl)
+        BUILD_SECONDS.update(clusters=t1 - t0,
+                             pack=time.perf_counter() - t1)
+    else:
+        cl = dict(cl_lo=np.zeros((1, 3), np.float32),
+                  cl_hi=np.zeros((1, 3), np.float32),
+                  cl_A=np.zeros((1, 3, 3), np.float32),
+                  cl_b=np.zeros((1, 3), np.float32),
+                  cl_prim=np.full((1, 1), -1, np.int32))
+        sw = dict(sw_A=np.zeros((1, 12), np.float32),
+                  sw_prim=np.full((1, 1), -1.0, np.float32),
+                  sw_lane=np.zeros((1, 16, 1), np.float32),
+                  sw_aabb=np.zeros((1, 8), np.float32),
+                  sw_saabb=np.zeros((1, 8), np.float32))
+        BUILD_SECONDS.update(clusters=0.0, pack=0.0)
+
+    # merged BVH tables: ONE wide gather per node visit / leaf triangle
+    nb = bvh['lo'].shape[0]
+    bvh_node = np.zeros((nb, 9), np.float32)
+    bvh_node[:, 0:3] = bvh['lo']
+    bvh_node[:, 3:6] = bvh['hi']
+    bvh_node[:, 6] = bvh['first']
+    bvh_node[:, 7] = bvh['count']
+    bvh_node[:, 8] = bvh['skip']
+    perm = bvh['prim']
+    ntl = max(len(perm), 1)
+    bvh_leaf_tri = np.zeros((ntl, 10), np.float32)
+    if num_tris > 0 and len(perm) > 0:
+        bvh_leaf_tri[:, 0:3] = p0[perm]
+        bvh_leaf_tri[:, 3:6] = e1[perm]
+        bvh_leaf_tri[:, 6:9] = e2[perm]
+        bvh_leaf_tri[:, 9] = perm
+    return dict(
+        bvh_lo=_f32(bvh['lo']), bvh_hi=_f32(bvh['hi']),
+        bvh_first=_i32(bvh['first']), bvh_count=_i32(bvh['count']),
+        bvh_skip=_i32(bvh['skip']), bvh_prim=_i32(bvh['prim']),
+        bvh_node=bvh_node, bvh_leaf_tri=bvh_leaf_tri,
+        cl_lo=_f32(cl['cl_lo']), cl_hi=_f32(cl['cl_hi']),
+        cl_A=_f32(cl['cl_A']), cl_b=_f32(cl['cl_b']),
+        cl_prim=_i32(cl['cl_prim']),
+        sw_A=_f32(sw['sw_A']), sw_prim=_f32(sw['sw_prim']),
+        sw_lane=_f32(sw['sw_lane']),
+        sw_aabb=_f32(sw['sw_aabb']), sw_saabb=_f32(sw['sw_saabb']))
 
 
 def compile_scene(b):
@@ -329,10 +399,21 @@ def compile_scene(b):
 
     # ------------------------------------------------------------------ BVH
     use_bvh = num_tris >= BVH_MIN_TRIS
+    from lajolla_tpu_torch.ops.bvh import build_bvh, empty_bvh
+    t_bvh = time.perf_counter()
     if use_bvh:
-        raise NotImplementedError(
-            f"{num_tris} triangles need the BVH / binned casters, which are "
-            "not yet ported (ROADMAP queue 1: large-scene casting)")
+        tri_lo = np.minimum(np.minimum(p0, p0 + e1), p0 + e2)
+        tri_hi = np.maximum(np.maximum(p0, p0 + e1), p0 + e2)
+        bvh = build_bvh(tri_lo.astype(np.float32), tri_hi.astype(np.float32))
+    else:
+        bvh = empty_bvh(max(num_tris, 1))
+    t_bvh = time.perf_counter() - t_bvh
+
+    # The cluster casters serve every scene with a BVH. They cast the
+    # ORIGINAL triangles: no quad merge, no occluder subset.
+    use_binned = use_bvh
+    tables = bvh_tables(bvh, p0, e1, e2, num_tris, use_binned)
+    BUILD_SECONDS.update(bvh=t_bvh if use_bvh else 0.0)
 
     # ------------------------------------------------------------------ materials
     nm = max(len(b.materials), 1)
@@ -853,9 +934,9 @@ def compile_scene(b):
         height=cam.height,
         camera_medium_id=cam.medium_id,
         scene_radius=radius,
-        use_bvh=False,
-        bvh_depth=1,
-        use_binned=False,
+        use_bvh=use_bvh,
+        bvh_depth=int(bvh['n_nodes']),
+        use_binned=use_binned,
         has_image_textures=any(td.kind == T.TEX_IMAGE for td in b.texdescs),
         texture_types_present=tex_present,
         needs_uv=any(td.kind != T.TEX_CONSTANT for td in b.texdescs),
@@ -893,6 +974,7 @@ def compile_scene(b):
         cast_quad=_f32(cast_quad), cast_occ_quad=_f32(cast_occ_quad),
         sph_center=_f32(sph_center), sph_radius=_f32(sph_radius),
         sph_shape=_i32(sph_shape),
+        **tables,
         fp_woop=_f32(fp_woop), fp_woop_occ=_f32(fp_woop_occ),
         fp_tri=_f32(fp_tri), fp_light=_f32(fp_light),
         fp_sph=_f32(fp_sph),

@@ -4,10 +4,11 @@ rays.
 Port of lajolla_tpu/scene/geometry.py: intersect()/occluded() +
 compute_shading_info (src/intersection.cpp:7-85,
 shapes/triangle_mesh.inl:65-157, shapes/sphere.inl:235-260). The
-triangle casts are kernel K3 (kernels.intersect_brute /
-kernels.occluded_brute: the CUDA kernel for CUDA tensors, the plain form
-for CPU tensors); spheres are brute force in torch; shading info is
-gathers. Every function takes (N, 3) rays and returns lane-major fields.
+triangle casts of a scene below 192 triangles are kernel K3
+(kernels.intersect_brute / kernels.occluded_brute), those of a larger one
+the cluster sweeps K4-K7 (ops/intersect_sweep.py): the CUDA kernels for
+CUDA tensors, the plain forms for CPU tensors; spheres are brute force in
+torch; shading info is gathers. Every function takes (N, 3) rays and returns lane-major fields.
 """
 
 from typing import NamedTuple
@@ -18,6 +19,8 @@ from lajolla_tpu_torch import kernels
 from lajolla_tpu_torch.core.math import (coordinate_system, cross, dot,
                                          length, normalize)
 from lajolla_tpu_torch.ops.intersect import INF, brute_force_spheres
+from lajolla_tpu_torch.ops.intersect_sweep import (intersect_sweep,
+                                                   occluded_sweep)
 from lajolla_tpu_torch.scene.soa import fetch_shape, fetch_tri
 
 TWO_PI = 6.283185307179586
@@ -45,16 +48,12 @@ class Hit(NamedTuple):
     exterior_med: torch.Tensor
 
 
-def _no_large_scenes(meta):
-    if meta.use_bvh or meta.use_binned:
-        raise NotImplementedError(
-            "BVH / binned casts are not yet ported (ROADMAP queue 1: "
-            "large-scene casting)")
-
-
 def intersect_triangles(scene, o, d, tnear, tfar):
-    """Closest triangle hit (t, prim, u, v) per ray: kernel K3."""
-    _no_large_scenes(scene.meta)
+    """Closest triangle hit (t, prim, u, v) per ray: the cluster sweeps
+    (kernels K5 + K4, K6 or K7) for a scene with cluster tables, else
+    kernel K3."""
+    if scene.meta.use_binned:
+        return intersect_sweep(scene, o, d, tnear, tfar)
     return kernels.intersect_brute(scene, o, d, tnear, tfar)
 
 
@@ -249,9 +248,12 @@ def hit_from_cast(scene, o, d, raw, ray_radius=0.0, ray_spread=0.0,
 
 def occluded(scene, o, d, tnear, tfar):
     """Shadow-ray test (intersection.cpp:67-85): (N,) bool. The triangle
-    any-hit is kernel K3."""
-    _no_large_scenes(scene.meta)
-    occ = kernels.occluded_brute(scene, o, d, tnear, tfar)
+    any-hit is the cluster sweeps' for a scene with cluster tables, else
+    kernel K3's."""
+    if scene.meta.use_binned:
+        occ = occluded_sweep(scene, o, d, tnear, tfar)
+    else:
+        occ = kernels.occluded_brute(scene, o, d, tnear, tfar)
     if scene.meta.num_spheres > 0:
         _, sph = brute_force_spheres(scene, o, d, tnear, tfar)
         occ = occ | (sph >= 0)

@@ -144,10 +144,7 @@ class RenderOptions:
 
 @dataclass
 class Scene:
-    """Compiled scene: every field but `meta` is a torch tensor.
-
-    The BVH, cluster and sweep tables of lajolla_tpu's Scene are absent:
-    scene/compile.py raises for scenes that need them."""
+    """Compiled scene: every field but `meta` is a torch tensor."""
     # --- geometry ---------------------------------------------------------
     vertices: Any        # (V,3) f32
     normals: Any         # (V,3) f32 shading normals (geometric fallback filled in)
@@ -168,6 +165,28 @@ class Scene:
     sph_center: Any      # (S,3) f32
     sph_radius: Any      # (S,) f32
     sph_shape: Any       # (S,) i32
+
+    # --- BVH over triangles (threaded/stackless layout) --------------------
+    bvh_lo: Any          # (N,3) f32 node AABB min
+    bvh_hi: Any          # (N,3) f32 node AABB max
+    bvh_first: Any       # (N,) i32: inner → hit-link (first child); leaf → first prim
+    bvh_count: Any       # (N,) i32: 0 inner, >0 = leaf prim count
+    bvh_skip: Any        # (N,) i32 miss-link (next node if AABB missed / leaf done)
+    bvh_prim: Any        # (T,) i32 permutation leaf-slot → triangle index
+    bvh_node: Any        # (N, 9) f32 merged [lo(3) hi(3) first count skip]
+    bvh_leaf_tri: Any    # (T, 10) f32 leaf-order [p0 e1 e2 prim] (Moller data)
+
+    # --- cluster casters (large scenes; ops/intersect_binned, intersect_sweep)
+    cl_lo: Any           # (K, 3) f32 cluster AABBs
+    cl_hi: Any           # (K, 3) f32
+    cl_A: Any            # (K, 3, 3C) f32 dense Woop transform blocks
+    cl_b: Any            # (K, 3C) f32
+    cl_prim: Any         # (K, C) i32 triangle ids (-1 pad)
+    sw_A: Any            # (K*C, 12) f32 sweep-kernel Woop rows
+    sw_prim: Any         # (K*C, 1) f32 global tri ids (-1 pad)
+    sw_lane: Any         # (K, 16, C) f32 lane-major Woop + prim table (padded)
+    sw_aabb: Any         # (K, 8) f32 cluster [lo3 hi3 0 0]
+    sw_saabb: Any        # (K/G, 8) f32 supercluster AABBs (sweep gate)
 
     # --- diffuse fast-path tables (integrators/path_kernel.py) --------------
     fp_woop: Any         # (Tc, 12) f32 [Ax(4) Ay(4) Az(4)], CAST space

@@ -21,7 +21,11 @@ general volumetric engine. Its heterogeneous variants ("hetvol",
 "hetvol_hg", "hetvol_smooth") put a grid medium, read from a .vol file
 that `write_vol` writes, inside a BSDF-less cube in a vacuum room: the
 first two lie inside volpath_grid_kernel.supports (kernel K9), the smooth
-one takes the general engine's event machine.
+one takes the general engine's event machine. Its "mesh" variant replaces
+the short box by a RoughPlastic displaced sphere of a chosen triangle
+count (`displaced_sphere`, written as mesh.obj by `write_obj`): from 192
+triangles on the scene compiles a BVH and cluster tables and its casts go
+to the cluster sweeps, kernels K4-K7.
 """
 
 import os
@@ -208,7 +212,13 @@ CBOX_GLASS_SHAPES = {'floor': 'checker', 'short_box': 'plastic',
 # The floor's OBJ texture coordinates (`vt` lines); the loader flips v.
 CBOX_FLOOR_VT = ((0.0, 0.0), (0.0, 1.0), (1.0, 1.0), (1.0, 0.0))
 CBOX_VARIANTS = (None, 'glass', 'vol', 'vol_hg', 'vol_glass', 'hetvol',
-                 'hetvol_hg', 'hetvol_smooth')
+                 'hetvol_hg', 'hetvol_smooth', 'mesh')
+# The mesh variant: a displaced sphere ('mesh', RoughPlastic) where the
+# short box stands. MESH_TRIANGLES is its default triangle count (the
+# nearest count a latitude-longitude grid gives is used).
+MESH_TRIANGLES = 440
+MESH_SPHERE = dict(center=(0.35, -0.66, 0.3), radius=0.3, amplitude=0.1,
+                   waves=6, seed=77)
 
 # The volumetric variants' medium 0, around and inside the room. Its
 # coefficients are chromatic so that the free flight's channel pick and
@@ -289,6 +299,70 @@ def _is_vol(variant):
     return variant in ('vol', 'vol_hg', 'vol_glass') + HETVOL_VARIANTS
 
 
+def displaced_sphere(triangles=MESH_TRIANGLES):
+    """(positions (V, 3), indices (T, 3) int32, uvs (V, 2)) of the mesh
+    variant's sphere: a latitude-longitude grid of n rings and 2n
+    meridians with shared vertices and one vertex per pole, T = 4n(n - 1)
+    triangles with n the count nearest `triangles`, wound outward. Each
+    vertex is pushed along its direction by MESH_SPHERE['waves'] plane
+    waves over the sphere with numpy-seeded directions, frequencies and
+    phases, so the surface is smooth, closed and nowhere flat. Vertices
+    are numbered in the order the faces first name them, which is the
+    order an OBJ reader gives them."""
+    n = max(3, int(round(0.5 + np.sqrt(0.25 + triangles / 4.0))))
+    m = 2 * n
+    ms = MESH_SPHERE
+    rng = np.random.default_rng(ms['seed'])
+    k = rng.normal(size=(ms['waves'], 3))
+    k *= rng.uniform(2.0, 7.0, ms['waves'])[:, None] / \
+        np.linalg.norm(k, axis=1, keepdims=True)
+    phase = rng.uniform(0.0, 2.0 * np.pi, ms['waves'])
+    theta = np.concatenate([[0.0], np.repeat(np.arange(1, n) * np.pi / n, m),
+                            [np.pi]])
+    phi = np.concatenate([[0.0], np.tile(np.arange(m) * 2.0 * np.pi / m,
+                                         n - 1), [0.0]])
+    dirs = np.stack([np.sin(theta) * np.cos(phi), np.cos(theta),
+                     np.sin(theta) * np.sin(phi)], axis=1)
+    bump = np.sin(dirs @ k.T + phase).mean(axis=1)
+    pos = np.asarray(ms['center']) + \
+        ms['radius'] * (1.0 + ms['amplitude'] * bump)[:, None] * dirs
+    ring = lambda r: 1 + (r - 1) * m + np.arange(m)      # ring r = 1..n-1
+    nxt = lambda a: np.roll(a, -1)
+    top, bottom = np.zeros(m, np.int64), np.full(m, 1 + (n - 1) * m)
+    tris = [np.stack([top, nxt(ring(1)), ring(1)], axis=1)]
+    for r in range(1, n - 1):
+        a, b = ring(r), ring(r + 1)
+        quad = np.stack([np.stack([a, nxt(b), b], axis=1),
+                         np.stack([a, nxt(a), nxt(b)], axis=1)], axis=1)
+        tris.append(quad.reshape(-1, 3))
+    tris.append(np.stack([ring(n - 1), nxt(ring(n - 1)), bottom], axis=1))
+    uvs = np.stack([phi / (2.0 * np.pi), theta / np.pi], axis=1)
+    idx = np.concatenate(tris).astype(np.int32)
+    # number the vertices by first appearance in the faces
+    _, first = np.unique(idx.reshape(-1), return_index=True)
+    order = idx.reshape(-1)[np.sort(first)]
+    rank = np.empty(len(pos), np.int64)
+    rank[order] = np.arange(len(order))
+    return pos[order], rank[idx].astype(np.int32), uvs[order]
+
+
+def write_obj(path, positions, indices, uvs=None):
+    """Write a triangle mesh as Wavefront OBJ: `v` lines, `vt` lines where
+    uvs (V, 2) is given (io/obj.load_obj flips their v), `f` lines of
+    1-based `i` or `i/i` corners. Coordinates are written with repr, so
+    load_obj reads back the same float64 values; it computes smooth
+    normals itself."""
+    with open(path, 'w') as f:
+        f.write(''.join('v ' + ' '.join(repr(float(x)) for x in p) + '\n'
+                        for p in positions))
+        if uvs is not None:
+            f.write(''.join('vt ' + ' '.join(repr(float(x)) for x in t) +
+                            '\n' for t in uvs))
+        corner = '{0}/{0}' if uvs is not None else '{0}'
+        f.write(''.join('f ' + ' '.join(corner.format(i + 1) for i in tri) +
+                        '\n' for tri in indices.tolist()))
+
+
 def _shape_material(variant, name, mat):
     """The material name of shape `name` in `variant` (None: no BSDF)."""
     if variant == 'glass':
@@ -307,8 +381,13 @@ def _film(res):
 
 def _variant_shapes(variant):
     """_cbox_shapes, with the tall box replaced by the heterogeneous
-    variants' closed cube ('cube', no BSDF, six outward-wound faces)."""
+    variants' closed cube ('cube', no BSDF, six outward-wound faces), or
+    the short box by the mesh variant's sphere ('mesh', RoughPlastic,
+    quads None: its triangles come from displaced_sphere)."""
     shapes = _cbox_shapes()
+    if variant == 'mesh':
+        return [('mesh', 'plastic', None, False) if shape[0] == 'short_box'
+                else shape for shape in shapes]
     if variant not in HETVOL_VARIANTS:
         return shapes
     c = np.asarray(HETVOL_CUBE['center'], np.float64)
@@ -405,14 +484,16 @@ def _hetvol_medium(b, variant, grid_res):
         g=0.0 if g_hg is None else g_hg))
 
 
-def cornell_box_builder(res, spp=4, variant=None, grid_res=HETVOL_GRID_RES):
+def cornell_box_builder(res, spp=4, variant=None, grid_res=HETVOL_GRID_RES,
+                        triangles=MESH_TRIANGLES):
     """The Cornell box as a SceneBuilder — the same scene the parser
     builds from write_cornell_box_xml. res: the film, one size or (width,
     height). variant='glass' gives the glass Cornell box
     (CBOX_GLASS_SHAPES); 'vol', 'vol_hg' and 'vol_glass' the homogeneous
     volumetric variants (CBOX_MEDIUM, CBOX_VOL_GLASS_SHAPES); 'hetvol',
     'hetvol_hg' and 'hetvol_smooth' the heterogeneous ones (HETVOL_*),
-    with a density grid of grid_res = (X, Y, Z) nodes."""
+    with a density grid of grid_res = (X, Y, Z) nodes; 'mesh' the
+    displaced sphere of about `triangles` triangles (MESH_SPHERE)."""
     _check_variant(variant)
     vol = _is_vol(variant)
     het = variant in HETVOL_VARIANTS
@@ -443,12 +524,17 @@ def cornell_box_builder(res, spp=4, variant=None, grid_res=HETVOL_GRID_RES):
         b.materials.append(m)
     if variant in ('glass', 'vol_glass'):
         _glass_materials(b, mat_ids)
-    elif het:
+    elif het or variant == 'mesh':
         _plastic_material(b, mat_ids)
     for name, mat, quads, emitter in _variant_shapes(variant):
-        pos, idx = _quads_mesh(quads)
+        if quads is None:
+            pos, idx, uvs = displaced_sphere(triangles)
+        else:
+            (pos, idx), uvs = _quads_mesh(quads), None
         mesh = MeshB(positions=pos, indices=idx,
                      normals=_compute_smooth_normals(pos, idx))
+        if uvs is not None:     # as load_obj reads write_obj's `vt` lines
+            mesh.uvs = np.stack([uvs[:, 0], 1.0 - uvs[:, 1]], axis=1)
         mat = _shape_material(variant, name, mat)
         if mat == 'checker':
             mesh.uvs = np.array([(u, 1.0 - v) for u, v in CBOX_FLOOR_VT])
@@ -469,8 +555,10 @@ def cornell_box_builder(res, spp=4, variant=None, grid_res=HETVOL_GRID_RES):
     return b
 
 
-def make_cornell_box(res, spp=4, variant=None, grid_res=HETVOL_GRID_RES):
-    return compile_scene(cornell_box_builder(res, spp, variant, grid_res))
+def make_cornell_box(res, spp=4, variant=None, grid_res=HETVOL_GRID_RES,
+                     triangles=MESH_TRIANGLES):
+    return compile_scene(cornell_box_builder(res, spp, variant, grid_res,
+                                             triangles))
 
 
 def _ior_xml():
@@ -550,11 +638,11 @@ def _media_xml(variant, fmt):
 
 
 def write_cornell_box_xml(directory, res, spp, variant=None,
-                          grid_res=HETVOL_GRID_RES):
+                          grid_res=HETVOL_GRID_RES, triangles=MESH_TRIANGLES):
     """Write the Cornell box as Mitsuba XML (cbox.xml) plus one OBJ file
     per shape into `directory` (and, for the heterogeneous variants, the
-    density grid as density.vol); returns the XML path. res, variant and
-    grid_res as cornell_box_builder takes them."""
+    density grid as density.vol); returns the XML path. res, variant,
+    grid_res and triangles as cornell_box_builder takes them."""
     _check_variant(variant)
     vol = _is_vol(variant)
     het = variant in HETVOL_VARIANTS
@@ -592,22 +680,27 @@ def write_cornell_box_xml(directory, res, spp, variant=None,
                   '  </bsdf>']
     if variant in ('glass', 'vol_glass'):
         lines += _glass_xml(fmt)
-    elif het:
+    elif het or variant == 'mesh':
         lines += _plastic_xml(fmt)
     for name, mat, quads, emitter in _variant_shapes(variant):
         mat = _shape_material(variant, name, mat)
         uv = mat == 'checker'
-        with open(os.path.join(directory, f'{name}.obj'), 'w') as f:
-            for qd in quads:
-                for p in qd:
-                    f.write('v ' + ' '.join(repr(float(x)) for x in p) + '\n')
-            if uv:
-                for t in CBOX_FLOOR_VT:
-                    f.write('vt ' + ' '.join(repr(x) for x in t) + '\n')
-            for k in range(len(quads)):
-                c = range(4 * k + 1, 4 * k + 5)
-                f.write('f ' + ' '.join(f'{i}/{i}' if uv else f'{i}'
-                                        for i in c) + '\n')
+        obj_path = os.path.join(directory, f'{name}.obj')
+        if quads is None:
+            write_obj(obj_path, *displaced_sphere(triangles))
+        else:
+            with open(obj_path, 'w') as f:
+                for qd in quads:
+                    for p in qd:
+                        f.write('v ' + ' '.join(repr(float(x)) for x in p) +
+                                '\n')
+                if uv:
+                    for t in CBOX_FLOOR_VT:
+                        f.write('vt ' + ' '.join(repr(x) for x in t) + '\n')
+                for k in range(len(quads)):
+                    c = range(4 * k + 1, 4 * k + 5)
+                    f.write('f ' + ' '.join(f'{i}/{i}' if uv else f'{i}'
+                                            for i in c) + '\n')
         lines += ['  <shape type="obj">',
                   f'    <string name="filename" value="{name}.obj"/>']
         if mat is not None:
@@ -911,15 +1004,41 @@ GENERAL_STATE = ('item', 'nv', 'org', 'd', 'spread', 'radius', 'T', 'L',
                  'eta_scale', 'dir_pdf', 'prev_pos', 'done')
 
 
-def general_rays(scene, seed=0):
+def repack_clusters(scene, max_tris):
+    """`scene` with its cluster and sweep tables rebuilt from its BVH at
+    `max_tris` triangles per cluster. A size off the 128 grid (which
+    compile_scene never makes) sends the scene's casts to the streaming
+    sweep, kernel K7."""
+    import dataclasses
+
+    import torch
+
+    from lajolla_tpu_torch.ops.intersect_binned import build_clusters
+    from lajolla_tpu_torch.ops.intersect_sweep import pack_sweep
+
+    def host(x):
+        return x.cpu().numpy()
+    bvh = {k: host(getattr(scene, 'bvh_' + k))
+           for k in ('lo', 'hi', 'first', 'count', 'skip', 'prim')}
+    cl = build_clusters(bvh, host(scene.tri_p0), host(scene.tri_e1),
+                        host(scene.tri_e2), max_tris=max_tris)
+    cl.pop('n_clusters')
+    tables = {**cl, **pack_sweep(cl, aligned=False)}
+    dev = scene.tri_shade.device
+    return dataclasses.replace(scene, **{
+        k: torch.from_numpy(v).to(dev) for k, v in tables.items()})
+
+
+def general_rays(scene, seed=0, device='cpu'):
     """The rays the general engine casts on the first vertices of a
     render of `scene` (one per pixel, on the scene's device), for holding
-    the casts (kernel K3) against their plain forms: the camera rays of
+    the casts (kernels K3-K7) against their plain forms: the camera rays of
     sample 0, the bounce rays the first vertex samples (the camera ray
     where that path ended) and shadow rays from the first hits to points
     sampled on the lights (numpy uniforms from `seed`), with their tfar.
-    Made on the CPU, where the casts run their plain forms, and moved to
-    the scene's device. Returns dict of (o, d, tnear, tfar)."""
+    Made on `device` (by default the CPU, where the casts run their plain
+    forms) and moved to the scene's device. Returns dict of
+    (o, d, tnear, tfar)."""
     import torch
 
     from lajolla_tpu_torch.dtypes import intersection_eps, shadow_eps
@@ -927,16 +1046,17 @@ def general_rays(scene, seed=0):
     from lajolla_tpu_torch.integrators import path as P
 
     dev = scene.tri_shade.device
-    scene = scene.to('cpu')
+    scene = scene.to(device)
+    on_dev = dict(device=device)
     meta = scene.meta
     n = meta.width * meta.height
     opts = RenderOptions()
-    item = torch.arange(n)
+    item = torch.arange(n, **on_dev)
     _, org, d = P._primary_hash(scene, opts, item, seed)
-    z = torch.zeros(n)
-    st = (item, torch.full((n,), 2), org, d, z + 1e-3, z, torch.ones((n, 3)),
-          torch.zeros((n, 3)), z + 1.0, z, org,
-          torch.zeros(n, dtype=torch.bool))
+    z = torch.zeros(n, **on_dev)
+    st = (item, torch.full((n,), 2, **on_dev), org, d, z + 1e-3, z,
+          torch.ones((n, 3), **on_dev), torch.zeros((n, 3), **on_dev),
+          z + 1.0, z, org, torch.zeros(n, dtype=torch.bool, **on_dev))
     nst, died = P._advance_lane(scene, opts, st,
                                 P._vertex_uniforms(item, st[1], seed).T)
     on = ~died[:, None]
@@ -944,7 +1064,7 @@ def general_rays(scene, seed=0):
     b_dir = torch.where(on, nst[3], d)
 
     rng = np.random.default_rng(seed)
-    u = torch.from_numpy(rng.random((n, 4)).astype(np.float32))
+    u = torch.from_numpy(rng.random((n, 4)).astype(np.float32)).to(device)
     lp = lights.sample_point_on_light(
         scene, lights.sample_light(scene, u[:, 2]), b_org, u[:, 0:2],
         u[:, 3])
@@ -955,7 +1075,7 @@ def general_rays(scene, seed=0):
     s_dir = torch.where(on, to_l / dist[:, None].clamp(min=1e-20), d)
     s_far = torch.where(on[:, 0], (1.0 - eps_s) * dist, float('inf'))
     eps_i = intersection_eps(meta.scene_radius)
-    inf = torch.full((n,), float('inf'))
+    inf = torch.full((n,), float('inf'), **on_dev)
     rays = dict(camera=(org, d, z + eps_i, inf),
                 bounce=(b_org, b_dir, z + eps_i, inf),
                 shadow=(s_org, s_dir, z + eps_s, s_far))

@@ -20,8 +20,8 @@ def _chip_smoke():
     return mod
 
 
-# An abridged nvcc -Xptxas -v log of four libraries, six kernels, two
-# instantiations of one of them.
+# An abridged nvcc -Xptxas -v log of five libraries, ten kernels, two
+# instantiations of two of them.
 PTXAS_LOG = """\
 ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119render_fused_kernelILi1ELb0ELb0EEEvN2lj6TablesENS0_6CameraEiijxiPf' for 'sm_90a'
@@ -53,6 +53,27 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_124render_fused_grid_k
 ptxas info    : Function properties for _ZN12_GLOBAL__N_124render_fused_grid_kernelILi3ELb1ELb0ELb1EEEvN2lj6TablesENS1_6CameraENS1_10GridMediumENS1_8VolSaltsEPKfS9_ixjxiPf
     0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
 ptxas info    : Used 128 registers, used 1 barriers, 4096 bytes smem
+ptxas info    : 0 bytes gmem
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121sweep_resident_kernelILb0EEEvPKfS2_S2_PKiS4_S2_iiiPfPi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_121sweep_resident_kernelILb0EEEvPKfS2_S2_PKiS4_S2_iiiPfPi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 48 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_121sweep_resident_kernelILb1EEEvPKfS2_S2_PKiS4_S2_iiiPfPi' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_121sweep_resident_kernelILb1EEEvPKfS2_S2_PKiS4_S2_iiiPfPi
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_120sweep_resolve_kernelEPKfPKiS1_iiPiPfS5_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_120sweep_resolve_kernelEPKfPKiS1_iiPiPfS5_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 40 registers, used 0 barriers
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_117sweep_list_kernelILb0EEEvPKfS2_S2_PKiS4_S2_iiPfPiS5_S5_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_117sweep_list_kernelILb0EEEvPKfS2_S2_PKiS4_S2_iiPfPiS5_S5_
+    16 bytes stack frame, 12 bytes spill stores, 12 bytes spill loads
+ptxas info    : Used 40 registers, used 1 barriers, 16 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_122sweep_streaming_kernelILb0EEEvPKfS2_S2_S2_S2_iiiiPfPiS3_S3_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_122sweep_streaming_kernelILb0EEEvPKfS2_S2_S2_S2_iiiiPfPiS3_S3_
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 48 registers, used 0 barriers
 """
 
 
@@ -64,7 +85,11 @@ def test_ptxas_summary_keys_each_kernel():
         "plain_c_kernel: <= 12 registers, <= 0 B spill stores; "
         "render_fused_grid_kernel: <= 128 registers, <= 0 B spill stores; "
         "render_fused_kernel: <= 80 registers, <= 44 B spill stores; "
-        "render_fused_vol_kernel: <= 96 registers, <= 8 B spill stores")
+        "render_fused_vol_kernel: <= 96 registers, <= 8 B spill stores; "
+        "sweep_list_kernel: <= 40 registers, <= 12 B spill stores; "
+        "sweep_resident_kernel: <= 48 registers, <= 0 B spill stores; "
+        "sweep_resolve_kernel: <= 40 registers, <= 0 B spill stores; "
+        "sweep_streaming_kernel: <= 48 registers, <= 0 B spill stores")
 
 
 @pytest.mark.parametrize('symbol,name', [
@@ -76,10 +101,38 @@ def test_ptxas_summary_keys_each_kernel():
     ('_ZN12_GLOBAL__N_124render_fused_grid_kernelILi1ELb0ELb0ELb0EEEvN2lj6'
      'TablesENS1_6CameraENS1_10GridMediumENS1_8VolSaltsEPKfS9_ixjxiPf',
      'render_fused_grid_kernel'),
+    ('_ZN12_GLOBAL__N_121sweep_resident_kernelILb1EEEvPKfS2_S2_PKiS4_S2_'
+     'iiiPfPi', 'sweep_resident_kernel'),
+    ('_ZN12_GLOBAL__N_120sweep_resolve_kernelEPKfPKiS1_iiPiPfS5_',
+     'sweep_resolve_kernel'),
+    ('_ZN12_GLOBAL__N_117sweep_list_kernelILb0EEEvPKfS2_S2_PKiS4_S2_iiPfPi'
+     'S5_S5_', 'sweep_list_kernel'),
+    ('_ZN12_GLOBAL__N_122sweep_streaming_kernelILb1EEEvPKfS2_S2_S2_S2_iiii'
+     'PfPiS3_S3_', 'sweep_streaming_kernel'),
     ('_Z13simple_kernelPf', 'simple_kernel'),
     ('lj_unmangled', 'lj_unmangled')])
 def test_kernel_name_demangles(symbol, name):
     assert _chip_smoke().kernel_name(symbol) == name
+
+
+@pytest.mark.parametrize('wrapper,body', [
+    ('sweep_resolve', '_kernel_resolve'), ('sweep_resident', '_kernel_res'),
+    ('sweep_list', '_kernel_lane'), ('sweep_streaming', '_kernel')])
+def test_sweep_entries_name_their_tpu_kernels(wrapper, body):
+    """The `kernels` line's entries for K4-K7: each `replaces` points at
+    the `def` of its Pallas kernel body, each wrapper has its launch
+    counter, and the CUDA source holds an entry point of that name."""
+    from lajolla_tpu_torch import kernels
+    mod = _chip_smoke()
+    path, line = mod.SWEEP_REPLACES[wrapper].split(':')
+    with open(os.path.join(REPO, path)) as f:
+        text = f.readlines()[int(line) - 1]
+    assert text.startswith(f'def {body}('), text
+    assert kernels.LAUNCHES[wrapper] == 0
+    with open(os.path.join(REPO, mod.SWEEP_SOURCE)) as f:
+        source = f.read()
+    assert f'\n{wrapper}_kernel(' in source
+    assert f'int lj_{wrapper}(' in source
 
 
 def test_exits_nonzero_without_a_gpu(tmp_path):

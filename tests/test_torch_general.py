@@ -55,6 +55,17 @@ VERTEX_TOL = dict(org=(1e-4, 1e-5), d=(1e-4, 1e-4), spread=(1e-4, 1e-5),
                   eta_scale=(1e-4, 1e-5), dir_pdf=(1e-2, 1e-5))
 
 
+@pytest.fixture(scope='module', autouse=True)
+def one_thread():
+    """One intra-op torch thread: these tests run many small torch ops,
+    which threads do not speed up, and the suite runs its files in
+    parallel workers that would otherwise contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.mark.parametrize('fixture', list(FIXTURES))
 def test_advance_lane_matches_jax(fixture):
     js = JC.compile_scene(FIXTURES[fixture]())

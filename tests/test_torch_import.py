@@ -21,11 +21,18 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     'lajolla_tpu_torch.integrators.volpath',
     'lajolla_tpu_torch.integrators.volpath_kernel',
     'lajolla_tpu_torch.integrators.volpath_grid_kernel',
+    'lajolla_tpu_torch.ops.bvh',
+    'lajolla_tpu_torch.ops.intersect_binned',
+    'lajolla_tpu_torch.ops.intersect_sweep',
+    'lajolla_tpu_torch.scene.compile',
+    'lajolla_tpu_torch.scene.geometry',
 ])
 def test_import_pulls_in_no_jax(module, tmp_path):
     code = (f"import importlib, sys; importlib.import_module({module!r}); "
             "assert 'jax' not in sys.modules, sorted(m for m in sys.modules "
-            "if m.startswith('jax'))")
+            "if m.startswith('jax')); "
+            "assert not any(m.split('.')[0] == 'lajolla_tpu' "
+            "for m in sys.modules)")
     env = dict(os.environ, PYTHONPATH=REPO)
     r = subprocess.run([sys.executable, '-c', code], cwd=tmp_path, env=env,
                        capture_output=True, text=True, timeout=120)

@@ -64,6 +64,17 @@ def close_share(got, want, rtol, atol):
     return ok.reshape(ok.shape[0], -1).all(axis=1).mean()
 
 
+@pytest.fixture(scope='module', autouse=True)
+def one_thread():
+    """One intra-op torch thread: these tests run many small torch ops,
+    which threads do not speed up, and the suite runs its files in
+    parallel workers that would otherwise contend for the cores."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope='module')
 def zoo():
     js = JC.compile_scene(PT.media_zoo_builder())
