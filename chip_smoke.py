@@ -72,8 +72,12 @@ exits non-zero and prints no final line:
     triangles), on the 2^16 camera, bounce and shadow rays of its
     256x256 film: K5 and K4 on K5's hits, K6 (full-width lists) and K7
     (the tables repacked at 64 triangles a cluster), closest and any hit;
-    and K5 on a ~3.5k-triangle sphere with lists of one entry per
-    supercluster, so that blocks overflow into supercluster mode. Gates:
+    K5 on a ~3.5k-triangle sphere with lists of one entry per
+    supercluster, so that blocks overflow into supercluster mode; and the
+    tie fixture (testing.sweep_tie_fixture: identical triangles a warp
+    round of 32 apart in one cluster and in a second, listed first)
+    through K5 in both list modes, K4 on its hits and K6, closest and any
+    hit, every output bit-equal to the plain forms. Gates:
     t bit-equal on >= 99.9% of rays and within rtol 3e-4 / atol 3e-5 on
     all, prim equal on >= 99.9%, u and v within 1e-4 where prim agrees,
     occlusion equal on all, prim >= 0 exactly where t is finite. A second witness on 2^14
@@ -88,7 +92,11 @@ exits non-zero and prints no final line:
     at ~56k triangles, 683x512 x 2 spp: K5 + K4) and `hugemesh-768`
     (~260k triangles, 768x575 x 1 spp: K6); finite EXRs, mean luminance
     in (0.05, 5); parse + compile, BVH, cluster, packing, upload and
-    render() seconds, loop iterations, Mpaths/s. Each film at 128x96 x 2
+    render() seconds, loop iterations, Mpaths/s; K5 (bigmesh-683) or K6
+    (hugemesh-768) at render shape: on the rays of the closest-hit and
+    the shadow cast of the warm render's sixth loop iteration (8192 or
+    16384 rays), timed, with its plain form's time and the bound of the
+    work the plain form counted. Each film at 128x96 x 2
     spp against the same render with the casts patched to
     intersect_binned: median < 1e-4, means within 1%. K7 on a path of
     its own: render() of the mesh Cornell box (~3.5k triangles, 128x96 x
@@ -98,7 +106,8 @@ Then one JSON line of per-kernel results (each kernel's launches on the
 main path of [6] or, for K4-K7, of [15], its largest difference from its plain form, its time,
 its plain form's time, its bound and what bounds it, and the time of a
 library call that computes the same function: none has one; K5, K6 and K7
-also carry their any-hit variant's numbers as `any_hit_*`), and last the
+also carry their any-hit variant's numbers as `any_hit_*`, K5 and K6 their
+render-shape numbers as `render_*` and `render_any_hit_*`), and last the
 device line.
 `python3 chip_smoke.py --sweep-only` runs [1], [2], [14] and [15] and
 prints neither of the two last lines (a shorter run while working on the
@@ -111,6 +120,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import types
 from unittest import mock
 
 KERNEL_SOURCE = 'lajolla_tpu_torch/csrc/path_kernels.cu'
@@ -130,6 +140,10 @@ SWEEP_REPLACES = dict(
 # under ops/intersect_sweep.RESIDENT_BYTES (K5 + K4) or exceeds it (K6).
 BIGMESH_TRIANGLES = 56000
 HUGEMESH_TRIANGLES = 260000
+# The cast of a render whose rays K5 and K6 are timed on at render shape:
+# the closest-hit and the shadow cast of the sixth loop iteration, where
+# the lane pool holds paths at their later bounces.
+CAPTURE_CALL = 5
 
 # Peak rates of one H100 SXM (NVIDIA's data sheet, at the full 700 W):
 # fp32 outside the tensor cores, and device memory.
@@ -293,6 +307,7 @@ def sweep_phases(torch, np, dev, smi):
     from lajolla_tpu_torch.io.image import imread3
     from lajolla_tpu_torch.ops import intersect_binned as IB
     from lajolla_tpu_torch.ops import intersect_sweep as SW
+    from lajolla_tpu_torch.ops.intersect import ray_bounds
     from lajolla_tpu_torch.scene import compile as PC
     from lajolla_tpu_torch.scene import geometry as PG
     from lajolla_tpu_torch.scene.types import RenderOptions
@@ -372,6 +387,45 @@ def sweep_phases(torch, np, dev, smi):
     if overflowed == 0:
         raise AssertionError("no block of K5 overflowed its list")
 
+    # ties: identical triangles a round of 32 apart in one cluster, one
+    # more in a second cluster that the lists hold first
+    tables, tie_rays, _ = PT.sweep_tie_fixture(seed=5)
+    ties = types.SimpleNamespace(**{k: torch.from_numpy(v).to(dev)
+                                    for k, v in tables.items()})
+    tie_ray = tuple(torch.from_numpy(x).to(dev) for x in tie_rays)
+    perm = torch.argsort(SW._sort_keys(ties, *tie_ray[:2]), stable=True)
+    tie_ray = tuple(x[perm].contiguous() for x in tie_ray)
+    Kt = ties.sw_aabb.shape[0]
+    for label, B, L in (('K5', SW.LIST_B, min(SW.LIST_LEN, Kt)),
+                        ('K5 overflow', SW.LIST_B, 1),
+                        ('K6', SW.LANE_R, Kt)):
+        args = SW.list_inputs(ties, *tie_ray, B, L)
+        lists = (ties.sw_lane, ties.sw_aabb, *args[1:])
+        if label == 'K6':
+            outs = {'closest': (kernels.sweep_list(args[0], *lists, False),
+                                SW.sweep_list_plain(args[0], *lists, False)),
+                    'any': (kernels.sweep_list(args[0], *lists, True),
+                            SW.sweep_list_plain(args[0], *lists, True))}
+        else:
+            got = kernels.sweep_resident(args[0], *lists, False)
+            want = SW.sweep_resident_plain(args[0], *lists, False)
+            hits = torch.cat([args[0][:, :7], want[0][:, None]],
+                             dim=1).contiguous()
+            outs = {'closest': (got, want),
+                    'any': (kernels.sweep_resident(args[0], *lists, True),
+                            SW.sweep_resident_plain(args[0], *lists, True)),
+                    'K4 on the hits': (
+                        kernels.sweep_resolve(hits, want[1], ties.sw_lane),
+                        SW.sweep_resolve_plain(hits, want[1], ties.sw_lane))}
+        for what, (got, want) in outs.items():
+            same = all(bool(torch.equal(a, b)) for a, b in zip(got, want))
+            print(f"[14] ties, {label} {what} vs plain ({args[0].shape[0]} "
+                  f"rays, {int((args[1] < 0).sum())} blocks in supercluster "
+                  f"mode): every output bit-equal {same}")
+            if not same:
+                raise AssertionError(f"ties: {label} {what} differs from "
+                                     "its plain form")
+
     for kind, ray in rays_of(mesh).items():
         err, _ = resident_agrees(mesh, kind, ray, min(SW.LIST_LEN, K), 'K5')
         errs['sweep_resident'] = max(errs['sweep_resident'], err)
@@ -419,9 +473,14 @@ def sweep_phases(torch, np, dev, smi):
     n = rays['bounce'][0].shape[0]
     entries = {}
 
-    def timed(name, any_hit, kernel_fn, plain_fn, nbytes, tris):
+    def timed(name, any_hit, kernel_fn, plain_fn, nbytes, tris,
+              label=None, nr=None):
         """A kernel's and its plain form's time and the bound of the work
-        the plain form counted."""
+        the plain form counted, printed under `label` (by default the
+        2^18-ray line of [14]) with the work per ray of its nr rays."""
+        nr = nr or n
+        which = 'any hit, shadow' if any_hit else 'closest hit, bounce'
+        label = label or f"[14] {name} at 2^18 {which} rays"
         stats = {}
         ms = cuda_ms(torch, kernel_fn, 10)
         torch.cuda.synchronize()
@@ -433,13 +492,12 @@ def sweep_phases(torch, np, dev, smi):
                stats['cluster_tests'] * tris *
                OPS['any_test' if any_hit else 'closest_test'])
         bnd = bound(ops, nbytes)
-        which = 'any hit, shadow' if any_hit else 'closest hit, bounce'
-        print(f"[14] {name} at 2^18 {which} rays: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.1f} ms, bound {bnd[0]:.4f} ms ({bnd[1]}); per ray "
-              f"{stats.get('slab_tests', 0) / n:.2f} slab tests, "
-              f"{stats['cluster_tests'] / n:.3f} clusters of {tris} "
+        print(f"{label}: kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+              f"{bnd[0]:.5f} ms ({bnd[1]}); per ray "
+              f"{stats.get('slab_tests', 0) / nr:.2f} slab tests, "
+              f"{stats['cluster_tests'] / nr:.3f} clusters of {tris} "
               f"triangles tested"
-              + (f", {stats['entries']} list entries swept by a block"
+              + (f", {stats['entries']} (block, list entry) pairs swept"
                  if 'entries' in stats else '') + f" ({smi})")
         return ms, plain_ms, bnd
 
@@ -507,6 +565,44 @@ def sweep_phases(torch, np, dev, smi):
             out = fn()
         return out, sum(iters)
 
+    def keep(casts, kind, cast):
+        """`cast` that keeps the rays of its CAPTURE_CALL-th call in
+        casts[kind]."""
+        calls = []
+
+        def wrapped(scene_, o, d, tnear, tfar):
+            if len(calls) == CAPTURE_CALL:
+                tn, tf = ray_bounds(o, tnear, tfar)
+                casts[kind] = tuple(x.clone() for x in (o, d, tn, tf))
+            calls.append(1)
+            return cast(scene_, o, d, tnear, tfar)
+        return wrapped
+
+    def render_shape(cell, name, scene, ray, any_hit):
+        """K5 or K6 on the rays of one cast of a render, sorted and listed
+        as the cast does, through `timed`."""
+        Kc, _, Cc = scene.sw_lane.shape
+        perm = torch.argsort(SW._sort_keys(scene, *ray[:2]), stable=True)
+        ray = tuple(x[perm].contiguous() for x in ray)
+        resident = name == 'sweep_resident'
+        B, L = (SW.LIST_B, min(SW.LIST_LEN, Kc)) if resident else \
+            (SW.LANE_R, Kc)
+        args = SW.list_inputs(scene, *ray, B, L)
+        lists = (scene.sw_lane, scene.sw_aabb, *args[1:])
+        kernel = kernels.sweep_resident if resident else kernels.sweep_list
+        plain_fn = SW.sweep_resident_plain if resident else \
+            SW.sweep_list_plain
+        nr = args[0].shape[0]
+        return timed(
+            name, any_hit, lambda: kernel(args[0], *lists, any_hit),
+            lambda st: plain_fn(args[0], *lists, any_hit, stats=st),
+            nbytes_of(args[0], *lists) + (8 if resident else 16) * nr, Cc,
+            label=f"[15] {cell} render shape: {'K5' if resident else 'K6'} "
+            f"{'any hit' if any_hit else 'closest hit'} on the {nr} rays of "
+            f"loop iteration {CAPTURE_CALL + 1} ({nr // B} list blocks of "
+            f"{float(args[1].abs().float().mean()):.1f} entries, {nr // 8} "
+            f"CUDA blocks)", nr=nr)
+
     launches = dict.fromkeys(plain, 0)
     with tempfile.TemporaryDirectory() as tmp:
         for cell, triangles, size, spp, expect, never in (
@@ -547,8 +643,19 @@ def sweep_phases(torch, np, dev, smi):
             scene = scene_cpu.to(dev)
             torch.cuda.synchronize()
             upload_s = time.perf_counter() - t0
-            render(scene, opt, device=dev)
+            # the warm render, its casts of one loop iteration kept
+            casts = {}
+            with mock.patch.multiple(
+                    PG, intersect_sweep=keep(casts, 'closest',
+                                             SW.intersect_sweep),
+                    occluded_sweep=keep(casts, 'any', SW.occluded_sweep)):
+                render(scene, opt, device=dev)
             torch.cuda.synchronize()
+            for any_hit in (False, True):
+                name = expect[0]
+                key = 'render_any' if any_hit else 'render_closest'
+                entries[(name, key)] = render_shape(
+                    cell, name, scene, casts[key[7:]], any_hit)
             t0 = time.perf_counter()
             _, iters = counted(lambda: render(scene, opt, device=dev))
             render_s = time.perf_counter() - t0
@@ -613,10 +720,15 @@ def sweep_phases(torch, np, dev, smi):
                  "launches": launches[name], "max_abs_err": errs[name],
                  "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0],
                  "bound_by": bnd[1], "library_ms": None}
-        if (name, 'any') in entries:
-            ms, plain_ms, bnd = entries[(name, 'any')]
-            entry.update(any_hit_ms=ms, any_hit_plain_ms=plain_ms,
-                         any_hit_bound_ms=bnd[0], any_hit_bound_by=bnd[1])
+        for key, prefix in (('any', 'any_hit_'),
+                            ('render_closest', 'render_'),
+                            ('render_any', 'render_any_hit_')):
+            if (name, key) in entries:
+                ms, plain_ms, bnd = entries[(name, key)]
+                entry.update({prefix + 'ms': ms,
+                              prefix + 'plain_ms': plain_ms,
+                              prefix + 'bound_ms': bnd[0],
+                              prefix + 'bound_by': bnd[1]})
         lines.append(entry)
     return lines
 

@@ -13,26 +13,44 @@
 // `sweep_streaming_plain`, which state the rule all of them follow.
 //
 // The TPU kernels test a whole (rays x triangles) tile per listed cluster,
-// because the TPU's vector unit has no per-lane gather or branch. Here one
-// thread owns one ray. It walks its block's front-to-back cluster list (K5,
-// K6) or the superclusters in id order (K7), runs its own slab test against
-// [tnear, min(best, tfar)] at each cluster, loops over the triangles of a
-// cluster it enters, and stops at the first list entry farther than its own
-// min(best, tfar). A block ends when its last ray has stopped, which is the
-// TPU kernels' block-wide break. K4 goes straight to its ray's winning
-// cluster: no sort by cluster, no per-block list of distinct clusters.
+// because the TPU's vector unit has no per-lane gather or branch. K4 and K7
+// give one thread one ray. K4 goes straight to its ray's winning cluster
+// (no sort by cluster, no per-block list of distinct clusters); K7 walks
+// the superclusters in id order behind two slab gates.
 //
-// What bounds them: per-ray ALU work (about 45 operations and one division
-// per triangle tested, 25 per slab test) in a serial loop over a cluster's
-// triangles, whose every step waits for its loads and its division (the
-// loop keeps four triangles' z rows in flight), over tables that are read
-// by every ray that enters a cluster. K5's table (at most 8 MiB) stays in the
-// 50 MB L2 and is read through the read-only path, all threads of a warp
-// that test the same cluster reading the same words; K6 stages each listed
-// cluster (13 rows of C floats) in shared memory once per block; K7 reads
-// the row-major (K*C, 12) table through the read-only path. Rays of a
-// warp that enter different clusters diverge: sorting the rays (the caller
-// does) is what keeps a warp together.
+// K5 and K6 give one warp one ray, and every block is independent. A CUDA
+// block of kSweepWarps warps takes kSweepWarps consecutive rays and reads
+// the list of the ray block (LIST_B or LANE_R rays) they belong to. The
+// warp walks that list front to back in chunks of 32 entries: each lane
+// runs the ray's slab test against one entry for the horizon at the start
+// of the chunk, and a ballot gives the entries to enter. The horizon only
+// falls and the list's distances only rise, so an entry that fails there
+// fails later too, and the first entry beyond the horizon ends the ray
+// there or sooner; each entry the ballot keeps is tested again, with the
+// stop rule and the slab test, for the horizon of the moment before it is
+// entered. A cluster it enters is tested by the whole warp
+// (warp_cluster_test): lane l takes triangles l, l+32, l+64, ..., reading
+// the (16, C) lane block row by row, 32 neighbouring floats a load; a
+// shuffle reduction picks the least t and the lowest index among equal t
+// (closest hit), or a ballot per round of 32 the lowest index that hits
+// (any hit), which is the serial rule's choice.
+//
+// What bounded the one-thread-per-ray design that came before: in a render
+// the lane pool is 8192 (K5) or 16384 (K6) rays, so a launch had 32 blocks
+// for 132 SMs, one block an SM and nothing to hide latency with; each
+// thread ran a dependent chain of ~45 operations and a division per
+// triangle over a cluster's 128 triangles, entered by the whole warp when
+// any of its 32 rays passed the slab test; and K6's block of 512 rays
+// staged each listed cluster in shared memory behind two barriers, so
+// every entry cost the slowest ray's chain. Here a launch of 8192 rays is
+// 1024 blocks of 256 threads, a warp's control flow is its one ray's, and
+// nothing waits on another ray. What bounds it now: the slab tests and the
+// Woop tests themselves (fp32 operations and a division per triangle,
+// spread over 32 lanes) and the latency of the rows' loads from the L2.
+// K5's table (at most 8 MiB) and K6's (23.5 MB for the 260k-triangle mesh)
+// both stay in the 50 MB L2, which is why nothing is staged in shared
+// memory: a listed cluster is read by the few warps whose rays enter it,
+// not by a whole block.
 //
 // Numerics: every product that feeds a sum is written with __fmul_rn /
 // __fadd_rn, which nvcc never contracts into an FMA, in the order the
@@ -48,10 +66,9 @@
 namespace {
 
 constexpr int kRayThreads = 128;   // K4 and K7: threads per block
-constexpr int kMaxResident = 256;  // K5: most rays (threads) per block
-constexpr int kMaxList = 512;      // K6: most rays (threads) per block
+constexpr int kSweepWarps = 8;     // K5 and K6: rays (warps) per block
 constexpr int kLaneRows = 16;      // rows of one cluster in the lane table
-constexpr int kStagedRows = 13;    // of which K6 stages 12 Woop rows + prim
+constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float inf_f() { return __int_as_float(0x7f800000); }
 
@@ -104,15 +121,15 @@ __device__ __forceinline__ bool slab(const float* __restrict__ ab,
 }
 
 // Where the 12 Woop components and the prim id of triangle c of a cluster
-// are: the lane table (rows of C floats, in global or shared memory) ...
+// are: the lane table (rows of C floats) ...
 struct LaneRows {
   const float* base;   // the cluster's (16, C) block
   int C;
   __device__ __forceinline__ float operator()(int j, int c) const {
-    return base[j * C + c];
+    return __ldg(base + j * C + c);
   }
   __device__ __forceinline__ float prim(int c) const {
-    return base[12 * C + c];
+    return __ldg(base + 12 * C + c);
   }
 };
 
@@ -162,11 +179,12 @@ __device__ __forceinline__ bool woop_uv(const Rows& w, int c, const Ray& r,
   return u >= 0.0f && v >= 0.0f && __fadd_rn(u, v) <= 1.0f;
 }
 
-constexpr int kTriUnroll = 4;  // z rows in flight in the triangle loop
+constexpr int kTriUnroll = 4;  // z rows in flight in a thread's triangle loop
 
-// The nearest hit of the ray below `lim` among a cluster's C triangles, in
-// index order, a later triangle winning only with a strictly smaller t
-// (any-hit: the first hit). Returns its index, or -1. The z rows of
+// K7's cluster test, one thread's: the nearest hit of the ray below `lim`
+// among a cluster's C triangles, in index order, a later triangle winning
+// only with a strictly smaller t (any-hit: the first hit). Returns its
+// index, or -1. The z rows of
 // kTriUnroll triangles are computed before any is looked at, so that their
 // loads and divisions overlap; the triangles are still taken in index
 // order against the running best.
@@ -200,48 +218,163 @@ __device__ __forceinline__ int cluster_test(const Rows& w, int C,
   return j;
 }
 
-// K5. One block per ray block, one thread per ray; lists of L entries:
-// cluster ids (counts >= 0) or supercluster ids (counts < 0, G members
-// each), with the block's earliest entry distance beside each.
+// The nearest hit of the warp's ray below `lim` among the C triangles of
+// the cluster at `base` (a (16, C) lane block, C a multiple of 128), by
+// the serial rule: in index order, a later triangle winning only with a
+// strictly smaller t (any hit: the first hit). Lane l tests triangles
+// l + 32k, kTriUnroll z rows in flight before any is looked at (C is a
+// multiple of 32 kTriUnroll). Returns the
+// winner's index in every lane, or -1; t, u and v are the winner's in
+// every lane. Call with the whole warp converged.
 template <bool kAny>
-__global__ void __launch_bounds__(kMaxResident)
-sweep_resident_kernel(const float* __restrict__ rays,
-                      const float* __restrict__ lane,
-                      const float* __restrict__ aabb,
-                      const int* __restrict__ counts,
-                      const int* __restrict__ clist,
-                      const float* __restrict__ tlist, int L, int C, int G,
-                      float* __restrict__ t_out, int* __restrict__ kid_out) {
-  const int blk = blockIdx.x;
-  const long long i = (long long)blk * blockDim.x + threadIdx.x;
-  const Ray r = load_ray(rays, i);
-  const int cnt = counts[blk];
-  const bool over = cnt < 0;
-  const int n_it = over ? -cnt : cnt;
-  const int members = over ? G : 1;
-  const int* cl = clist + (long long)blk * L;
-  const float* tl = tlist + (long long)blk * L;
-  float best = inf_f();
-  int kwin = -1;
-  bool found = false;
-  for (int it = 0; it < n_it && !found; ++it) {
-    if (!(__ldg(tl + it) <= limit(best, r.tf))) break;
-    const int e = __ldg(cl + it);
-    for (int g = 0; g < members && !found; ++g) {
-      const int kid = over ? e * G + g : e;
-      const float lim = limit(best, r.tf);
-      if (!slab(aabb + 8 * kid, r, lim)) continue;
-      const LaneRows w{lane + (long long)kid * kLaneRows * C, C};
-      float t, u, v;
-      if (cluster_test<kAny>(w, C, r, lim, t, u, v) >= 0) {
-        best = t;
-        kwin = kid;
-        found = kAny;
+__device__ __forceinline__ int warp_cluster_test(
+    const float* __restrict__ base, int C, const Ray& r, float lim, int lane,
+    float& bt, float& bu, float& bv) {
+  const LaneRows w{base, C};
+  float ct = lim, cu = 0.0f, cv = 0.0f;
+  int cj = -1;
+  for (int c0 = 0; c0 < C; c0 += 32 * kTriUnroll) {
+    float t[kTriUnroll];
+    bool ok[kTriUnroll];
+#pragma unroll
+    for (int k = 0; k < kTriUnroll; ++k)
+      ok[k] = woop_t(w, c0 + 32 * k + lane, r, t[k]);
+#pragma unroll
+    for (int k = 0; k < kTriUnroll; ++k) {
+      const int c = c0 + 32 * k + lane;
+      float u, v;
+      const bool hit = ok[k] && t[k] < ct && woop_uv(w, c, r, t[k], u, v);
+      if (kAny) {
+        // the lowest index that hits: the first round with a hit, its
+        // lowest lane
+        const unsigned m = __ballot_sync(kFull, hit);
+        if (m) {
+          const int src = __ffs(m) - 1;
+          bt = __shfl_sync(kFull, t[k], src);
+          bu = bv = 0.0f;
+          return c0 + 32 * k + src;
+        }
+      } else if (hit) {
+        ct = t[k];
+        cj = c;
+        cu = u;
+        cv = v;
       }
     }
   }
-  t_out[i] = best;
-  kid_out[i] = kAny ? -1 : kwin;
+  if (kAny) return -1;
+  // the least (t, index) over the lanes; compares only, so t keeps its bits
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ot = __shfl_xor_sync(kFull, ct, off);
+    const int oj = __shfl_xor_sync(kFull, cj, off);
+    if (oj >= 0 && (cj < 0 || ot < ct || (ot == ct && oj < cj))) {
+      ct = ot;
+      cj = oj;
+    }
+  }
+  if (cj >= 0) {
+    bt = ct;
+    bu = __shfl_sync(kFull, cu, cj & 31);
+    bv = __shfl_sync(kFull, cv, cj & 31);
+  }
+  return cj;
+}
+
+// The walk of one ray (one warp) over its block's front-to-back list of
+// n_it entries: cluster ids, or (members = G) supercluster ids whose G
+// member clusters are tested in order. The rule of the plain forms: stop
+// at the first entry whose distance exceeds min(best, tfar) (NaN stops),
+// at each cluster the ray's own slab test for [tnear, min(best, tfar)],
+// and for any hit stop at the first hit. Chunks of 32 (virtual) entries
+// are prefiltered with one slab test a lane for the horizon at the
+// chunk's start (see the header); G must divide 32, so a chunk holds
+// whole supercluster entries. Results (best, the winning cluster and
+// triangle, u, v) are the same in every lane.
+template <bool kAny>
+__device__ __forceinline__ void warp_list_walk(
+    const Ray& r, const float* __restrict__ lane_tab,
+    const float* __restrict__ aabb, const int* __restrict__ cl,
+    const float* __restrict__ tl, int n_it, int members, int C, int lane,
+    float& best, int& kwin, int& jwin, float& bu, float& bv) {
+  const int n_v = n_it * members;
+  bool stop = false;
+  int prev = -1;                      // the last entry checked for a stop
+  for (int m0 = 0; m0 < n_v && !stop; m0 += 32) {
+    const float lim0 = limit(best, r.tf);
+    const int m = m0 + lane;
+    const bool in = m < n_v;
+    const int e = m / members;
+    const float te = in ? __ldg(tl + e) : 0.0f;
+    const int kid = in ? (members > 1 ? __ldg(cl + e) * members + m % members
+                                      : __ldg(cl + e))
+                       : 0;
+    const unsigned stops = __ballot_sync(kFull, in && !(te <= lim0));
+    const int end = stops ? __ffs(stops) - 1 : 32;
+    unsigned pass = __ballot_sync(
+        kFull, in && lane < end && slab(aabb + 8 * (long long)kid, r, lim0));
+    stop = stops != 0;
+    while (pass) {                    // warp-uniform: the ballot's bits
+      const int src = __ffs(pass) - 1;
+      pass &= pass - 1;
+      const int ek = __shfl_sync(kFull, e, src);
+      const float tk = __shfl_sync(kFull, te, src);
+      const int kk = __shfl_sync(kFull, kid, src);
+      const float lim = limit(best, r.tf);
+      if (ek != prev) {
+        prev = ek;
+        if (!(tk <= lim)) {
+          stop = true;
+          break;
+        }
+      }
+      if (!slab(aabb + 8 * (long long)kk, r, lim)) continue;
+      float t, u, v;
+      const int j = warp_cluster_test<kAny>(
+          lane_tab + (long long)kk * kLaneRows * C, C, r, lim, lane, t, u, v);
+      if (j >= 0) {
+        best = t;
+        kwin = kk;
+        jwin = j;
+        bu = u;
+        bv = v;
+        if (kAny) {
+          stop = true;
+          break;
+        }
+      }
+    }
+  }
+}
+
+// K5. One warp per ray, kSweepWarps rays a block; rays (R * B, 8) in R
+// list blocks of B rays; lists of L entries: cluster ids (counts >= 0) or
+// supercluster ids (counts < 0, G members each), with the block's
+// earliest entry distance beside each.
+template <bool kAny>
+__global__ void __launch_bounds__(kSweepWarps * 32)
+sweep_resident_kernel(const float* __restrict__ rays,
+                      const float* __restrict__ lane_tab,
+                      const float* __restrict__ aabb,
+                      const int* __restrict__ counts,
+                      const int* __restrict__ clist,
+                      const float* __restrict__ tlist, int B, int L, int C,
+                      int G, float* __restrict__ t_out,
+                      int* __restrict__ kid_out) {
+  const int lane = threadIdx.x & 31;
+  const long long i = (long long)blockIdx.x * kSweepWarps + threadIdx.x / 32;
+  const long long blk = i / B;
+  const Ray r = load_ray(rays, i);
+  const int cnt = __ldg(counts + blk);
+  float best = inf_f(), bu = 0.0f, bv = 0.0f;
+  int kwin = -1, jwin = -1;
+  warp_list_walk<kAny>(r, lane_tab, aabb, clist + blk * L, tlist + blk * L,
+                       cnt < 0 ? -cnt : cnt, cnt < 0 ? G : 1, C, lane, best,
+                       kwin, jwin, bu, bv);
+  if (lane == 0) {
+    t_out[i] = best;
+    kid_out[i] = kAny ? -1 : kwin;
+  }
 }
 
 // K4. One thread per ray: the triangle of the ray's winning cluster whose t
@@ -278,7 +411,7 @@ sweep_resolve_kernel(const float* __restrict__ rays,
     }
     const float tol = __fmul_rn(1e-4f, fmaxf(fabsf(tbest), 1e-6f));
     if (j >= 0 && emin <= tol) {
-      prim = (int)__ldg(w.base + 12 * C + j);
+      prim = (int)w.prim(j);
       bu = eu;
       bv = ev;
     }
@@ -288,63 +421,38 @@ sweep_resolve_kernel(const float* __restrict__ rays,
   v_out[i] = bv;
 }
 
-// K6. The sweep of K5 over full-width lists (no supercluster entries), each
-// listed cluster staged in shared memory by the block; (t, prim, u, v) in
-// one pass. The loop is block-uniform: it ends when no ray of the block is
-// still sweeping.
+// K6. The sweep of K5 over full-width lists (no supercluster entries),
+// (t, prim, u, v) in one pass: one warp per ray, nothing staged.
 template <bool kAny>
-__global__ void __launch_bounds__(kMaxList)
+__global__ void __launch_bounds__(kSweepWarps * 32)
 sweep_list_kernel(const float* __restrict__ rays,
-                  const float* __restrict__ lane,
+                  const float* __restrict__ lane_tab,
                   const float* __restrict__ aabb,
                   const int* __restrict__ counts,
                   const int* __restrict__ clist,
-                  const float* __restrict__ tlist, int L, int C,
+                  const float* __restrict__ tlist, int B, int L, int C,
                   float* __restrict__ t_out, int* __restrict__ p_out,
                   float* __restrict__ u_out, float* __restrict__ v_out) {
-  extern __shared__ float4 staged4[];
-  float* staged = reinterpret_cast<float*>(staged4);
-  const int blk = blockIdx.x;
-  const long long i = (long long)blk * blockDim.x + threadIdx.x;
+  const int lane = threadIdx.x & 31;
+  const long long i = (long long)blockIdx.x * kSweepWarps + threadIdx.x / 32;
+  const long long blk = i / B;
   const Ray r = load_ray(rays, i);
-  const int n_it = counts[blk];
-  const int* cl = clist + (long long)blk * L;
-  const float* tl = tlist + (long long)blk * L;
   float best = inf_f(), bu = 0.0f, bv = 0.0f;
-  int prim = -1;
-  bool active = true;
-  for (int it = 0;; ++it) {
-    if (active) {
-      active = it < n_it && !(kAny && prim >= 0) &&
-               __ldg(tl + it) <= limit(best, r.tf);
-    }
-    // also the barrier between the last iteration's reads and this load
-    if (!__syncthreads_or(active)) break;
-    const int kid = __ldg(cl + it);
-    const float4* src = reinterpret_cast<const float4*>(
-        lane + (long long)kid * kLaneRows * C);
-    for (int k = threadIdx.x; k < kStagedRows * C / 4; k += blockDim.x)
-      staged4[k] = __ldg(src + k);
-    __syncthreads();
-    if (active) {
-      const float lim = limit(best, r.tf);
-      if (slab(aabb + 8 * kid, r, lim)) {
-        const LaneRows w{staged, C};
-        float t, u, v;
-        const int j = cluster_test<kAny>(w, C, r, lim, t, u, v);
-        if (j >= 0) {
-          best = t;
-          prim = kAny ? 0 : (int)w.prim(j);
-          bu = kAny ? 0.0f : u;
-          bv = kAny ? 0.0f : v;
-        }
-      }
-    }
+  int kwin = -1, jwin = -1;
+  warp_list_walk<kAny>(r, lane_tab, aabb, clist + blk * L, tlist + blk * L,
+                       __ldg(counts + blk), 1, C, lane, best, kwin, jwin, bu,
+                       bv);
+  if (lane == 0) {
+    int prim = -1;
+    if (jwin >= 0)
+      prim = kAny ? 0
+                  : (int)LaneRows{lane_tab + (long long)kwin * kLaneRows * C,
+                                  C}.prim(jwin);
+    t_out[i] = best;
+    p_out[i] = prim;
+    u_out[i] = kAny || jwin < 0 ? 0.0f : bu;
+    v_out[i] = kAny || jwin < 0 ? 0.0f : bv;
   }
-  t_out[i] = best;
-  p_out[i] = prim;
-  u_out[i] = bu;
-  v_out[i] = bv;
 }
 
 // K7. No lists: every ray walks the S superclusters in id order, gated by
@@ -390,25 +498,32 @@ sweep_streaming_kernel(const float* __restrict__ rays,
 
 int blocks_for(long long n) { return (int)((n + kRayThreads - 1) / kRayThreads); }
 
+// The launch shape of K5 and K6: one warp per ray, kSweepWarps rays a
+// block; B a multiple of kSweepWarps, so a block's rays share one list.
+bool sweep_shape_ok(int R, int B, int L, int C) {
+  return R > 0 && B > 0 && B % kSweepWarps == 0 && L > 0 && C > 0 &&
+         C % 128 == 0;
+}
+
 }  // namespace
 
 extern "C" {
 
-// rays (R * B, 8); lists (R, L); one block of B threads per ray block.
+// rays (R * B, 8); lists (R, L); C a multiple of 128; G divides 32.
 int lj_sweep_resident(const float* rays, const float* lane, const float* aabb,
                       const int* counts, const int* clist, const float* tlist,
                       int R, int B, int L, int C, int G, int any_hit, float* t,
                       int* kid, void* stream) {
-  if (R <= 0 || B <= 0 || B > kMaxResident || L <= 0 || C <= 0 || G <= 0)
+  if (!sweep_shape_ok(R, B, L, C) || G <= 0 || 32 % G != 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const int grid = (int)((long long)R * B / kSweepWarps);
   if (any_hit)
-    sweep_resident_kernel<true><<<R, B, 0, s>>>(rays, lane, aabb, counts,
-                                                 clist, tlist, L, C, G, t, kid);
+    sweep_resident_kernel<true><<<grid, kSweepWarps * 32, 0, s>>>(
+        rays, lane, aabb, counts, clist, tlist, B, L, C, G, t, kid);
   else
-    sweep_resident_kernel<false><<<R, B, 0, s>>>(rays, lane, aabb, counts,
-                                                  clist, tlist, L, C, G, t,
-                                                  kid);
+    sweep_resident_kernel<false><<<grid, kSweepWarps * 32, 0, s>>>(
+        rays, lane, aabb, counts, clist, tlist, B, L, C, G, t, kid);
   return (int)cudaGetLastError();
 }
 
@@ -425,29 +540,15 @@ int lj_sweep_list(const float* rays, const float* lane, const float* aabb,
                   const int* counts, const int* clist, const float* tlist,
                   int R, int B, int L, int C, int any_hit, float* t, int* p,
                   float* u, float* v, void* stream) {
-  if (R <= 0 || B <= 0 || B > kMaxList || L <= 0 || C <= 0 || C % 4 != 0)
-    return (int)cudaErrorInvalidValue;
+  if (!sweep_shape_ok(R, B, L, C)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  const size_t smem = (size_t)kStagedRows * C * sizeof(float);
-  cudaError_t err = cudaSuccess;
-  if (any_hit) {
-    if (smem > 48 * 1024)
-      err = cudaFuncSetAttribute(sweep_list_kernel<true>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    sweep_list_kernel<true><<<R, B, smem, s>>>(rays, lane, aabb, counts, clist,
-                                               tlist, L, C, t, p, u, v);
-  } else {
-    if (smem > 48 * 1024)
-      err = cudaFuncSetAttribute(sweep_list_kernel<false>,
-                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                 (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    sweep_list_kernel<false><<<R, B, smem, s>>>(rays, lane, aabb, counts,
-                                                clist, tlist, L, C, t, p, u,
-                                                v);
-  }
+  const int grid = (int)((long long)R * B / kSweepWarps);
+  if (any_hit)
+    sweep_list_kernel<true><<<grid, kSweepWarps * 32, 0, s>>>(
+        rays, lane, aabb, counts, clist, tlist, B, L, C, t, p, u, v);
+  else
+    sweep_list_kernel<false><<<grid, kSweepWarps * 32, 0, s>>>(
+        rays, lane, aabb, counts, clist, tlist, B, L, C, t, p, u, v);
   return (int)cudaGetLastError();
 }
 

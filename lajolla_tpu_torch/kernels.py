@@ -2,9 +2,12 @@
 
 At first use, `build()` compiles each csrc/*.cu for sm_90a into its own
 library under build/lajolla_tpu_torch/ next to the package, all nvcc
-processes started together, keyed on a hash of the sources, and loads
-them with ctypes. Nothing here runs at import: the module imports on
-machines with no nvcc and no GPU.
+processes started together, and loads them with ctypes. Each library is
+keyed on its own tag (`unit_tag`): a hash of its .cu, the csrc headers it
+includes and its nvcc flags, so an edit rebuilds only the libraries it
+reaches, and a changed flag never reuses a library built without it.
+Nothing here runs at import: the module imports on machines with no nvcc
+and no GPU.
 
 The wrappers check device, dtype, shape and contiguity, allocate their
 outputs with torch.empty, launch on the current stream without
@@ -22,6 +25,7 @@ says why).
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 from pathlib import Path
@@ -29,10 +33,6 @@ from pathlib import Path
 import torch
 
 _CSRC = Path(__file__).resolve().parent / 'csrc'
-_SOURCES = ('path_kernels.cu', 'path_advance.cuh', 'camera.cuh',
-            'intersect_kernels.cu', 'volpath_kernels.cu',
-            'volpath_common.cuh', 'volpath_grid_kernels.cu',
-            'sweep_kernels.cu')
 _UNITS = ('path_kernels', 'intersect_kernels', 'volpath_kernels',
           'volpath_grid_kernels', 'sweep_kernels')  # one library per .cu
 BUILD_DIR = Path(__file__).resolve().parent.parent / 'build' / \
@@ -102,10 +102,28 @@ def _nvcc():
     return os.path.join(cuda_home, 'bin', 'nvcc')
 
 
-def _source_tag():
+_INCLUDE = re.compile(r'^\s*#\s*include\s+"([^"]+)"', re.MULTILINE)
+
+
+def unit_files(unit):
+    """The csrc files a unit's build reads: its .cu, then every header it
+    includes (`#include "..."`, followed through headers), each once."""
+    files, todo = [], [f'{unit}.cu']
+    while todo:
+        name = todo.pop(0)
+        if name not in files:
+            files.append(name)
+            todo += _INCLUDE.findall((_CSRC / name).read_text())
+    return files
+
+
+def unit_tag(unit):
+    """The build key of a unit's library: a hash of the files it reads
+    and of its nvcc flags."""
     digest = hashlib.sha256()
-    for name in _SOURCES:
-        digest.update((_CSRC / name).read_bytes())
+    for name in unit_files(unit):
+        digest.update(name.encode() + b'\0' + (_CSRC / name).read_bytes())
+    digest.update(repr((NVCC_FLAGS, UNIT_FLAGS.get(unit, ()))).encode())
     return digest.hexdigest()[:16]
 
 
@@ -147,23 +165,23 @@ def _bind(libs):
 
 
 def build():
-    """Compile (the libraries this source hash has not built yet, all
-    nvcc processes at once) and load the kernels. Returns {unit: ctypes
+    """Compile (the libraries whose tag has not been built yet, all nvcc
+    processes at once) and load the kernels. Returns {unit: ctypes
     library}; raises if a build fails."""
     global _libs
     if _libs is not None:
         return _libs
-    tag = _source_tag()
-    sos = {u: BUILD_DIR / f'liblj_{u}_{tag}.so' for u in _UNITS}
+    tags = {u: unit_tag(u) for u in _UNITS}
+    sos = {u: BUILD_DIR / f'liblj_{u}_{tags[u]}.so' for u in _UNITS}
     jobs = {}
     for unit, so in sos.items():
         if so.exists():
             continue
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = BUILD_DIR / f'.liblj_{unit}_{tag}.{os.getpid()}.so'
+        tmp = BUILD_DIR / f'.liblj_{unit}_{tags[unit]}.{os.getpid()}.so'
         cmd = [_nvcc(), *NVCC_FLAGS, *UNIT_FLAGS.get(unit, ()), '-o',
                str(tmp), str(_CSRC / f'{unit}.cu')]
-        log = BUILD_DIR / f'build_{unit}_{tag}.log'
+        log = BUILD_DIR / f'build_{unit}_{tags[unit]}.log'
         with open(log, 'w') as f:          # the child holds its own copy
             f.write(' '.join(cmd) + '\n')
             f.flush()
@@ -186,9 +204,8 @@ def build():
 
 def build_log():
     """The nvcc output (ptxas registers and spills) of the builds of the
-    current sources, or '' for a library not built here."""
-    tag = _source_tag()
-    logs = [BUILD_DIR / f'build_{u}_{tag}.log' for u in _UNITS]
+    current tags, or '' for a library not built here."""
+    logs = [BUILD_DIR / f'build_{u}_{unit_tag(u)}.log' for u in _UNITS]
     return ''.join(log.read_text() for log in logs if log.exists())
 
 
@@ -501,6 +518,8 @@ def _sweep_lists(rays, lane, aabb, counts, clist, tlist, device):
     Np = rays.shape[0]
     if R == 0 or Np % R:
         raise ValueError(f"{Np} rays do not fill {R} blocks")
+    if C % 128:
+        raise ValueError(f"cluster size {C}: K5 and K6 take multiples of 128")
     ptrs = [_sweep_rays(rays, device),
             _check16(lane, 'sw_lane', (K, 16, C), device),
             _check16(aabb, 'sw_aabb', (K, 8), device),
@@ -574,10 +593,10 @@ def sweep_resolve(rays, kid, lane):
 
 
 def sweep_list(rays, lane, aabb, counts, clist, tlist, any_hit):
-    """Kernel K6: the list sweep over a cluster table of any size, each
-    listed cluster staged in shared memory, (t, prim i32, u, v) in one
-    pass. Arguments and results as ops/intersect_sweep.sweep_list_plain,
-    which CPU tensors run; CUDA tensors launch the kernel."""
+    """Kernel K6: the list sweep over a cluster table of any size, one
+    warp per ray, (t, prim i32, u, v) in one pass. Arguments and results
+    as ops/intersect_sweep.sweep_list_plain, which CPU tensors run; CUDA
+    tensors launch the kernel."""
     if rays.device.type == 'cpu':
         from lajolla_tpu_torch.ops.intersect_sweep import sweep_list_plain
         return sweep_list_plain(rays, lane, aabb, counts, clist, tlist,
@@ -585,8 +604,6 @@ def sweep_list(rays, lane, aabb, counts, clist, tlist, any_hit):
     device = rays.device
     R, B, L, K, C, ptrs = _sweep_lists(rays, lane, aabb, counts, clist,
                                        tlist, device)
-    if C % 4:
-        raise ValueError(f"cluster size {C}: K6 stages rows as float4")
     lib = build()['sweep_kernels']
     outs = _hit_outputs(R * B, device)
     with torch.cuda.device(device):

@@ -45,6 +45,7 @@ from lajolla_tpu_torch.scene.types import RenderOptions
 MATERIAL_XML_TYPES = {
     'diffuse': T.MAT_LAMBERTIAN,
     'roughplastic': T.MAT_ROUGH_PLASTIC,
+    'roughdielectric': T.MAT_ROUGH_DIELECTRIC,
 }
 
 
@@ -1027,6 +1028,84 @@ def repack_clusters(scene, max_tris):
     dev = scene.tri_shade.device
     return dataclasses.replace(scene, **{
         k: torch.from_numpy(v).to(dev) for k, v in tables.items()})
+
+
+# Where the tie fixture (`sweep_tie_fixture`) puts its triangles, by index
+# in the cluster: lane l of a warp tests indices l + 32k, so the copies of
+# triangle A sit in lanes 7 and 2, one and more rounds apart.
+TIE_COPIES_A = (7, 34, 39, 71, 103)   # cluster 0; cluster 1 holds one at 0
+TIE_FAR_B, TIE_NEAR_B = 9, 40         # cluster 0: B at z = 0 and z = 0.1
+
+
+def sweep_tie_fixture(seed=0, n=512):
+    """Two clusters of 128 triangles whose hits tie, for holding the
+    sweeps' tie rules, and n rays, all made with numpy from `seed`.
+
+    Cluster 0 holds five identical copies of a triangle A in the plane
+    z = 0 (indices TIE_COPIES_A), a triangle B at z = 0 (index TIE_FAR_B)
+    and a copy of B lifted to z = 0.1 (index TIE_NEAR_B); cluster 1 holds
+    one more copy of A (index 0). The other slots hold small triangles off
+    the rays' paths, cluster 1's reaching z = 0.5, so that a block's list
+    holds cluster 1 before cluster 0. Rays come down from z ~ 2.5, nearly
+    vertical, onto A (3/8), onto B (3/8) or onto nothing (1/4).
+
+    Closest hit: a ray on A gets the copy of the first listed cluster (1,
+    its index 0) or, where a block sweeps superclusters (members in id
+    order), cluster 0's lowest index; a ray on B the lifted copy. Any hit:
+    the lowest index of the first cluster that holds a hit, so a ray on B
+    stops at the copy at z = 0, not at the nearer one.
+
+    Returns (tables, rays, region): tables as `ops.intersect_sweep`'s
+    callers read them (cl_* and sw_* numpy arrays; prim ids are 128 *
+    cluster + index), rays (o, d, tnear, tfar) float32 arrays, region (n,)
+    0 on A, 1 on B, -1 off both."""
+    from lajolla_tpu_torch.ops.intersect_binned import build_clusters
+    from lajolla_tpu_torch.ops.intersect_sweep import pack_sweep
+    rng = np.random.default_rng(seed)
+    C = 128
+    tri = np.zeros((2 * C, 3, 3))
+
+    def fillers(k, x0, z0, z1):
+        base = np.stack([rng.uniform(x0, x0 + 1, k), rng.uniform(-1, 1, k),
+                         rng.uniform(z0, z1, k)], -1)
+        return base[:, None, :] + rng.uniform(0, 0.05, (k, 3, 3))
+    tri[:C] = fillers(C, 5.0, -0.5, 0.0)
+    tri[C:] = fillers(C, -6.0, 0.0, 0.45)
+    a = np.array([[-1.0, -1.0, 0.0], [-0.1, -1.0, 0.0], [-1.0, 0.8, 0.0]])
+    b = a + [1.3, 0.0, 0.0]
+    for c in TIE_COPIES_A:
+        tri[c] = a
+    tri[C] = a
+    tri[TIE_FAR_B] = b
+    tri[TIE_NEAR_B] = b + [0.0, 0.0, 0.1]
+    tri = tri.astype(np.float32)
+    lo, hi = tri.min(axis=1), tri.max(axis=1)
+    # two leaves of 128 under a root: the clusters are the leaves, their
+    # triangles in index order
+    bvh = dict(first=np.array([0, 0, C]), count=np.array([0, C, C]),
+               skip=np.array([3, 2, 3]),
+               lo=np.stack([lo.min(0), lo[:C].min(0), lo[C:].min(0)]),
+               hi=np.stack([hi.max(0), hi[:C].max(0), hi[C:].max(0)]),
+               prim=np.arange(2 * C))
+    cl = build_clusters(bvh, tri[:, 0], tri[:, 1] - tri[:, 0],
+                        tri[:, 2] - tri[:, 0], max_tris=C)
+    assert cl.pop('n_clusters') == 2
+    tables = {**cl, **pack_sweep(cl)}
+
+    region = rng.choice([0, 0, 0, 1, 1, 1, -1, -1], n)
+    u = rng.uniform(0.1, 0.8, n)
+    v = rng.uniform(0.05, 0.85 - u)
+    target = np.stack([-1.0 + 0.9 * u, -1.0 + 1.8 * v, np.zeros(n)], -1)
+    target[region == 1, 0] += 1.3
+    target[region == -1, 0] += 3.6
+    d = np.stack([rng.uniform(-0.03, 0.03, n), rng.uniform(-0.03, 0.03, n),
+                  -np.ones(n)], -1)
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    o = target - 2.5 * d
+    f32 = np.float32
+    rays = (o.astype(f32), d.astype(f32), np.full(n, 1e-4, f32),
+            np.full(n, np.inf, f32))
+    return tables, rays, region
 
 
 def general_rays(scene, seed=0, device='cpu'):

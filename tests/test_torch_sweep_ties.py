@@ -1,0 +1,132 @@
+"""The tie rules of the sweep casters, which kernels K5 and K6 keep with a
+warp reduction: among hits at equal t the lowest triangle index of the
+first listed cluster wins (closest hit), and the lowest index of the
+first cluster with a hit decides (any hit).
+
+testing.sweep_tie_fixture (numpy, from a seed) puts identical triangles
+at indices 7, 34, 39, 71 and 103 of one cluster (lanes 7 and 2 of a
+warp, rounds of 32 apart) and one more in a second cluster that the lists
+hold first, beside a triangle whose lifted copy sits at a higher index.
+Its rays go through lajolla_tpu's `intersect_sweep` / `occluded_sweep`
+(INTERPRET = True, as tests/test_torch_sweep.py runs them) and through the
+port's plain forms on CPU tensors, by the routes K5 + K4, K5 with
+overflowing lists (supercluster mode) and K6. Gates: prim equal on every
+ray, and the prim each rule names; t within rtol 3e-4 (XLA may fuse the
+Woop products into FMAs), u and v within 1e-4; occlusion equal.
+"""
+
+import types
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import lajolla_tpu.ops.intersect_sweep as JSW
+import lajolla_tpu_torch.ops.intersect_sweep as PSW
+from lajolla_tpu_torch import testing as PT
+
+ROUTES = {  # route: (LIST_LEN, RESIDENT_BYTES)
+    'resident': (PSW.LIST_LEN, PSW.RESIDENT_BYTES),
+    'overflow': (4, PSW.RESIDENT_BYTES),
+    'list': (PSW.LIST_LEN, 0),
+}
+C = 128
+
+
+@pytest.fixture(scope='module', autouse=True)
+def one_thread():
+    """One intra-op torch thread, as the other sweep tests."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+@pytest.fixture(scope='module')
+def ties():
+    tables, rays, region = PT.sweep_tie_fixture(seed=5)
+    js = types.SimpleNamespace(**{k: jnp.asarray(v)
+                                  for k, v in tables.items()})
+    ps = types.SimpleNamespace(**{k: torch.from_numpy(v)
+                                  for k, v in tables.items()})
+    return js, ps, rays, region
+
+
+@pytest.fixture
+def route(request, monkeypatch):
+    list_len, resident = ROUTES[request.param]
+    for mod in (JSW, PSW):
+        monkeypatch.setattr(mod, 'LIST_LEN', list_len)
+        monkeypatch.setattr(mod, 'RESIDENT_BYTES', resident)
+    monkeypatch.setattr(JSW, 'INTERPRET', True)
+    return request.param
+
+
+def expected_prims(route, region):
+    """The prim each tie rule names: a ray on A takes the copy of the
+    first listed cluster (cluster 1, index 0), or cluster 0's lowest
+    index where the block sweeps its supercluster's members in id order;
+    a ray on B the nearer, lifted copy."""
+    on_a = C if route != 'overflow' else PT.TIE_COPIES_A[0]
+    return np.select([region == 0, region == 1], [on_a, PT.TIE_NEAR_B], -1)
+
+
+def torch_rays(rays):
+    return tuple(torch.from_numpy(x) for x in rays)
+
+
+@pytest.mark.parametrize('route', sorted(ROUTES), indirect=True)
+def test_closest_hit_ties_match_pallas_interpret(ties, route):
+    js, ps, rays, region = ties
+    t, prim, u, v = (x.numpy() for x in
+                     PSW.intersect_sweep(ps, *torch_rays(rays)))
+    jt, jprim, ju, jv = (np.asarray(x) for x in JSW.intersect_sweep(
+        js, *(jnp.asarray(x) for x in rays)))
+    assert (jprim == expected_prims(route, region)).all()
+    assert (prim == jprim).all()
+    np.testing.assert_allclose(np.where(np.isfinite(t), t, 1e9),
+                               np.where(np.isfinite(jt), jt, 1e9),
+                               rtol=3e-4, atol=3e-5)
+    hit = jprim >= 0
+    np.testing.assert_allclose(u[hit], ju[hit], atol=1e-4)
+    np.testing.assert_allclose(v[hit], jv[hit], atol=1e-4)
+    if route == 'overflow':
+        counts = PSW.list_inputs(ps, *torch_rays(rays), PSW.LIST_B, 4)[1]
+        assert (counts < 0).all()
+
+
+@pytest.mark.parametrize('route', sorted(ROUTES), indirect=True)
+def test_any_hit_ties(ties, route):
+    """Occlusion equals lajolla_tpu's; the any-hit t is that of the lowest
+    index that hits (a ray on B stops at the copy at z = 0, beyond the
+    nearer copy at a higher index), which the kernels return too."""
+    js, ps, rays, region = ties
+    occ = PSW.occluded_sweep(ps, *torch_rays(rays)).numpy()
+    jocc = np.asarray(JSW.occluded_sweep(js, *(jnp.asarray(x)
+                                               for x in rays)))
+    assert (jocc == (region >= 0)).all()
+    assert (occ == jocc).all()
+    o, d, tn, tf = torch_rays(rays)
+    t_any = PSW._call(ps, o, d, tn, tf, True)[0].numpy()
+    t_near = PSW._call(ps, o, d, tn, tf, False)[0].numpy()
+    on_a, on_b = region == 0, region == 1
+    np.testing.assert_array_equal(t_any[on_a], t_near[on_a])
+    assert (t_any[on_b] > t_near[on_b] + 0.05).all()
+    assert np.isinf(t_any[region < 0]).all()
+
+
+def test_tie_fixture_lists_cluster_1_first(ties):
+    """The premise of the closest-hit rule's test: every block holding a
+    ray on A lists cluster 1 before cluster 0."""
+    _, ps, rays, region = ties
+    perm = torch.argsort(PSW._sort_keys(ps, *torch_rays(rays[:2])),
+                         stable=True).numpy()
+    _, counts, clist, _ = PSW.list_inputs(
+        ps, *torch_rays(tuple(x[perm] for x in rays)), PSW.LIST_B,
+        min(PSW.LIST_LEN, ps.sw_aabb.shape[0]))
+    blocks = (region[perm] == 0).reshape(-1, PSW.LIST_B).any(axis=1)
+    assert blocks.any()
+    for blk in np.nonzero(blocks)[0]:
+        listed = list(clist[blk, :counts[blk]].numpy())
+        assert listed.index(1) < listed.index(0)

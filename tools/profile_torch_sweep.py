@@ -4,7 +4,7 @@ resident sweep K5 and the resolve K4) and at ~260k triangles, 768x575 x 1
 spp (`hugemesh-768`: the list sweep K6), through render().
 
 usage, from the repository root: python3 tools/profile_torch_sweep.py
-    [--runs 2] [--out chiprun_out/profile_torch_sweep.json]
+    [--runs 2] [--label TEXT] [--out PATH]
 
 Prints, and writes as JSON to --out, for each of the two cells:
 - the card's `nvidia-smi` name and power limit;
@@ -17,13 +17,26 @@ Prints, and writes as JSON to --out, for each of the two cells:
   loop iteration, and device time by kind of kernel (K4, K5, K6, the
   sorts, the rest: the list build's and the vertex's elementwise passes,
   gathers and reductions cannot be told apart by name);
-- one cast of the lane pool's size (8192 or 16384 bounce rays for closest
-  hit, shadow rays for any hit) by CUDA events, stage by stage: ray sort,
-  padding and list build, the kernel (and K4), and the whole cast;
-- from the plain forms' counters on those rays: slab tests and clusters
-  tested per ray, and the share of the listed (block, entry) pairs that
-  the early break skips.
-Imports no JAX.
+- the render's own casts: every closest-hit and shadow cast of one
+  render() is kept (its rays, and the vertex count `nv` and `done` bit of
+  each lane: nv 2 is a camera ray, a done lane has no work left and
+  casts its last ray again), sorted and listed as the cast does, and the
+  sweep kernel (K5 or K6) timed on each by CUDA events, one launch after
+  another: per launch mean, median, largest, and the mean of the first
+  and of the later iterations;
+- the same rays by bounce: for each nv (and the done lanes) a cast of the
+  lane pool's size made of that bucket's rays in the order the render
+  cast them, with its share of the render's rays, the list length per
+  block (`counts`), the entries a block sweeps, the slab tests and
+  clusters tested per ray (the plain forms' counters), the sort, list
+  and kernel milliseconds, the whole cast, and the kernel's bound from
+  chip_smoke.OPS;
+- for bigmesh-683 only, K5 and K6 at 2^18 rays as `chip_smoke.py` [14]
+  times them (the bounce and shadow rays of the 56k-triangle mesh box's
+  512x512 film; K6 on full-width lists of the same table), with bounds.
+Imports no JAX. It reads only what the package has had since K4-K7 were
+ported, so a copy of it placed in an older checkout measures that tree:
+run it there and here in turns, in one call, to compare two trees.
 """
 
 import argparse
@@ -38,9 +51,10 @@ from unittest import mock
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, REPO)
 
-CELLS = (  # name, triangles asked, film, spp, film whose pixels = lanes
-    ('bigmesh-683', 56000, (683, 512), 2, (128, 64)),
-    ('hugemesh-768', 260000, (768, 575), 1, (128, 128)))
+CELLS = (  # name, triangles asked, film, spp
+    ('bigmesh-683', 56000, (683, 512), 2),
+    ('hugemesh-768', 260000, (768, 575), 1))
+MAX_NV = 8     # bounce buckets nv = 2 .. MAX_NV; deeper lanes pooled
 
 
 def kind_of(name):
@@ -60,6 +74,7 @@ def kind_of(name):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--runs', type=int, default=2)
+    ap.add_argument('--label', default='')
     ap.add_argument('--out', default=os.path.join(
         REPO, 'chiprun_out', 'profile_torch_sweep.json'))
     args = ap.parse_args()
@@ -70,12 +85,14 @@ def main():
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from chip_smoke import cuda_ms
+    from chip_smoke import OPS, bound, cuda_ms
     from lajolla_tpu_torch import kernels, render
     from lajolla_tpu_torch import testing as PT
     from lajolla_tpu_torch.integrators import path as PP
     from lajolla_tpu_torch.ops import intersect_sweep as SW
+    from lajolla_tpu_torch.ops.intersect import ray_bounds
     from lajolla_tpu_torch.scene import compile as PC
+    from lajolla_tpu_torch.scene import geometry as PG
     from lajolla_tpu_torch.scene.types import RenderOptions
     from tools.profile_torch_general import busy_seconds
 
@@ -85,14 +102,64 @@ def main():
         ['nvidia-smi', '--query-gpu=name,power.limit',
          '--format=csv,noheader'], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+    t0 = time.perf_counter()
     kernels.build()
-    out = {'card': card}
-    plain = dict(sweep_resident=SW.sweep_resident_plain,
-                 sweep_resolve=SW.sweep_resolve_plain,
-                 sweep_list=SW.sweep_list_plain,
-                 sweep_streaming=SW.sweep_streaming_plain)
+    out = {'card': card, 'label': args.label, 'repo': REPO,
+           'build_s': time.perf_counter() - t0}
+    print(f"tree {REPO} ({args.label}); {card}; build + load "
+          f"{out['build_s']:.1f} s", flush=True)
 
-    for cell, triangles, size, spp, pool_film in CELLS:
+    def nbytes(*tensors):
+        return sum(x.numel() * x.element_size() for x in tensors)
+
+    def sweep_of(scene):
+        """(kernel, plain form, B, L, bytes a ray writes, name) of the
+        sweep a cast of `scene` takes."""
+        K = scene.sw_aabb.shape[0]
+        if scene.sw_lane.numel() * 4 <= SW.RESIDENT_BYTES:
+            return (kernels.sweep_resident, SW.sweep_resident_plain,
+                    SW.LIST_B, min(SW.LIST_LEN, K), 8, 'K5')
+        return (kernels.sweep_list, SW.sweep_list_plain, SW.LANE_R, K, 16,
+                'K6')
+
+    def sort(scene, ray):
+        perm = torch.argsort(SW._sort_keys(scene, *ray[:2]), stable=True)
+        return tuple(x[perm].contiguous() for x in ray)
+
+    def sweep_row(scene, ray, any_hit, kernel, plain_fn, B, L, out_bytes):
+        """Stage times, list and work counts and the bound of one cast."""
+        n = ray[0].shape[0]
+        C = scene.sw_lane.shape[2]
+        srt = sort(scene, ray)
+        a = SW.list_inputs(scene, *srt, B, L)
+        lists = (scene.sw_lane, scene.sw_aabb, *a[1:])
+        stats = {}
+        plain_fn(a[0], *lists, any_hit, stats=stats)
+        cnt = a[1].abs().float()
+        R = cnt.shape[0]
+        cast = SW.occluded_sweep if any_hit else SW.intersect_sweep
+        row = dict(
+            rays=n, block=B, list_len=L, list_blocks=R,
+            listed_per_block_mean=float(cnt.mean()),
+            listed_per_block_max=int(cnt.max()),
+            overflow_blocks=int((a[1] < 0).sum()),
+            swept_entries_per_block=stats.get('entries', 0) / R,
+            slab_tests_per_ray=stats.get('slab_tests', 0) / n,
+            clusters_tested_per_ray=stats.get('cluster_tests', 0) / n,
+            sort_ms=cuda_ms(torch, lambda: sort(scene, ray), 10),
+            lists_ms=cuda_ms(torch, lambda: SW.list_inputs(
+                scene, *srt, B, L), 10),
+            kernel_ms=cuda_ms(torch, lambda: kernel(a[0], *lists, any_hit),
+                              10),
+            whole_cast_ms=cuda_ms(torch, lambda: cast(scene, *ray), 10))
+        ops = (stats.get('slab_tests', 0) * OPS['slab_test'] +
+               stats.get('cluster_tests', 0) * C *
+               OPS['any_test' if any_hit else 'closest_test'])
+        row['bound_ms'], row['bound_by'] = bound(
+            ops, nbytes(a[0], *lists) + out_bytes * a[0].shape[0])
+        return row
+
+    for cell, triangles, size, spp in CELLS:
         t0 = time.perf_counter()
         cpu_scene = PT.make_cornell_box(size, spp, 'mesh',
                                         triangles=triangles)
@@ -105,16 +172,18 @@ def main():
         opt = RenderOptions(samples_per_pixel=spp)
         paths = size[0] * size[1] * spp
         K, _, C = scene.sw_lane.shape
+        kernel, plain_fn, B, L, out_bytes, kname = sweep_of(scene)
         res = out[cell] = dict(
             triangles=scene.meta.num_triangles, clusters=K,
             table_bytes=scene.sw_lane.numel() * 4, compile_s=compile_s,
             build_s=build, upload_s=upload_s,
-            schedule=PP._schedule(scene))
+            schedule=PP._schedule(scene), sweep=kname)
         print(f"{cell}: {res['triangles']} triangles, {K} clusters of {C}, "
-              f"table {res['table_bytes']} B; compile {compile_s:.2f} s "
-              f"(BVH {build['bvh']:.2f}, clusters {build['clusters']:.2f}, "
-              f"packing {build['pack']:.2f}), upload {upload_s:.3f} s; "
-              f"(spp per block, lanes) {res['schedule']}", flush=True)
+              f"table {res['table_bytes']} B ({kname}); compile "
+              f"{compile_s:.2f} s (BVH {build['bvh']:.2f}, clusters "
+              f"{build['clusters']:.2f}, packing {build['pack']:.2f}), "
+              f"upload {upload_s:.3f} s; (spp per block, lanes) "
+              f"{res['schedule']}", flush=True)
 
         def timed_render():
             torch.cuda.synchronize()
@@ -174,56 +243,103 @@ def main():
               f"iteration; device ms by kind "
               f"{res['trace']['device_ms_by_kind']}", flush=True)
 
-        # one cast of the lane pool's size, stage by stage
-        pool = PT.make_cornell_box(pool_film, 1, 'mesh',
-                                   triangles=triangles).to(dev)
-        with mock.patch.multiple(kernels, **plain):
-            rays = PT.general_rays(pool, seed=13, device=dev)
-        resident = scene.sw_lane.numel() * 4 <= SW.RESIDENT_BYTES
-        B, L = (SW.LIST_B, min(SW.LIST_LEN, K)) if resident else \
-            (SW.LANE_R, K)
-        res['cast'] = {}
-        for any_hit, ray in ((False, rays['bounce']), (True, rays['shadow'])):
-            o, d, tn, tf = ray
+        # ---- the render's own casts
+        lane_state = {}
+        casts = {'closest': [], 'any': []}
+        real_adv = PP._advance_lane
 
-            def sort():
-                perm = torch.argsort(SW._sort_keys(pool, o, d), stable=True)
-                return tuple(x[perm] for x in ray)
-            srt = sort()
-            args_ = SW.list_inputs(pool, *srt, B, L)
-            lists = (pool.sw_lane, pool.sw_aabb, *args_[1:])
-            if resident:
-                def kernel():
-                    t, kid = kernels.sweep_resident(args_[0], *lists, any_hit)
-                    if not any_hit:
-                        hits = torch.cat([args_[0][:, :7], t[:, None]],
-                                         dim=1).contiguous()
-                        kernels.sweep_resolve(hits, kid, pool.sw_lane)
-                plain_fn = SW.sweep_resident_plain
-            else:
-                def kernel():
-                    kernels.sweep_list(args_[0], *lists, any_hit)
-                plain_fn = SW.sweep_list_plain
-            cast = SW.occluded_sweep if any_hit else SW.intersect_sweep
-            stats = {}
-            plain_fn(args_[0], *lists, any_hit, stats=stats)
-            n = o.shape[0]
-            listed = int(args_[1].abs().sum())
-            row = dict(
-                rays=n, block=B, list_len=L,
-                sort_ms=cuda_ms(torch, sort, 10),
-                lists_ms=cuda_ms(torch, lambda: SW.list_inputs(
-                    pool, *srt, B, L), 10),
-                kernel_ms=cuda_ms(torch, kernel, 10),
-                whole_cast_ms=cuda_ms(torch, lambda: cast(pool, *ray), 10),
-                slab_tests_per_ray=stats['slab_tests'] / n,
-                clusters_tested_per_ray=stats['cluster_tests'] / n,
-                listed_entries=listed, swept_entries=stats['entries'],
-                share_skipped_by_break=1.0 - stats['entries'] / listed,
-                overflow_blocks=int((args_[1] < 0).sum()))
-            res['cast']['any' if any_hit else 'closest'] = row
-            print(f"{cell}: one {'any-hit' if any_hit else 'closest-hit'} "
-                  f"cast: {row}; {card}", flush=True)
+        def advance(scene_, options_, st, uN):
+            lane_state.update(nv=st[1].clone(), done=st[11].clone())
+            return real_adv(scene_, options_, st, uN)
+
+        def keep(kind, cast):
+            def wrapped(scene_, o, d, tnear, tfar):
+                tn, tf = ray_bounds(o, tnear, tfar)
+                nv = torch.where(lane_state['done'], 0,
+                                 lane_state['nv'].clamp(max=MAX_NV + 1))
+                casts[kind].append((o.clone(), d.clone(), tn.clone(),
+                                    tf.clone(), nv))
+                return cast(scene_, o, d, tnear, tfar)
+            return wrapped
+        with mock.patch.object(PP, '_advance_lane', advance), \
+                mock.patch.multiple(
+                    PG, intersect_sweep=keep('closest', SW.intersect_sweep),
+                    occluded_sweep=keep('any', SW.occluded_sweep)):
+            timed_render()
+        res['casts'] = {}
+        for kind, kept in casts.items():
+            any_hit = kind == 'any'
+            prepared = []
+            for o, d, tn, tf, _ in kept:
+                a = SW.list_inputs(scene, *sort(scene, (o, d, tn, tf)), B, L)
+                prepared.append((a[0], scene.sw_lane, scene.sw_aabb, *a[1:]))
+            for p in prepared[:3]:                       # warm
+                kernel(*p, any_hit)
+            ev = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(len(prepared) + 1)]
+            torch.cuda.synchronize()
+            ev[0].record()
+            for p, e in zip(prepared, ev[1:]):
+                kernel(*p, any_hit)
+                e.record()
+            torch.cuda.synchronize()
+            ms = [a.elapsed_time(b) for a, b in zip(ev, ev[1:])]
+            listed = [float(p[3].abs().float().mean()) for p in prepared]
+            first = max(1, len(ms) // 10)
+            res['casts'][kind] = dict(
+                launches=len(ms), kernel_ms_total=sum(ms),
+                kernel_ms_mean=statistics.mean(ms),
+                kernel_ms_median=statistics.median(ms),
+                kernel_ms_max=max(ms),
+                kernel_ms_mean_first_tenth=statistics.mean(ms[:first]),
+                kernel_ms_mean_rest=statistics.mean(ms[first:]),
+                listed_per_block_mean=statistics.mean(listed),
+                listed_per_block_mean_first_tenth=statistics.mean(
+                    listed[:first]),
+                listed_per_block_mean_rest=statistics.mean(listed[first:]))
+            print(f"{cell}: {kname} on the render's own "
+                  f"{'shadow' if any_hit else 'closest-hit'} casts: "
+                  f"{res['casts'][kind]}; {card}", flush=True)
+
+            # by bounce: pool-sized casts of one bucket's rays
+            pool = kept[0][0].shape[0]
+            rows = [torch.cat(x) for x in zip(*kept)]
+            buckets = {}
+            for nv in [0] + list(range(2, MAX_NV + 2)):
+                sel = torch.nonzero(rows[4] == nv)[:, 0]
+                if sel.numel() < pool // 4:
+                    continue
+                ray = tuple(x[sel[:pool]] for x in rows[:4])
+                name = 'done' if nv == 0 else (
+                    f'nv>={nv}' if nv > MAX_NV else f'nv={nv}')
+                row = sweep_row(scene, ray, any_hit, kernel, plain_fn, B, L,
+                                out_bytes)
+                row['share_of_render_rays'] = sel.numel() / rows[4].numel()
+                buckets[name] = row
+                print(f"{cell}: {kname} {kind}, {name}: {row}; {card}",
+                      flush=True)
+            res['casts'][kind]['by_bounce'] = buckets
+        del casts, rows, prepared
+
+        if cell != 'bigmesh-683':
+            continue
+        # ---- K5 and K6 at 2^18 rays, as chip_smoke.py [14] times them
+        big = PT.make_cornell_box(512, 1, 'mesh', triangles=triangles).to(dev)
+        rays = PT.general_rays(big, seed=13, device=dev)
+        Kb = big.sw_aabb.shape[0]
+        res['rays_2_18'] = {}
+        for any_hit, ray in ((False, rays['bounce']), (True, rays['shadow'])):
+            kind = 'any' if any_hit else 'closest'
+            for name, kern, pf, B2, L2, ob in (
+                    ('K5', kernels.sweep_resident, SW.sweep_resident_plain,
+                     SW.LIST_B, min(SW.LIST_LEN, Kb), 8),
+                    ('K6', kernels.sweep_list, SW.sweep_list_plain, SW.LANE_R,
+                     Kb, 16)):
+                row = sweep_row(big, ray, any_hit, kern, pf, B2, L2, ob)
+                res['rays_2_18'][f'{name} {kind}'] = row
+                which = 'shadow' if any_hit else 'bounce'
+                print(f"{cell} geometry, 2^18 {which} rays, {name}: {row}; "
+                      f"{card}", flush=True)
 
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, 'w') as f:
