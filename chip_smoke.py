@@ -48,19 +48,31 @@ exits non-zero and prints no final line:
     512x512 x 4 spp (median per-pixel relative difference < 1e-4, film
     means within 1%), 'vol_hg' and the submerged sphere-light scene at
     256x256 x 32 spp (the same, and the RMS difference of 8x8-pixel block
-    means over the film mean < 0.12); K8 and its plain form timed on
-    'vol' at 4 spp by CUDA events;
+    means over the film mean < 0.12), and 'vol' at the main path's last
+    launch, 512x512 x 64 spp from sample 192 (median < 1e-4, means within
+    1%); two launches give bit-equal films;
+    K8 and its plain form timed on 'vol' at 4 spp by CUDA events, K8 also
+    at the main path's 64 spp a launch, with its SIMT counters (the share
+    of warp lanes that hold a path in the loop's iterations, beside the
+    plain form's lockstep proxy) and the bound of the vertices they
+    count; film_sum_kernel (the ordered film sum of K8 and K9) bit-equal
+    to its plain form on buffers with non-finite samples at K8's and K9's
+    main-path shapes and at a padded stride, timed at 512x512 x 64 spp;
 11. the general volumetric engine (volpath._render_volpath_block) on the
     card at 128x128 x 4 spp: on 'vol' against K8, and on 'vol_glass' with
     K3 against it with the plain casts (it must launch K3 and not K8):
     median < 1e-4, means within 1%; loop iterations and wall time;
 12. kernel K9 (render_fused_grid_kernel) against its plain form on
     'hetvol' and 'hetvol_hg' (128x128x50 grids) at 128x128 x 2 spp and
-    on 'hetvol' at the main path's film, 768x576 x 1 spp: median
-    per-pixel relative difference < 1e-4, film means within 1%; K9
-    timed by CUDA events at 768x576 x 1 and 4 spp, its plain form at
-    768x576 x 1 spp (the plain form's counters give the work the bound
-    counts);
+    on 'hetvol' at the main path's film, 768x576 x 1 spp and x 4 spp
+    from sample 28 (the last items of the main path's launch): median
+    per-pixel relative difference < 1e-4, film means within 1%; two
+    launches give bit-equal films; K9 timed by CUDA events at 768x576 x
+    1 and 4 spp, its plain form at 768x576 x 1 spp (the plain form's
+    counters give the work the bound counts), and K9 at the main path's
+    32 spp, with its SIMT counters by stage (casts, tracking steps,
+    vertices; beside the plain form's lockstep proxy of the tracking
+    steps) and the bound of the work they count;
 13. the general event machine (volpath._render_volpath_block) on the card
     against K9 on 'hetvol' at 64x64 x 2 spp (4096 pixels, two whole
     2048-lane blocks, so K9 draws the engine's numbers): median < 1e-4,
@@ -107,8 +119,9 @@ main path of [6] or, for K4-K7, of [15], its largest difference from its plain f
 its plain form's time, its bound and what bounds it, and the time of a
 library call that computes the same function: none has one; K5, K6 and K7
 also carry their any-hit variant's numbers as `any_hit_*`, K5 and K6 their
-render-shape numbers as `render_*` and `render_any_hit_*`), and last the
-device line.
+render-shape numbers as `render_*` and `render_any_hit_*`, K8 and K9
+their main-path numbers as `render_*` with `render_spp` and
+`simt_efficiency`), and last the device line.
 `python3 chip_smoke.py --sweep-only` runs [1], [2], [14] and [15] and
 prints neither of the two last lines (a shorter run while working on the
 sweeps).
@@ -130,6 +143,13 @@ K8_SOURCE = 'lajolla_tpu_torch/csrc/volpath_kernels.cu'
 K8_REPLACES = 'lajolla_tpu/integrators/volpath_kernel.py:552'
 K9_SOURCE = 'lajolla_tpu_torch/csrc/volpath_grid_kernels.cu'
 K9_REPLACES = 'lajolla_tpu/integrators/volpath_grid_kernel.py:910'
+# film_sum_kernel replaces the film add inside K8's and K9's Pallas kernels
+FILM_SUM_REPLACES = 'lajolla_tpu/integrators/volpath_kernel.py:612'
+# The plain forms' 32-lane lockstep proxies of the per-thread designs that
+# K8 and K9 replaced (PERF.md section 5): lane vertices of K8, tracking
+# steps of K9, as per-lane totals.
+K8_LOCKSTEP_PROXY = 0.539
+K9_LOCKSTEP_PROXY = 0.174
 SWEEP_SOURCE = 'lajolla_tpu_torch/csrc/sweep_kernels.cu'
 SWEEP_REPLACES = dict(
     sweep_resolve='lajolla_tpu/ops/intersect_sweep.py:368',
@@ -264,6 +284,40 @@ def block_rms(got, want, b=8):
     a = got.reshape(h // b, b, w // b, b, 3).mean((1, 3))
     c = want.reshape(h // b, b, w // b, b, 3).mean((1, 3))
     return float(((a - c) ** 2).mean() ** 0.5 / c.mean())
+
+
+def kernel_alone_ms(torch, kernels, fn, reps):
+    """cuda_ms of fn() with kernels.film_sum left out (a (3, n) view of
+    the buffer in place of the film): the time of the kernel that fn
+    launches (its wrapper's buffer, counter and launch)."""
+    with mock.patch.object(kernels, 'film_sum',
+                           lambda buf, n, stride, nspp: buf[:n].T):
+        return cuda_ms(torch, fn, reps)
+
+
+def simt(counters, stage, lanes):
+    """Active lane-iterations over 32 x warp-iterations of a stage."""
+    passes = counters[stage]
+    return counters[lanes] / (32 * passes) if passes else 0.0
+
+
+def film_sum_agrees(torch, kernels, plain, dev, shapes):
+    """film_sum_kernel against its plain form, bit for bit, on random
+    buffers of each (n, stride, nspp) shape with every 97th sample given
+    a non-finite channel; prints one line and raises on a difference."""
+    for n, stride, nspp in shapes:
+        g = torch.Generator(device=dev).manual_seed(n + nspp)
+        buf = torch.rand((nspp * stride, 3), generator=g, device=dev)
+        bad = torch.arange(0, nspp * stride, 97, device=dev)
+        buf[bad, bad % 3] = torch.tensor(
+            [float('nan'), float('inf'), -float('inf')], device=dev)[bad % 3]
+        same = bool(torch.equal(kernels.film_sum(buf, n, stride, nspp),
+                                plain(buf, n, stride, nspp)))
+        print(f"[10] film_sum_kernel vs plain, {nspp} samples of {n} pixels "
+              f"at stride {stride}: bit-equal {same}")
+        if not same:
+            raise AssertionError("film_sum_kernel differs from its plain "
+                                 "form")
 
 
 def hits_agree(torch, label, got, want):
@@ -1040,13 +1094,19 @@ def main():
     # ---- 10. K8 against its plain form
     vol_opts = RenderOptions(integrator='volpath')
     vol512 = PT.make_cornell_box(512, variant='vol').to(dev)
-    for fixture, scene, spp, statistical in (
-            ('vol 512x512', vol512, 4, False),
+    # the main path's last K8 launch on vol-512 (256 spp of [6] in launches
+    # of volpath.VOLK_SPP_BLOCK samples): its items, through the counter,
+    # the buffer and the film sum, against the plain form
+    main_s0 = 256 - PV.VOLK_SPP_BLOCK
+    for fixture, scene, s0, spp, statistical in (
+            ('vol 512x512', vol512, 0, 4, False),
             ('vol_hg 256x256', PT.make_cornell_box(
-                256, variant='vol_hg').to(dev), 32, True),
+                256, variant='vol_hg').to(dev), 0, 32, True),
             ('submerged sphere lights 256x256', PC.compile_scene(
-                PT.submerged_sphere_builder(256)).to(dev), 32, True)):
-        img_k = PVK.render_fused_vol(scene, vol_opts, 0, 0, spp).cpu() \
+                PT.submerged_sphere_builder(256)).to(dev), 0, 32, True),
+            (f'vol 512x512 from sample {main_s0}', vol512, main_s0,
+             PV.VOLK_SPP_BLOCK, False)):
+        img_k = PVK.render_fused_vol(scene, vol_opts, 0, s0, spp).cpu() \
             .numpy() / spp
         vertices = []
         real_core = PVK._advance_vol_core
@@ -1058,7 +1118,7 @@ def main():
                              nee_p, act_in, *a, **k)
         t0 = time.perf_counter()
         with mock.patch.object(PVK, '_advance_vol_core', counting):
-            img_p = PVK.render_fused_vol_plain(scene, vol_opts, 0, 0, spp) \
+            img_p = PVK.render_fused_vol_plain(scene, vol_opts, 0, s0, spp) \
                 .cpu().numpy() / spp
         plain_s = time.perf_counter() - t0
         med, mean_rel, err = film_agreement(img_k, img_p)
@@ -1071,17 +1131,55 @@ def main():
                 (d8 < 0.12 or not statistical)):
             raise AssertionError(f"K8 disagrees with its plain form on "
                                  f"{fixture}")
-        if scene is vol512:
+        if scene is vol512 and s0 == 0:
             k8_err = err
             v = int(sum(vertices))
             k8_bound = bound(vertex_ops(scene, v) + v * OPS['vol_flight'],
                              table_bytes(scene) + 12 * 512 * 512)
-    k8_ms = cuda_ms(torch, lambda: PVK.render_fused_vol(
+    again = [PVK.render_fused_vol(vol512, vol_opts, 0, 0, 4)
+             for _ in range(2)]
+    same = bool(torch.equal(*again))
+    print(f"[10] K8 twice, vol 512x512 x 4 spp: films bit-equal {same}")
+    if not same:
+        raise AssertionError("two K8 launches gave different films")
+    k8_ms = kernel_alone_ms(torch, kernels, lambda: PVK.render_fused_vol(
         vol512, vol_opts, 0, 0, 4), 10)
     k8_plain_ms = cuda_ms(torch, lambda: PVK.render_fused_vol_plain(
         vol512, vol_opts, 0, 0, 4), 1)
     print(f"[10] K8 at 512x512 x 4 spp (vol): kernel {k8_ms:.3f} ms, plain "
           f"{k8_plain_ms:.1f} ms ({smi})")
+    # the main path's launch: 64 spp (volpath.VOLK_SPP_BLOCK)
+    spp = PV.VOLK_SPP_BLOCK
+    k8_main_ms = kernel_alone_ms(torch, kernels, lambda: PVK.render_fused_vol(
+        vol512, vol_opts, 0, 0, spp), 5)
+    k8_cnt = {}
+    PVK.render_fused_vol(vol512, vol_opts, 0, 0, spp, counters=k8_cnt)
+    v = k8_cnt['path_lanes']
+    k8_main_bound = bound(vertex_ops(vol512, v) + v * OPS['vol_flight'],
+                          table_bytes(vol512) + 12 * 512 * 512 * spp)
+    k8_simt = simt(k8_cnt, 'iterations', 'path_lanes')
+    print(f"[10] K8 at 512x512 x {spp} spp (vol): kernel {k8_main_ms:.3f} ms,"
+          f" bound {k8_main_bound[0]:.3f} ms ({k8_main_bound[1]}); counters "
+          f"{k8_cnt}: {v / (512 * 512 * spp):.3f} vertices a path, SIMT "
+          f"efficiency of the loop {k8_simt:.4f} (plain-form proxy, per-lane "
+          f"totals, {K8_LOCKSTEP_PROXY}), "
+          f"{k8_cnt['fetched_lanes'] / max(k8_cnt['fetches'], 1):.2f} lanes "
+          f"a fetch ({smi})")
+    if not v >= 512 * 512 * spp:
+        raise AssertionError("K8's counters count fewer vertices than paths")
+    n_main = 512 * 512
+    film_sum_agrees(torch, kernels, PVK.film_sum_plain, dev,
+                    ((n_main, n_main, spp), (768 * 576, 768 * 576, 32),
+                     (100000, 102400, 4)))
+    buf = torch.rand((spp * n_main, 3), device=dev)
+    fs_ms = cuda_ms(torch, lambda: kernels.film_sum(buf, n_main, n_main,
+                                                    spp), 20)
+    fs_plain_ms = cuda_ms(torch, lambda: PVK.film_sum_plain(
+        buf, n_main, n_main, spp), 3)
+    fs_bound = bound(0, 12 * n_main * spp + 12 * n_main)
+    print(f"[10] film_sum_kernel at 512x512 x {spp} spp: kernel "
+          f"{fs_ms:.4f} ms, plain {fs_plain_ms:.3f} ms, bound "
+          f"{fs_bound[0]:.4f} ms ({fs_bound[1]}) ({smi})")
 
     # ---- 11. the general volumetric engine on the card
     spp = 4
@@ -1147,9 +1245,9 @@ def main():
                                  f"{fixture}")
     # the main path's film: 768x576 = 216 whole 2048-lane blocks
     het768 = PT.make_cornell_box((768, 576), 1, 'hetvol').to(dev)
-    k9_ms4 = cuda_ms(torch, lambda: PGK.render_fused_grid(
+    k9_ms4 = kernel_alone_ms(torch, kernels, lambda: PGK.render_fused_grid(
         het768, vol_opts, 0, 0, 4), 3)
-    k9_ms = cuda_ms(torch, lambda: PGK.render_fused_grid(
+    k9_ms = kernel_alone_ms(torch, kernels, lambda: PGK.render_fused_grid(
         het768, vol_opts, 0, 0, 1), 5)
     img_k = PGK.render_fused_grid(het768, vol_opts, 0, 0, 1).cpu().numpy()
     stats = {}
@@ -1167,18 +1265,69 @@ def main():
                              "768x576")
     n9 = 768 * 576
     grid_bytes = het768.fp_grid.numel() * 4 + het768.svox_data.shape[0] * 8
-    k9_bound = bound(
-        stats['casts'] * (het768.fp_woop.shape[0] * OPS['closest_test'] +
-                          het768.meta.num_spheres * OPS['sphere_test']) +
-        stats['track_steps'] * OPS['track_step'] +
-        stats['vertices'] * OPS['vertex'],
-        table_bytes(het768) + grid_bytes + 12 * n9)
+
+    def k9_work_bound(work, spp):
+        return bound(
+            work['casts'] * (het768.fp_woop.shape[0] * OPS['closest_test'] +
+                             het768.meta.num_spheres * OPS['sphere_test']) +
+            work['track_steps'] * OPS['track_step'] +
+            work['vertices'] * OPS['vertex'],
+            table_bytes(het768) + grid_bytes + 12 * n9 * spp)
+    k9_bound = k9_work_bound(stats, 1)
     print(f"[12] K9 at 768x576 (hetvol, 128x128x50 grid): kernel "
           f"{k9_ms:.3f} ms at 1 spp, {k9_ms4:.3f} ms at 4 spp; plain form "
           f"{k9_plain_ms:.1f} ms at 1 spp; per path (plain form's counts) "
           f"{stats['vertices'] / n9:.3f} vertices, {stats['casts'] / n9:.3f}"
           f" casts, {stats['track_steps'] / n9:.3f} tracking steps; bound "
           f"{k9_bound[0]:.3f} ms ({k9_bound[1]}) ({smi})")
+    # the last samples of the main path's launch (32 spp from 0): items
+    # s0*n_q .. 32*n_q - 1, through the counter, the padded buffer and the
+    # film sum, against the plain form
+    s0, spp = 28, 4
+    img_k = PGK.render_fused_grid(het768, vol_opts, 0, s0, spp).cpu().numpy()
+    t0 = time.perf_counter()
+    img_p = PGK.render_fused_grid_plain(het768, vol_opts, 0, s0, spp) \
+        .cpu().numpy()
+    plain_s = time.perf_counter() - t0
+    med, mean_rel, err = film_agreement(img_k / spp, img_p / spp)
+    print(f"[12] K9 vs plain, hetvol 768x576 x {spp} spp from sample {s0}: "
+          f"median rel {med:.3g}, mean rel {mean_rel:.3g}, max |diff| "
+          f"{err:.3g}; means {img_k.mean() / spp:.6f} "
+          f"{img_p.mean() / spp:.6f}; pixels bit-equal "
+          f"{float((img_k == img_p).all(-1).mean()):.6f}; plain form "
+          f"{plain_s:.2f} s")
+    if not (med < 1e-4 and mean_rel < 0.01):
+        raise AssertionError(f"K9 disagrees with its plain form on hetvol "
+                             f"768x576 from sample {s0}")
+    again = [PGK.render_fused_grid(het768, vol_opts, 0, 0, 1)
+             for _ in range(2)]
+    same = bool(torch.equal(*again))
+    print(f"[12] K9 twice, hetvol 768x576 x 1 spp: films bit-equal {same}")
+    if not same:
+        raise AssertionError("two K9 launches gave different films")
+    # the main path's launch: the whole film's 32 spp in one
+    spp = 32
+    k9_main_ms = kernel_alone_ms(torch, kernels, lambda: PGK.render_fused_grid(
+        het768, vol_opts, 0, 0, spp), 3)
+    k9_cnt = {}
+    PGK.render_fused_grid(het768, vol_opts, 0, 0, spp, counters=k9_cnt)
+    k9_main_bound = k9_work_bound(k9_cnt, spp)
+    k9_simt = {stage: simt(k9_cnt, passes, lanes) for stage, passes, lanes in (
+        ('loop', 'iterations', 'path_lanes'),
+        ('casts', 'cast_passes', 'casts'),
+        ('track_steps', 'track_passes', 'track_steps'),
+        ('vertices', 'vertex_passes', 'vertices'))}
+    paths = n9 * spp
+    print(f"[12] K9 at 768x576 x {spp} spp (hetvol): kernel "
+          f"{k9_main_ms:.3f} ms, bound "
+          f"{k9_main_bound[0]:.3f} ms ({k9_main_bound[1]}); counters {k9_cnt};"
+          f" per path {k9_cnt['vertices'] / paths:.3f} vertices, "
+          f"{k9_cnt['casts'] / paths:.3f} casts, "
+          f"{k9_cnt['track_steps'] / paths:.3f} tracking steps; SIMT "
+          f"efficiency by stage {k9_simt} (plain-form proxy of the tracking "
+          f"steps, per-lane totals, {K9_LOCKSTEP_PROXY}) ({smi})")
+    if not k9_cnt['vertices'] >= paths:
+        raise AssertionError("K9's counters count fewer vertices than paths")
 
     # ---- 13. the general event machine on the card
     spp = 2
@@ -1223,11 +1372,13 @@ def main():
 
     sweep_lines = sweep_phases(torch, np, dev, smi)
 
-    def line(name, source, replaces, launched, err, ms, plain_ms, bnd):
+    def line(name, source, replaces, launched, err, ms, plain_ms, bnd,
+             **more):
         return {"name": name, "route": "cuda", "source": source,
                 "replaces": replaces, "launches": launched,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
-                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None}
+                "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
+                **more}
 
     print(json.dumps({"kernels": [
         line("render_fused_kernel", KERNEL_SOURCE,
@@ -1244,10 +1395,17 @@ def main():
              k3['occ_plain_ms'], k3['occ_bound']),
         line("render_fused_vol_kernel", K8_SOURCE, K8_REPLACES,
              launches['render_fused_vol'], k8_err, k8_ms, k8_plain_ms,
-             k8_bound),
+             k8_bound, render_spp=PV.VOLK_SPP_BLOCK, render_ms=k8_main_ms,
+             render_bound_ms=k8_main_bound[0],
+             render_bound_by=k8_main_bound[1], simt_efficiency=k8_simt),
         line("render_fused_grid_kernel", K9_SOURCE, K9_REPLACES,
              launches['render_fused_grid'], k9_err, k9_ms, k9_plain_ms,
-             k9_bound)] + sweep_lines}))
+             k9_bound, render_spp=32, render_ms=k9_main_ms,
+             render_bound_ms=k9_main_bound[0],
+             render_bound_by=k9_main_bound[1], simt_efficiency=k9_simt),
+        line("film_sum_kernel", K8_SOURCE, FILM_SUM_REPLACES,
+             launches['film_sum'], 0.0, fs_ms, fs_plain_ms, fs_bound)]
+        + sweep_lines}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": name,
         "count": torch.cuda.device_count()}}))

@@ -372,21 +372,29 @@ struct Surf {
   float ub, vb;        // barycentrics in the record's own triangle
 };
 
-// The closest hit in (tnear, tfar), or beyond tnear where FAR is false.
+// The scan of a closest hit, without its records: what K9 carries from a
+// cast across a free flight's tracking steps.
+struct HitScan {
+  float t;             // closest distance, inf on a miss
+  float ub, vb;        // barycentrics in the record's own triangle
+  int prim;            // the hit triangle (found only)
+  int sph;             // the winning sphere, -1 where no sphere is closer
+  bool found;          // a triangle is hit
+};
+
+// The scan of the closest hit in (tnear, tfar), or beyond tnear where FAR
+// is false.
 template <bool QUADS, bool SPH, bool FAR>
-__device__ __forceinline__ void closest_hit_range(const Tables& tb, V3 o,
-                                                  V3 d, float tnear,
-                                                  float tfar, Surf& s) {
-  const int T = tb.t;
+__device__ __forceinline__ void closest_scan(const Tables& tb, V3 o, V3 d,
+                                             float tnear, float tfar,
+                                             HitScan& h) {
   float t_tri, qb;
   int idx;
-  intersect_range<QUADS, FAR>(tb, o, d, tnear, tfar, t_tri, idx, s.ub, s.vb,
+  intersect_range<QUADS, FAR>(tb, o, d, tnear, tfar, t_tri, idx, h.ub, h.vb,
                               qb);
-  const bool found = t_tri < inf_f();
-  s.t = t_tri;
-  s.sph_win = false;
-  s.found = found;
-  s.srow = nullptr;
+  h.found = t_tri < inf_f();
+  h.t = t_tri;
+  h.sph = -1;
   if (SPH) {
     float t_sph = inf_f();
     int sidx = 0;
@@ -397,25 +405,47 @@ __device__ __forceinline__ void closest_hit_range(const Tables& tb, V3 o,
         sidx = k;
       }
     }
-    s.sph_win = t_sph < t_tri;
-    s.t = mn(t_tri, t_sph);
-    if (s.sph_win) s.srow = tb.sph + 24 * sidx;
+    if (t_sph < t_tri) h.sph = sidx;
+    h.t = mn(t_tri, t_sph);
   }
   int prim = tb.cast_src[idx];
   if (QUADS) {
-    bool back = qb > 0.0f && s.ub + s.vb > 1.0f;
+    bool back = qb > 0.0f && h.ub + h.vb > 1.0f;
     if (back) {
       prim = tb.cast_alt[idx];
-      float u2 = 1.0f - s.vb, v2 = s.ub + s.vb - 1.0f;
-      s.ub = u2;
-      s.vb = v2;
+      float u2 = 1.0f - h.vb, v2 = h.ub + h.vb - 1.0f;
+      h.ub = u2;
+      h.vb = v2;
     }
   }
-  s.prim = prim;
+  h.prim = prim;
+}
+
+// The records of a scanned hit.
+__device__ __forceinline__ void surf_of(const Tables& tb, const HitScan& h,
+                                        Surf& s) {
+  const int T = tb.t;
+  s.t = h.t;
+  s.sph_win = h.sph >= 0;
+  s.found = h.found;
+  s.prim = h.prim;
+  s.srow = s.sph_win ? tb.sph + 24 * h.sph : nullptr;
+  s.ub = h.ub;
+  s.vb = h.vb;
   // zero on a miss, like the TPU kernels' one-hot row
 #pragma unroll
   for (int k = 0; k < 34; ++k)
-    s.rw[k] = found ? __ldg(tb.tri + k * T + prim) : 0.0f;
+    s.rw[k] = h.found ? __ldg(tb.tri + k * T + h.prim) : 0.0f;
+}
+
+// The closest hit in (tnear, tfar), or beyond tnear where FAR is false.
+template <bool QUADS, bool SPH, bool FAR>
+__device__ __forceinline__ void closest_hit_range(const Tables& tb, V3 o,
+                                                  V3 d, float tnear,
+                                                  float tfar, Surf& s) {
+  HitScan h;
+  closest_scan<QUADS, SPH, FAR>(tb, o, d, tnear, tfar, h);
+  surf_of(tb, h, s);
 }
 
 template <bool QUADS, bool SPH>

@@ -17,30 +17,43 @@
 // and at most one vertex, because every nesting level of a lockstep loop
 // costs the block's longest. It fetches the supervoxel majorants by a
 // one-hot MXU matmul and the density by an MXU matmul-gather, since Mosaic
-// has no per-lane gather. Here one thread owns one lane of the padded pool
-// and walks its own path with nested loops — bounce, main free flight,
-// vertex, then the shadow chain of up to MAX_SHADOW_SEGMENTS segments, each
-// with its own ratio tracking — and a warp pays only for its own lanes'
-// loops. Every draw is a position-independent counter-hash cell (the
-// (item, bounce) root hb, the flight's iteration index, the segment
-// index), so the nested walk draws the event machine's numbers. The
+// has no per-lane gather. Here persistent warps fill the card
+// (work_queue.cuh) and each lane runs its own flat event machine, one
+// stage of its own state an iteration: a cast (the main ray, or a shadow
+// segment toward the light point), one tracking step of the current free
+// flight (`ff_micro`: a supervoxel DDA step and one trilinear density
+// read), or the vertex. Between the stages the lane carries the scan of
+// its closest hit (path_advance.cuh HitScan: distance, prim, barycentrics,
+// sphere), and shades it at the vertex. A lane whose path ends writes its
+// item's radiance to out[item - s0*n_q] and takes the next work item from
+// a device counter (one atomicAdd a warp for all its asking lanes). So no
+// lane waits for its warp's longest flight, vertex loop or sample; only
+// the queue's tail does. The warp's schedule is plain flattening, chosen
+// by measurement (tools/tune_torch_vol_schedule.py, PERF.md): every
+// iteration runs every stage that holds a lane (the while-while pattern of
+// Aila & Laine 2009, the tracking step alone while enough lanes track,
+// measured no faster). film_sum_kernel (volpath_kernels.cu) adds each
+// pixel's samples in sample order, so the film does not depend on which
+// thread ran a path or when. Every draw is a position-independent counter-hash
+// cell (the (item, bounce) root hb, the flight's iteration index, the
+// segment index), so the machine draws the event machine's numbers. The
 // density is an fp32 trilinear read of the (Z*Y, X) grid, its 8 corners
 // through the read-only cache, interpolated along x, then y, then z, as
 // the plain form does; the (2, R) supervoxel [majorant | empty-skip] table
-// (R <= 512) sits in shared memory.
+// (R <= 512) sits in shared memory, loaded once a block.
 //
-// Work items: lane k of the pool of n_q = ceil(n / 2048) * 2048 lanes owns
-// pixel k and runs items k + s * n_q, s = s0 .. s0 + nspp - 1 (int64), in
-// order; lanes k >= n do nothing. Its film column sums the samples whose
-// radiance is finite in every channel.
+// Work items: the pool of n_q = ceil(n / 2048) * 2048 lanes; item s0*n_q +
+// k belongs to lane k mod n_q of the pool, which owns pixel k mod n_q;
+// items of lanes >= n are skipped at the fetch (their rows of out are not
+// written).
 //
-// What bounds it: fp32 ALU work per thread (the casts over <= 192 prims,
-// the DDA step, the 8-corner density read per tracking step, the BSDFs)
-// and divergence between the threads of a warp, whose tracking loops and
-// path lengths differ. The bytes are a few MB of tables (the 3.3 MB grid
-// of the hetvol class stays in the 50 MB L2). The design takes the
-// per-thread nesting for the lockstep event machine; regrouping lanes by
-// event (a wavefront) is later work.
+// What bounds it: latency (the 8 L2 reads of a tracking step's density,
+// the table reads of the casts, the spilled state), which only many warps
+// an SM hide (kMinBlocks); fp32 ALU work per thread (the casts over <= 192
+// prims, the DDA step, the 8-corner density read, the BSDFs); and
+// divergence between the stages that a warp's lanes are in. The bytes are
+// a few MB of tables (the 3.3 MB grid of the hetvol class stays in the 50
+// MB L2) and 12 bytes an item for the per-item buffer.
 //
 // Numerics follow the plain form operation for operation in fp32; the file
 // is built with -fmad=false so that no multiply-add is contracted (the
@@ -57,6 +70,7 @@
 #include "camera.cuh"
 #include "path_advance.cuh"
 #include "volpath_common.cuh"
+#include "work_queue.cuh"
 
 namespace lj {
 
@@ -94,6 +108,20 @@ using lj::v3;
 using lj::VolSalts;
 
 constexpr int kThreads = 128;
+// At least 10 blocks an SM: at most 48 registers a thread, the rest of the
+// flat machine's state spilled to local memory (~950 B, L1-resident). The
+// kernel waits on latency, and 40 warps an SM beat 16 with no spills (128
+// registers) by 1.4x (tools/tune_torch_vol_schedule.py, PERF.md).
+constexpr int kMinBlocks = 10;
+constexpr int kWarps = kThreads / 32;
+// A lane's stage: waiting for a work item, a cast (main ray or shadow
+// segment), a free flight's tracking steps, the vertex.
+enum Stage : int { kFetch, kCast, kTrack, kVertex };
+// SIMT counter slots, in pairs (warp passes, working lanes): loop
+// iterations with a path in some lane; casts; tracking steps; vertices;
+// then the SM cycles the warps spent in the cast, tracking and vertex
+// stages.
+constexpr int kStats = 11;
 
 // volpath_grid_kernel._slab: (t0 clamped at 0, t1) against the grid's box.
 __device__ __forceinline__ void slab(const GridMedium& gm, V3 o, V3 d,
@@ -262,23 +290,17 @@ __device__ __forceinline__ void ff_micro(const GridMedium& gm,
   f.dn = dn;
 }
 
-// A flight from scratch to its end: reset, the trivial test, then steps
-// while it goes on (the event machine's entry plus its K_STEPS groups).
-__device__ __forceinline__ void fly(const GridMedium& gm, const float* sv,
-                                    const float* __restrict__ grid,
-                                    uint32_t it0, bool trivial, bool wsc, V3 o,
-                                    V3 d, float t_hit, uint32_t hs, Flight& f,
-                                    float& rho_sc) {
+// A flight from scratch: reset, and the trivial test (the event machine's
+// entry); ff_micro then steps it while !f.dn && f.it < max_null.
+__device__ __forceinline__ void flight_start(bool trivial, Flight& f) {
   f.t = 0.0f;
   f.it = 0;
   f.tr = f.dp = f.np = 1.0f;
   f.sc = false;
   f.dn = trivial;
-  while (!f.dn && f.it < gm.max_null)
-    ff_micro(gm, sv, grid, it0, wsc, o, d, t_hit, hs, f, rho_sc);
 }
 
-// One cast with the record fields K9 reads: hit point, shading frame,
+// A cast's hit with the record fields K9 reads: hit point, shading frame,
 // emission, material, the interface's media.
 struct Hit {
   lj::Surf s;
@@ -288,14 +310,16 @@ struct Hit {
   int int_med, ext_med;
 };
 
-template <bool QUADS, bool SPH>
-__device__ __forceinline__ void cast(const lj::Tables& tb, V3 o, V3 d,
-                                     float tnear, float tfar, Hit& r) {
-  lj::closest_hit_range<QUADS, SPH, true>(tb, o, d, tnear, tfar, r.s);
+// The Hit of the cast of (o, d) whose scan is h0.
+template <bool SPH>
+__device__ __forceinline__ void hit_of(const lj::Tables& tb,
+                                       const lj::HitScan& h0, V3 o, V3 d,
+                                       Hit& r) {
+  const int T = tb.t;
+  lj::surf_of(tb, h0, r.s);
   r.valid = r.s.t < lj::inf_f();
   r.p = v3(o.x + r.s.t * d.x, o.y + r.s.t * d.y, o.z + r.s.t * d.z);
   lj::shade<SPH>(r.s, r.p, r.h);
-  const int T = tb.t;
   auto row = [&](int k) {
     return r.s.found ? __ldg(tb.tri + k * T + r.s.prim) : 0.0f;
   };
@@ -321,50 +345,188 @@ __device__ __forceinline__ float hg_row(const GridMedium& gm, float c) {
   return gm.hg_num / mx(t * sqrtf(t), 1e-20f);
 }
 
-// K9: one thread per lane of the padded pool; film is (3, n).
+// K9: persistent warps over the items s0*n_q .. s0*n_q + total - 1; out is
+// the (total, 3) radiance of each item of a film lane, in item order.
 template <int MATS, bool QUADS, bool SPH, bool HG>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kMinBlocks)
 render_fused_grid_kernel(lj::Tables tb, Camera cam, GridMedium gm,
                          VolSalts salt, const float* __restrict__ svox,
                          const float* __restrict__ grid, int n, int w,
-                         long long n_q, uint32_t su, long long s0, int nspp,
-                         float* __restrict__ film) {
+                         long long n_q, uint32_t su, long long s0,
+                         long long total,
+                         unsigned long long* __restrict__ counter,
+                         float* __restrict__ out,
+                         unsigned long long* __restrict__ stats) {
   using namespace lj;
   __shared__ float sv[2 * kMaxSvoxRows];
+  __shared__ SimtCounts<kWarps, kStats> cnt;
   for (int i = threadIdx.x; i < 2 * gm.rows; i += blockDim.x)
     sv[i] = __ldg(svox + i);
   __syncthreads();
-  const int lane = blockIdx.x * blockDim.x + threadIdx.x;
-  if (lane >= n) return;   // padding lanes of the pool start done
-  const float px = (float)(lane % w), py = (float)(lane / w);
+  cnt.zero(stats);
   const float eps_s = tb.eps_shadow;
   const V3 alb = v3(gm.albedo[0], gm.albedo[1], gm.albedo[2]);
-  V3 acc = v3(0.0f, 0.0f, 0.0f);
-  float rho_sc = 0.0f;       // the latched density (ff_rho), kept per lane
-  for (long long s = s0; s < s0 + nspp; ++s) {
-    const long long item = lane + s * n_q;
-    V3 org, d;
-    primary(cam, su, item, px, py, org, d);
-    int med = gm.cam_med;
-    V3 T = v3(1.0f, 1.0f, 1.0f), L = v3(0.0f, 0.0f, 0.0f);
-    float dir_pdf = 0.0f, mtp = 1.0f;
-    V3 nee_p = org;
-    rho_sc = 0.0f;
-    for (int bounces = 0;;) {
-      const uint32_t hb = pcg_hash((uint32_t)item ^ pcg_hash((uint32_t)bounces ^ su));
-      const bool in_medium = med >= 0;
-      // ---- main cast and free flight
-      Hit hm;
-      cast<QUADS, SPH>(tb, org, d, tb.eps_isect, 1e30f, hm);
-      const bool valid = hm.valid;
-      const float t_hit_main = valid ? hm.s.t : inf_f();
-      const bool ff_trivial = med < 0 || !slab_hit(gm, org, d, t_hit_main) ||
-                              gm.maxval <= 0.0f;
-      Flight f;
-      fly(gm, sv, grid, salt.it0, ff_trivial, in_medium, org, d, t_hit_main,
-          pcg_hash(hb + salt.ff), f, rho_sc);
+  const V3 zero3 = v3(0.0f, 0.0f, 0.0f);
+  int stage = kFetch;
+  bool shadow = false;      // the cast / flight is a shadow segment
+  bool drained = false;     // the counter has passed the last item (warp)
+  long long c = 0;          // the lane's item, as its row of out
+  // the path
+  V3 org = zero3, d = zero3, T = zero3, L = zero3, nee_p = zero3;
+  float dir_pdf = 0.0f, mtp = 0.0f;
+  float rho_sc = 0.0f;      // the latched density (ff_rho)
+  int med = 0, bounces = 0;
+  // the free flight: its state, hash root, end and whether it may scatter
+  Flight f;
+  flight_start(true, f);
+  uint32_t f_hs = 0u;
+  float f_thit = 0.0f;
+  bool f_wsc = false;
+  HitScan hm0;              // the scan of the main ray's closest hit
+  hm0.t = hm0.ub = hm0.vb = 0.0f;
+  hm0.prim = 0;
+  hm0.sph = -1;
+  hm0.found = false;
+  // the shadow chain: segment origin, medium, products, index; the light
+  // point and direction, the NEE hash root and the completion's factors
+  V3 sh_p = zero3, lp = zero3, dl = zero3, cb = zero3, tsc = zero3;
+  int sh_med = 0, seg = 0, sg_mednext = 0;
+  float sh_T = 1.0f, sh_pn = 1.0f, sh_pd = 1.0f, pdfb = 0.0f, pdfd = 0.0f;
+  uint32_t nb_hs = 0u;
+  bool v_active = false, sg_valid = false, sg_blocked = false;
 
-      // ---- the vertex
+  for (;;) {
+    // ---- fetch: lanes without a path take the next items
+    if (!drained) {
+      long long mine = 0;
+      const long long next = fetch_items(counter, stage == kFetch, mine);
+      if (stage == kFetch && next >= 0 && mine < total) {
+        const long long k = mine % n_q;      // the pool's lane (s0*n_q % n_q == 0)
+        if (k < n) {                         // padding lanes are skipped
+          c = mine;
+          primary(cam, su, s0 * n_q + c, (float)(k % w), (float)(k / w), org,
+                  d);
+          med = gm.cam_med;
+          T = v3(1.0f, 1.0f, 1.0f);
+          L = zero3;
+          dir_pdf = 0.0f;
+          mtp = 1.0f;
+          nee_p = org;
+          rho_sc = 0.0f;
+          bounces = 0;
+          shadow = false;
+          stage = kCast;
+        }
+      }
+      drained = next >= total;
+    }
+    const bool live = stage != kFetch;
+    if (__ballot_sync(kFullMask, live) == 0u) {
+      if (drained) break;
+      continue;
+    }
+    cnt.pass(stats, 0, live);
+
+    // ---- a cast: the main ray, or shadow segment `seg` toward the light
+    // point; then the flight's start
+    long long t0 = cnt.stamp(stats);
+    cnt.pass(stats, 2, stage == kCast);
+    if (stage == kCast) {
+      const long long item = s0 * n_q + c;
+      if (!shadow) {
+        const uint32_t hb = pcg_hash((uint32_t)item ^ pcg_hash((uint32_t)bounces ^ su));
+        closest_scan<QUADS, SPH, true>(tb, org, d, tb.eps_isect, 1e30f, hm0);
+        const bool valid = hm0.t < inf_f();
+        f_thit = valid ? hm0.t : inf_f();
+        f_wsc = med >= 0;
+        f_hs = pcg_hash(hb + salt.ff);
+        flight_start(med < 0 || !slab_hit(gm, org, d, f_thit) ||
+                         gm.maxval <= 0.0f,
+                     f);
+      } else {
+        const float lx = lp.x - sh_p.x, ly = lp.y - sh_p.y, lz = lp.z - sh_p.z;
+        const float dist_l = sqrtf(mx(lx * lx + ly * ly + lz * lz, 1e-20f));
+        HitScan h0;
+        closest_scan<QUADS, SPH, true>(tb, sh_p, dl, eps_s,
+                                       tb.shadow_far_scale * dist_l, h0);
+        Hit hs;
+        hit_of<SPH>(tb, h0, sh_p, dl, hs);
+        const float sg_t = hs.valid ? hs.s.t : dist_l;
+        const bool sg_opaque = hs.valid && hs.mat_ok;
+        const bool sg_dblock = tb.max_depth != -1 && hs.valid &&
+                               (bounces - 1 + seg + 1) >= tb.max_depth;
+        sg_mednext = cross_medium(hs, dl, sh_med);
+        sg_valid = hs.valid;
+        sg_blocked = sg_opaque || sg_dblock;
+        f_thit = sg_t;
+        f_wsc = false;
+        f_hs = pcg_hash(nb_hs ^ pcg_hash((uint32_t)seg + salt.nee_seg));
+        flight_start(sh_med < 0 || !slab_hit(gm, sh_p, dl, sg_t) ||
+                         gm.maxval <= 0.0f,
+                     f);
+      }
+      stage = kTrack;
+    }
+    cnt.cycles(stats, 8, t0);
+
+    // ---- one tracking step of the flight; at its end (at once for a
+    // trivial flight) the vertex, or the segment's end: the next segment,
+    // or the NEE completion
+    t0 = cnt.stamp(stats);
+    cnt.pass(stats, 4, stage == kTrack && !f.dn && f.it < gm.max_null);
+    if (stage == kTrack) {
+      if (!f.dn && f.it < gm.max_null)
+        ff_micro(gm, sv, grid, salt.it0, f_wsc, shadow ? sh_p : org,
+                 shadow ? dl : d, f_thit, f_hs, f, rho_sc);
+      if (f.dn || f.it >= gm.max_null) {
+        if (!shadow) {
+          stage = kVertex;
+        } else {
+          if (sh_med >= 0) {
+            sh_T = sh_T * f.tr;
+            sh_pn = sh_pn * f.np;
+            sh_pd = sh_pd * f.dp;
+          }
+          const bool cont = sg_valid && !sg_blocked && seg + 1 < gm.max_segments;
+          if (cont) {
+            sh_med = sg_mednext;
+            sh_p = v3(sh_p.x + f_thit * dl.x, sh_p.y + f_thit * dl.y,
+                      sh_p.z + f_thit * dl.z);
+            seg += 1;
+            stage = kCast;
+          } else {
+            // NEE completion
+            const bool ok = !sg_blocked && sh_T > 0.0f;
+            const float pdf_nee = pdfb * sh_pn;
+            const float ipn = mx(pdf_nee, 1e-30f);
+            const float pdf_dir = pdfd * sh_pd;
+            const float wmis = (pdf_nee * pdf_nee) /
+                               mx(pdf_nee * pdf_nee + pdf_dir * pdf_dir, 1e-30f);
+            const V3 nee_out = ok ? v3(sh_T * cb.x / ipn * wmis,
+                                       sh_T * cb.y / ipn * wmis,
+                                       sh_T * cb.z / ipn * wmis)
+                                  : zero3;
+            L = v3(L.x + tsc.x * nee_out.x, L.y + tsc.y * nee_out.y,
+                   L.z + tsc.z * nee_out.z);
+            if (max3(nee_out) > 0.0f) nee_p = org;
+            shadow = false;
+            stage = v_active && bounces < tb.max_cap ? kCast : kFetch;
+          }
+        }
+      }
+    }
+    cnt.cycles(stats, 9, t0);
+
+    // ---- the vertex
+    t0 = cnt.stamp(stats);
+    cnt.pass(stats, 6, stage == kVertex);
+    if (stage == kVertex) {
+      const uint32_t hb = pcg_hash((uint32_t)(s0 * n_q + c) ^
+                                   pcg_hash((uint32_t)bounces ^ su));
+      const bool in_medium = med >= 0;
+      Hit hm;
+      hit_of<SPH>(tb, hm0, org, d, hm);
+      const bool valid = hm.valid;
       const float trans = in_medium ? f.tr : 1.0f;
       const float tdp = in_medium ? f.dp : 1.0f;
       const float tnp_v = in_medium ? f.np : 1.0f;
@@ -372,7 +534,7 @@ render_fused_grid_kernel(lj::Tables tb, Camera cam, GridMedium gm,
       const float mtp_v = in_medium ? mtp * tdp : mtp;
       bool active = true;
       if (!in_medium && !valid) {       // vacuum miss: the path's radiance goes
-        L = v3(0.0f, 0.0f, 0.0f);
+        L = zero3;
         active = false;
       }
       const V3 new_org = scatter ? v3(org.x + d.x * f.t, org.y + d.y * f.t,
@@ -385,7 +547,7 @@ render_fused_grid_kernel(lj::Tables tb, Camera cam, GridMedium gm,
 
       // emission + MIS against the cached NEE origin
       const bool hit_light = active && !scatter && valid && hm.h.h_light >= 0.0f;
-      const V3 le = dot3(ng, wi) > 0.0f ? hm.h.le : v3(0.0f, 0.0f, 0.0f);
+      const V3 le = dot3(ng, wi) > 0.0f ? hm.h.le : zero3;
       const float dpx = hm.p.x - nee_p.x, dpy = hm.p.y - nee_p.y,
                   dpz = hm.p.z - nee_p.z;
       const float dist2p = mx(dpx * dpx + dpy * dpy + dpz * dpz, 1e-20f);
@@ -458,37 +620,31 @@ render_fused_grid_kernel(lj::Tables tb, Camera cam, GridMedium gm,
       const V3 thr_sf = v3(T_v.x * f2.x / ip2, T_v.y * f2.y / ip2,
                            T_v.z * f2.z / ip2);
 
-      // NEE set-up: light pick, point and the direction-independent factors
+      // NEE set-up: light pick, point and the direction-independent
+      // factors, for every lane as the plain form does (a K9 whose lanes
+      // skip the samplers and this set-up whose results they drop
+      // measured slower: PERF.md)
       const bool with_nee = do_scatter || do_surface;
       const uint32_t hb_eff = do_surface ? pcg_hash(hb + salt.surf_nee) : hb;
-      const uint32_t nb_hs = pcg_hash(hb_eff + salt.nee);
+      const uint32_t nb_hs_v = pcg_hash(hb_eff + salt.nee);
       LightSample ls;
-      sample_light<SPH>(tb, new_org, u_dim(nb_hs, 0), u_dim(nb_hs, 1),
-                        u_dim(nb_hs, 2), u_dim(nb_hs, 3), ls);
-      const V3 dl = ls.dl;
-      const float ln_dl = -dot3(dl, ls.ln);
+      sample_light<SPH>(tb, new_org, u_dim(nb_hs_v, 0), u_dim(nb_hs_v, 1),
+                        u_dim(nb_hs_v, 2), u_dim(nb_hs_v, 3), ls);
+      const float ln_dl = -dot3(ls.dl, ls.ln);
       const float jac_n = mx(ln_dl, 0.0f) / ls.dist2;
-      const V3 le3 = ln_dl > 0.0f ? ls.l_int : v3(0.0f, 0.0f, 0.0f);
-      const float pdfb = ls.l_pmf * ls.p1_area;
+      const V3 le3 = ln_dl > 0.0f ? ls.l_int : zero3;
       V3 f_bs;
       float pdf_bs;
-      eval_pdf<MATS>(wi, dl, fn, ng, hm.h.m, f_bs, pdf_bs);
-      const float ph_nee = (HG && gm.hg_sample) ? hg_row(gm, dot3(wi, dl)) : kInv4Pi;
-      const V3 f_sel = do_surface ? (pdf_bs > 0.0f ? f_bs : v3(0.0f, 0.0f, 0.0f))
+      eval_pdf<MATS>(wi, ls.dl, fn, ng, hm.h.m, f_bs, pdf_bs);
+      const float ph_nee = (HG && gm.hg_sample) ? hg_row(gm, dot3(wi, ls.dl)) : kInv4Pi;
+      const V3 f_sel = do_surface ? (pdf_bs > 0.0f ? f_bs : zero3)
                                   : v3(ph_nee, ph_nee, ph_nee);
-      const V3 cb = v3(f_sel.x * le3.x * jac_n, f_sel.y * le3.y * jac_n,
-                       f_sel.z * le3.z * jac_n);
-      const float pdfd = (do_surface ? pdf_bs : ph_nee) * jac_n;
-      const V3 tsc = do_scatter ? v3(T_v.x * sigma_s.x, T_v.y * sigma_s.y,
-                                     T_v.z * sigma_s.z)
-                                : T_v;
 
       // merge the continuation
       V3 d_next = d;
       if (scatter && do_scatter) d_next = pdir;
       if (do_surface) d_next = dir_out;
       V3 T_n = do_scatter ? thr_sc : (do_surface ? thr_sf : T_v);
-      const int med_vertex = med;
       const int medium_n = pass_through ? cross_medium(hm, d, med) : med;
       const float dir_pdf_n = do_scatter ? ph_pdf : dir_pdf;
       const float mtp_n = do_scatter ? 1.0f : mtp_v;
@@ -503,6 +659,24 @@ render_fused_grid_kernel(lj::Tables tb, Camera cam, GridMedium gm,
         T_n = v3(T_n.x / q, T_n.y / q, T_n.z / q);
       }
 
+      // the shadow chain's start: segment 0 from the new origin in the
+      // vertex's medium, toward the light point
+      sh_p = new_org;
+      sh_med = med;
+      sh_T = sh_pn = sh_pd = 1.0f;
+      seg = 0;
+      lp = ls.lp;
+      dl = ls.dl;
+      nb_hs = nb_hs_v;
+      cb = v3(f_sel.x * le3.x * jac_n, f_sel.y * le3.y * jac_n,
+              f_sel.z * le3.z * jac_n);
+      pdfb = ls.l_pmf * ls.p1_area;
+      pdfd = (do_surface ? pdf_bs : ph_nee) * jac_n;
+      tsc = do_scatter ? v3(T_v.x * sigma_s.x, T_v.y * sigma_s.y,
+                            T_v.z * sigma_s.z)
+                       : T_v;
+      v_active = active;
+
       // apply the vertex
       org = new_org;
       d = d_next;
@@ -511,71 +685,20 @@ render_fused_grid_kernel(lj::Tables tb, Camera cam, GridMedium gm,
       bounces += 1;
       dir_pdf = dir_pdf_n;
       mtp = mtp_n;
-
-      if (!with_nee) {
-        if (active) continue;   // pass-through: the next bounce
-        break;
-      }
-
-      // ---- the shadow chain through index-matching interfaces: segment
-      // seg casts from sh_p toward the light point, tracks its medium, and
-      // crosses the interface it hits unless that is opaque or too deep
-      V3 sh_p = new_org;
-      int sh_med = med_vertex;
-      float sh_T = 1.0f, sh_pn = 1.0f, sh_pd = 1.0f;
-      bool blocked;
-      for (int seg = 0;; ++seg) {
-        const float lx = ls.lp.x - sh_p.x, ly = ls.lp.y - sh_p.y,
-                    lz = ls.lp.z - sh_p.z;
-        const float dist_l = sqrtf(mx(lx * lx + ly * ly + lz * lz, 1e-20f));
-        Hit hs;
-        cast<QUADS, SPH>(tb, sh_p, dl, eps_s, tb.shadow_far_scale * dist_l, hs);
-        const float sg_t = hs.valid ? hs.s.t : dist_l;
-        const bool sg_opaque = hs.valid && hs.mat_ok;
-        const bool sg_dblock = tb.max_depth != -1 && hs.valid &&
-                               (bounces - 1 + seg + 1) >= tb.max_depth;
-        const int sg_mednext = cross_medium(hs, dl, sh_med);
-        const bool sff_trivial = sh_med < 0 || !slab_hit(gm, sh_p, dl, sg_t) ||
-                                 gm.maxval <= 0.0f;
-        const uint32_t hseg = pcg_hash(nb_hs ^ pcg_hash((uint32_t)seg + salt.nee_seg));
-        fly(gm, sv, grid, salt.it0, sff_trivial, false, sh_p, dl, sg_t, hseg, f,
-            rho_sc);
-        if (sh_med >= 0) {
-          sh_T = sh_T * f.tr;
-          sh_pn = sh_pn * f.np;
-          sh_pd = sh_pd * f.dp;
-        }
-        blocked = sg_opaque || sg_dblock;
-        const bool cont = hs.valid && !blocked && seg + 1 < gm.max_segments;
-        if (!cont) break;
-        sh_med = sg_mednext;
-        sh_p = v3(sh_p.x + sg_t * dl.x, sh_p.y + sg_t * dl.y, sh_p.z + sg_t * dl.z);
-      }
-
-      // NEE completion
-      const bool ok = !blocked && sh_T > 0.0f;
-      const float pdf_nee = pdfb * sh_pn;
-      const float ipn = mx(pdf_nee, 1e-30f);
-      const float pdf_dir = pdfd * sh_pd;
-      const float wmis = (pdf_nee * pdf_nee) /
-                         mx(pdf_nee * pdf_nee + pdf_dir * pdf_dir, 1e-30f);
-      const V3 nee_out = ok ? v3(sh_T * cb.x / ipn * wmis, sh_T * cb.y / ipn * wmis,
-                                 sh_T * cb.z / ipn * wmis)
-                            : v3(0.0f, 0.0f, 0.0f);
-      L = v3(L.x + tsc.x * nee_out.x, L.y + tsc.y * nee_out.y,
-             L.z + tsc.z * nee_out.z);
-      if (max3(nee_out) > 0.0f) nee_p = org;
-      if (!(active && bounces < tb.max_cap)) break;
+      shadow = with_nee;
+      // without NEE: the next bounce (a pass-through) or the path's end
+      stage = with_nee || active ? kCast : kFetch;
     }
-    if (isfinite(L.x) && isfinite(L.y) && isfinite(L.z)) {
-      acc.x += L.x;
-      acc.y += L.y;
-      acc.z += L.z;
+    cnt.cycles(stats, 10, t0);
+
+    if (live && stage == kFetch) {       // the path ended in this iteration
+      float* o = out + 3 * c;
+      o[0] = L.x;
+      o[1] = L.y;
+      o[2] = L.z;
     }
   }
-  film[lane] = acc.x;
-  film[n + lane] = acc.y;
-  film[2 * (long long)n + lane] = acc.z;
+  cnt.flush(stats);
 }
 
 // Calls f(M, Q, S, H) with the kernel specialisation as integral constants.
@@ -608,21 +731,33 @@ extern "C" {
 
 // K9. mats: bit 0 Lambertian, bit 1 RoughPlastic; hg: the medium's phase
 // is Henyey-Greenstein (else isotropic). svox: the (2, rows) supervoxel
-// [majorant | empty-skip] table; grid: the (Z*Y, X) density; film: (3, n).
+// [majorant | empty-skip] table; grid: the (Z*Y, X) density; counter: one
+// zeroed uint64; out: (nspp * n_q, 3), rows of lanes >= n not written;
+// stats: kStats uint64 counters to add to, or null.
 int lj_render_fused_grid(const lj::Tables* tb, const lj::Camera* cam,
                          const lj::GridMedium* gm, const lj::VolSalts* salt,
                          int mats, int quads, int sph, int hg,
                          const float* svox, const float* grid, int n, int w,
                          long long n_q, uint32_t su, long long s0, int nspp,
-                         float* film, void* stream) {
-  if (n <= 0 || n_q < n || gm->rows < 1 || gm->rows > lj::kMaxSvoxRows)
+                         unsigned long long* counter,
+                         float* out, unsigned long long* stats,
+                         void* stream) {
+  if (n <= 0 || nspp <= 0 || n_q < n || gm->rows < 1 ||
+      gm->rows > lj::kMaxSvoxRows)
     return (int)cudaErrorInvalidValue;
+  const long long total = (long long)nspp * n_q;
   cudaError_t e = dispatch(mats, quads, sph, hg, [&](auto M, auto Q, auto S,
                                                      auto H) {
-    render_fused_grid_kernel<decltype(M)::value, decltype(Q)::value,
-                             decltype(S)::value, decltype(H)::value>
-        <<<(n + kThreads - 1) / kThreads, kThreads, 0, (cudaStream_t)stream>>>(
-            *tb, *cam, *gm, *salt, svox, grid, n, w, n_q, su, s0, nspp, film);
+    auto kernel = render_fused_grid_kernel<decltype(M)::value,
+                                           decltype(Q)::value,
+                                           decltype(S)::value,
+                                           decltype(H)::value>;
+    int blocks = 0;
+    cudaError_t err = lj::persistent_blocks(kernel, kThreads, total, blocks);
+    if (err != cudaSuccess) return err;
+    kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+        *tb, *cam, *gm, *salt, svox, grid, n, w, n_q, su, s0, total,
+        counter, out, stats);
     return cudaGetLastError();
   });
   return (int)e;

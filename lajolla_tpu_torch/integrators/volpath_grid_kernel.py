@@ -30,7 +30,13 @@ general engine's numbers only where n is a multiple of BLOCK.
 
 `render_fused_grid` is the wrapper: CPU scenes run the plain form, CUDA
 scenes launch the CUDA kernel (csrc/volpath_grid_kernels.cu
-`render_fused_grid_kernel`), and anything else raises.
+`render_fused_grid_kernel`), and anything else raises. The kernel's
+persistent warps take work items in id order and write each item's
+radiance to a per-item buffer of n_q rows a sample, which
+`film_sum_kernel` sums per pixel in sample order; `grid_items_plain`
+computes the radiance of any list of items, and its sum by
+volpath_kernel.film_sum_plain is `render_fused_grid_plain`'s film bit for
+bit.
 """
 
 import torch
@@ -798,12 +804,55 @@ def render_fused_grid_plain(scene, options, seed, s0, nspp, stats=None):
     return film[:, :n].T.reshape(h, w, 3)
 
 
-def render_fused_grid(scene, options, seed, s0, nspp):
+def grid_items_plain(scene, options, seed, items):
+    """The radiance (N, 3) of the work items `items` (N,) of K9's layout
+    (item = k + s*n_q, lane k < n of the padded pool), each traced from
+    its camera ray to its end in its own lane of the event machine,
+    non-finite values kept. Any order, any subset: a path's radiance
+    depends on its item alone."""
+    from lajolla_tpu_torch.integrators.path_megakernel import _primary
+    w, h = scene.meta.width, scene.meta.height
+    n = w * h
+    n_q = padded_lanes(n)
+    dev = scene.fp_tri.device
+    items = torch.as_tensor(items, dtype=torch.int64, device=dev)
+    if items.numel():
+        _check_items(int(items.max()) + 1)
+    lane = items % n_q
+    if bool((lane >= n).any()):
+        raise ValueError("items of padding lanes (lane >= n) have no pixel")
+    su = stream_root(seed)
+    kw = grid_statics(scene, options)
+    svox2 = svox_table(scene)
+    px, py = (lane % w).float(), (lane // w).float()
+    cam = torch.cat([scene.sample_to_cam.reshape(-1),
+                     scene.cam_to_world.reshape(-1)])
+    st = _fresh(*_primary(items, px, py, su, cam, w=w, h=h,
+                          filter_type=options.filter_type,
+                          filter_param=options.filter_param),
+                int(scene.meta.camera_medium_id))
+    done = torch.zeros(items.shape[0], dtype=torch.bool, device=dev)
+    out = torch.zeros((3, items.shape[0]), device=dev)
+    while not bool(done.all()):
+        hb = _pcg_hash(items[None] ^ _pcg_hash(st[0] ^ su))
+        st, died = _advance_grid_core(scene, st[:-1] + (done[None],), hb,
+                                      scene.fp_grid, svox2, **kw)
+        died = died[0]
+        out = torch.where(died, st[5], out)
+        done = done | died
+    return out.T
+
+
+def render_fused_grid(scene, options, seed, s0, nspp, counters=None):
     """Render nspp samples/pixel (sample indices s0..s0+nspp) of the full
-    film in one kernel launch; returns the (h, w, 3) film sum. CPU scenes
-    run the plain form; CUDA scenes launch the CUDA kernel, and anything
-    else raises."""
+    film in one kernel launch (and its film sum); returns the (h, w, 3)
+    film sum. CPU scenes run the plain form; CUDA scenes launch the CUDA
+    kernel, and anything else raises. `counters`, a dict, receives the
+    kernel's SIMT counters (kernels.GRID_COUNTERS); the plain form has
+    none."""
     if scene.fp_tri.device.type == 'cpu':
+        if counters is not None:
+            raise ValueError("SIMT counters come from the CUDA kernel")
         return render_fused_grid_plain(scene, options, seed, s0, nspp)
     from lajolla_tpu_torch import kernels
     w, h = scene.meta.width, scene.meta.height
@@ -813,5 +862,5 @@ def render_fused_grid(scene, options, seed, s0, nspp):
     film = kernels.render_fused_grid(
         scene, cam, svox_table(scene), stream_root(seed), s0, nspp,
         n_q=padded_lanes(w * h), w=w, h=h, filter_type=options.filter_type,
-        filter_param=options.filter_param, **kw)
-    return film[:, :w * h].T.reshape(h, w, 3)
+        filter_param=options.filter_param, counters=counters, **kw)
+    return film.T.reshape(h, w, 3)

@@ -24,6 +24,15 @@ miss. It is the reference the CUDA kernel (csrc/volpath_kernels.cu
 `render_fused_vol_kernel`) is held against. `render_fused_vol` is the
 wrapper: CPU scenes run `render_fused_vol_plain`, CUDA scenes launch the
 kernel, and anything else raises.
+
+The kernel runs persistent warps that take work items in id order and
+write each item's radiance to a per-item buffer, which
+`film_sum_kernel` sums per pixel in sample order (`film_sum_plain` is its
+plain form, shared with K9). A path's radiance is a function of its work
+item alone (every draw is a counter-hash cell of the item), so the film
+does not depend on which lane ran an item or when: `vol_items_plain`
+computes the radiance of any list of items, and its sum by
+`film_sum_plain` is `render_fused_vol_plain`'s film bit for bit.
 """
 
 import torch
@@ -493,12 +502,73 @@ def render_fused_vol_plain(scene, options, seed, s0, nspp):
     return film.T.reshape(h, w, 3)
 
 
-def render_fused_vol(scene, options, seed, s0, nspp):
+def vol_items_plain(scene, options, seed, items):
+    """The radiance (N, 3) of the work items `items` (N,) of K8's layout
+    (item = pixel + k*n), each traced from its camera ray to its end in
+    its own lane, non-finite values kept. Any order, any subset: a path's
+    radiance depends on its item alone."""
+    from lajolla_tpu_torch.integrators.path_megakernel import _primary
+    w, h = scene.meta.width, scene.meta.height
+    n = w * h
+    dev = scene.fp_tri.device
+    items = torch.as_tensor(items, dtype=torch.int64, device=dev)
+    if items.numel():
+        _check_items(int(items.max()) + 1)
+    su = stream_root(seed)
+    pixel = items % n
+    px, py = (pixel % w).float(), (pixel // w).float()
+    cam = torch.cat([scene.sample_to_cam.reshape(-1),
+                     scene.cam_to_world.reshape(-1)])
+    sa, ss, g = medium(scene)
+    sa3, ss3, g = sa[:, None], ss[:, None], g.reshape(1, 1)
+    kw = kernel_statics(scene, options)
+    m = items.shape[0]
+    org, d = _primary(items, px, py, su, cam, w=w, h=h,
+                      filter_type=options.filter_type,
+                      filter_param=options.filter_param)
+    bounces = torch.zeros(m, dtype=torch.int64, device=dev)
+    thr = torch.ones((3, m), device=dev)
+    rad = torch.zeros((3, m), device=dev)
+    dir_pdf = torch.zeros((1, m), device=dev)
+    mtp = torch.ones((3, m), device=dev)
+    nee_p = org
+    done = torch.zeros(m, dtype=torch.bool, device=dev)
+    out = torch.zeros((3, m), device=dev)
+    while not bool(done.all()):
+        act = ~done
+        hb = _pcg_hash(items ^ _pcg_hash(bounces ^ su))
+        org, d, thr, rad, dir_pdf, mtp, nee_p, alive = _advance_vol_core(
+            scene, org, d, thr, rad, bounces[None], dir_pdf, mtp, nee_p,
+            act[None], hb[None], sa3, ss3, g, **kw)
+        died = act & ~alive[0]
+        out = torch.where(died, rad, out)
+        done = done | died
+        bounces = bounces + 1
+    return out.T
+
+
+def film_sum_plain(buf, n, stride, nspp):
+    """The plain form of film_sum_kernel (csrc/volpath_kernels.cu), shared
+    by K8 and K9: the film (3, n) of a per-item buffer buf (nspp*stride,
+    3), whose column p sums rows s*stride + p, s = 0 .. nspp-1, in sample
+    order, dropping a sample with any non-finite channel."""
+    film = torch.zeros((3, n), device=buf.device)
+    for s in range(nspp):
+        v = buf[s * stride:s * stride + n].T
+        film = film + torch.where(torch.isfinite(v).all(dim=0), v, 0.0)
+    return film
+
+
+def render_fused_vol(scene, options, seed, s0, nspp, counters=None):
     """Render nspp samples/pixel (sample indices s0..s0+nspp) of the full
-    film in one kernel launch. Returns the (h, w, 3) film sum. CPU scenes
-    run the plain form; CUDA scenes launch the CUDA kernel, and anything
-    else raises."""
+    film in one kernel launch (and its film sum). Returns the (h, w, 3)
+    film sum. CPU scenes run the plain form; CUDA scenes launch the CUDA
+    kernel, and anything else raises. `counters`, a dict, receives the
+    kernel's SIMT counters (kernels.VOL_COUNTERS); the plain form has
+    none."""
     if scene.fp_tri.device.type == 'cpu':
+        if counters is not None:
+            raise ValueError("SIMT counters come from the CUDA kernel")
         return render_fused_vol_plain(scene, options, seed, s0, nspp)
     from lajolla_tpu_torch import kernels
     w, h = scene.meta.width, scene.meta.height
@@ -507,5 +577,5 @@ def render_fused_vol(scene, options, seed, s0, nspp):
     film = kernels.render_fused_vol(
         scene, cam, medium(scene), stream_root(seed), s0, nspp, w=w, h=h,
         filter_type=options.filter_type, filter_param=options.filter_param,
-        **kernel_statics(scene, options))
+        counters=counters, **kernel_statics(scene, options))
     return film.T.reshape(h, w, 3)

@@ -19,7 +19,10 @@ themselves and launch the kernel for CUDA tensors, and so do the
 wrappers of the sweep casters K4-K7 (`sweep_resolve`, `sweep_resident`,
 `sweep_list`, `sweep_streaming`; plain forms in ops/intersect_sweep.py).
 K9's library is built with -fmad=false (csrc/volpath_grid_kernels.cu
-says why).
+says why). K8 and K9 run persistent warps over a work-item counter that
+their wrappers zero before every launch, write a per-item buffer, and
+return its film through `film_sum` (film_sum_kernel), whose wrapper runs
+the plain form for CPU tensors itself.
 """
 
 import ctypes
@@ -45,7 +48,20 @@ UNIT_FLAGS = {'volpath_grid_kernels': ('-fmad=false',)}
 LAUNCHES = {'render_fused': 0, 'advance': 0, 'intersect_brute': 0,
             'occluded_brute': 0, 'render_fused_vol': 0,
             'render_fused_grid': 0, 'sweep_resolve': 0,
-            'sweep_resident': 0, 'sweep_list': 0, 'sweep_streaming': 0}
+            'sweep_resident': 0, 'sweep_list': 0, 'sweep_streaming': 0,
+            'film_sum': 0}
+
+# The SIMT counters of K8 and K9 (csrc/work_queue.cuh SimtCounts), in
+# pairs: the passes of a warp through a stage, and the lanes that worked
+# in them. K8: loop iterations with a path in some lane and those lanes
+# (one vertex each); fetches and the lanes they served. K9: loop
+# iterations and the lanes holding a path; casts; tracking steps;
+# vertices; then the SM cycles the warps spent in each of those three
+# stages (clock64, summed over warps).
+VOL_COUNTERS = ('iterations', 'path_lanes', 'fetches', 'fetched_lanes')
+GRID_COUNTERS = ('iterations', 'path_lanes', 'cast_passes', 'casts',
+                 'track_passes', 'track_steps', 'vertex_passes', 'vertices',
+                 'cast_cycles', 'track_cycles', 'vertex_cycles')
 
 _libs = None
 
@@ -145,14 +161,16 @@ def _bind(libs):
     vol.lj_render_fused_vol.argtypes = [
         ctypes.POINTER(_Tables), ctypes.POINTER(_Camera),
         ctypes.POINTER(_Medium), ctypes.POINTER(_VolSalts), _I, _I, _I, _I,
-        _I, _I, ctypes.c_uint32, ctypes.c_longlong, _I, _P, _P]
+        _I, _I, ctypes.c_uint32, ctypes.c_longlong, _I, _P, _P, _P, _P]
     vol.lj_render_fused_vol.restype = _I
+    vol.lj_film_sum.argtypes = [_P, _I, ctypes.c_longlong, _I, _P, _P]
+    vol.lj_film_sum.restype = _I
     grid = libs['volpath_grid_kernels']
     grid.lj_render_fused_grid.argtypes = [
         ctypes.POINTER(_Tables), ctypes.POINTER(_Camera),
         ctypes.POINTER(_GridMedium), ctypes.POINTER(_VolSalts), _I, _I, _I,
         _I, _P, _P, _I, _I, ctypes.c_longlong, ctypes.c_uint32,
-        ctypes.c_longlong, _I, _P, _P]
+        ctypes.c_longlong, _I, _P, _P, _P, _P]
     grid.lj_render_fused_grid.restype = _I
     sweep = libs['sweep_kernels']
     sweep.lj_sweep_resident.argtypes = [_P] * 6 + [_I] * 6 + [_P] * 3
@@ -287,12 +305,35 @@ def render_fused(scene, cam, seed_u32, s0, nspp, *, w, h, filter_type,
     return film
 
 
+def _queue(total, device):
+    """A per-item buffer (total, 3) and the zeroed work-item counter of a
+    persistent launch (int64, read by the kernel as uint64)."""
+    return (torch.empty((total, 3), dtype=torch.float32, device=device),
+            torch.zeros(1, dtype=torch.int64, device=device))
+
+
+def _counters(counters, names, device):
+    """A zeroed int64 tensor for a kernel's SIMT counters and its pointer,
+    or (None, None) where no counters were asked for."""
+    if counters is None:
+        return None, None
+    t = torch.zeros(len(names), dtype=torch.int64, device=device)
+    return t, t.data_ptr()
+
+
+def _read_counters(counters, t, names):
+    if counters is not None:
+        counters.update(zip(names, (int(v) for v in t.tolist())))
+
+
 def render_fused_vol(scene, cam, medium, su, s0, nspp, *, w, h, filter_type,
                      filter_param, hg, eps_isect, eps_shadow, max_depth,
-                     rr_depth, max_cap):
+                     rr_depth, max_cap, counters=None):
     """Kernel K8: the (3, w*h) film sum of samples s0..s0+nspp of a scene
-    inside volpath_kernel.supports. medium: (sigma_a (3,), sigma_s (3,),
-    g ()) of its one medium; su: the pre-hashed volpath stream root."""
+    inside volpath_kernel.supports, its items' radiance summed by
+    `film_sum`. medium: (sigma_a (3,), sigma_s (3,), g ()) of its one
+    medium; su: the pre-hashed volpath stream root; counters: a dict that
+    receives the launch's SIMT counters (VOL_COUNTERS), or None."""
     device, tb, mats, quads, sph = _scene_args(
         scene, eps_isect, eps_shadow, max_depth, rr_depth, max_cap)
     n = w * h
@@ -304,16 +345,43 @@ def render_fused_vol(scene, cam, medium, su, s0, nspp, *, w, h, filter_type,
     salts = _vol_salts()
     camera = _camera(cam, w, h, filter_type, filter_param)
     lib = build()['volpath_kernels']
-    film = torch.empty((3, n), dtype=torch.float32, device=device)
+    out, counter = _queue(nspp * n, device)
+    cnt, cnt_ptr = _counters(counters, VOL_COUNTERS, device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.lj_render_fused_vol(
             ctypes.byref(tb), ctypes.byref(camera), ctypes.byref(med),
             ctypes.byref(salts), mats, quads, sph, int(bool(hg)), n, w, su,
-            s0, nspp, film.data_ptr(), stream)
+            s0, nspp, counter.data_ptr(), out.data_ptr(), cnt_ptr, stream)
     if rc != 0:
         raise RuntimeError(f"render_fused_vol_kernel launch: CUDA error {rc}")
     LAUNCHES['render_fused_vol'] += 1
+    _read_counters(counters, cnt, VOL_COUNTERS)
+    return film_sum(out, n, n, nspp)
+
+
+def film_sum(buf, n, stride, nspp):
+    """film_sum_kernel: the film (3, n) of a per-item buffer buf
+    (nspp*stride, 3) of K8 or K9, whose column p sums rows s*stride + p
+    in sample order, dropping a sample with any non-finite channel. CPU
+    tensors run its plain form (volpath_kernel.film_sum_plain); CUDA
+    tensors launch the kernel, and anything else raises."""
+    if buf.device.type == 'cpu':
+        from lajolla_tpu_torch.integrators.volpath_kernel import \
+            film_sum_plain
+        return film_sum_plain(buf, n, stride, nspp)
+    if stride < n:
+        raise ValueError(f"stride {stride} shorter than the film ({n})")
+    device = buf.device
+    ptr = _check(buf, 'buf', (nspp * stride, 3), torch.float32, device)
+    lib = build()['volpath_kernels']
+    film = torch.empty((3, n), dtype=torch.float32, device=device)
+    with torch.cuda.device(device):
+        stream = torch.cuda.current_stream(device).cuda_stream
+        rc = lib.lj_film_sum(ptr, n, stride, nspp, film.data_ptr(), stream)
+    if rc != 0:
+        raise RuntimeError(f"film_sum_kernel launch: CUDA error {rc}")
+    LAUNCHES['film_sum'] += 1
     return film
 
 
@@ -327,14 +395,17 @@ def _vol_salts():
 def render_fused_grid(scene, cam, svox2, su, s0, nspp, *, n_q, w, h,
                       filter_type, filter_param, pmin, pmax, res, gres,
                       maxval, albedo, g1, hg, max_null, eps_isect,
-                      eps_shadow, max_depth, rr_depth, max_cap):
+                      eps_shadow, max_depth, rr_depth, max_cap,
+                      counters=None):
     """Kernel K9: the (3, w*h) film sum of samples s0..s0+nspp of a scene
-    inside volpath_grid_kernel.supports, lane k of the n_q-lane pool
-    taking items k + s*n_q. svox2: the (2, R) supervoxel [majorant |
-    empty-skip] table; the density is scene.fp_grid; the other keywords
-    are volpath_grid_kernel.grid_statics. su: the pre-hashed volpath
-    stream root. The supervoxel table sits in the kernel's shared memory,
-    sized for compile.SVOX_ROWS_MAX rows (kMaxSvoxRows)."""
+    inside volpath_grid_kernel.supports, item k + s*n_q belonging to lane
+    k of the n_q-lane pool, its items' radiance summed by `film_sum`.
+    svox2: the (2, R) supervoxel [majorant | empty-skip] table; the
+    density is scene.fp_grid; the other keywords are
+    volpath_grid_kernel.grid_statics. su: the pre-hashed volpath stream
+    root; counters: a dict that receives the launch's SIMT counters
+    (GRID_COUNTERS), or None. The supervoxel table sits in the kernel's
+    shared memory, sized for compile.SVOX_ROWS_MAX rows (kMaxSvoxRows)."""
     from lajolla_tpu_torch.integrators import volpath as V
     from lajolla_tpu_torch.integrators.media import INV_4PI
     from lajolla_tpu_torch.scene.compile import SVOX_ROWS_MAX
@@ -363,17 +434,20 @@ def render_fused_grid(scene, cam, svox2, su, s0, nspp, *, n_q, w, h,
     camera = _camera(cam, w, h, filter_type, filter_param)
     salts = _vol_salts()
     lib = build()['volpath_grid_kernels']
-    film = torch.empty((3, n), dtype=f32, device=device)
+    out, counter = _queue(nspp * n_q, device)
+    cnt, cnt_ptr = _counters(counters, GRID_COUNTERS, device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
         rc = lib.lj_render_fused_grid(
             ctypes.byref(tb), ctypes.byref(camera), ctypes.byref(gm),
             ctypes.byref(salts), mats, quads, sph, int(bool(hg)), sv, grid,
-            n, w, n_q, su, s0, nspp, film.data_ptr(), stream)
+            n, w, n_q, su, s0, nspp, counter.data_ptr(),
+            out.data_ptr(), cnt_ptr, stream)
     if rc != 0:
         raise RuntimeError(f"render_fused_grid_kernel launch: CUDA error {rc}")
     LAUNCHES['render_fused_grid'] += 1
-    return film
+    _read_counters(counters, cnt, GRID_COUNTERS)
+    return film_sum(out, n, n_q, nspp)
 
 
 def advance(scene, org, d, thr, rad, nv, dir_pdf, prev, un, act, *,

@@ -20,7 +20,7 @@ def _chip_smoke():
     return mod
 
 
-# An abridged nvcc -Xptxas -v log of five libraries, ten kernels, two
+# An abridged nvcc -Xptxas -v log of five libraries, eleven kernels, two
 # instantiations of two of them.
 PTXAS_LOG = """\
 ptxas info    : 0 bytes gmem
@@ -48,6 +48,10 @@ ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123render_fused_vol_ke
 ptxas info    : Function properties for _ZN12_GLOBAL__N_123render_fused_vol_kernelILi3ELb1ELb1ELb1EEEvN2lj6TablesENS1_6CameraENS1_6MediumENS1_8VolSaltsEiijxiPf
     16 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads
 ptxas info    : Used 96 registers, used 0 barriers, 16 bytes cumulative stack size
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_115film_sum_kernelEPKfixiPf' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_115film_sum_kernelEPKfixiPf
+    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads
+ptxas info    : Used 22 registers, used 0 barriers
 ptxas info    : 0 bytes gmem
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_124render_fused_grid_kernelILi3ELb1ELb0ELb1EEEvN2lj6TablesENS1_6CameraENS1_10GridMediumENS1_8VolSaltsEPKfS9_ixjxiPf' for 'sm_90a'
 ptxas info    : Function properties for _ZN12_GLOBAL__N_124render_fused_grid_kernelILi3ELb1ELb0ELb1EEEvN2lj6TablesENS1_6CameraENS1_10GridMediumENS1_8VolSaltsEPKfS9_ixjxiPf
@@ -81,6 +85,7 @@ def test_ptxas_summary_keys_each_kernel():
     summary = _chip_smoke().ptxas_summary(PTXAS_LOG)
     assert summary == (
         "advance_kernel: <= 72 registers, <= 0 B spill stores; "
+        "film_sum_kernel: <= 22 registers, <= 0 B spill stores; "
         "intersect_brute_kernel: <= 29 registers, <= 4 B spill stores; "
         "plain_c_kernel: <= 12 registers, <= 0 B spill stores; "
         "render_fused_grid_kernel: <= 128 registers, <= 0 B spill stores; "
@@ -109,6 +114,7 @@ def test_ptxas_summary_keys_each_kernel():
      'S5_S5_', 'sweep_list_kernel'),
     ('_ZN12_GLOBAL__N_122sweep_streaming_kernelILb1EEEvPKfS2_S2_S2_S2_iiii'
      'PfPiS3_S3_', 'sweep_streaming_kernel'),
+    ('_ZN12_GLOBAL__N_115film_sum_kernelEPKfixiPf', 'film_sum_kernel'),
     ('_Z13simple_kernelPf', 'simple_kernel'),
     ('lj_unmangled', 'lj_unmangled')])
 def test_kernel_name_demangles(symbol, name):
@@ -133,6 +139,23 @@ def test_sweep_entries_name_their_tpu_kernels(wrapper, body):
         source = f.read()
     assert f'\n{wrapper}_kernel(' in source
     assert f'int lj_{wrapper}(' in source
+
+
+def test_film_sum_entry_names_the_film_add_it_replaces():
+    """The `kernels` line's film_sum entry: `replaces` points at the film
+    add of K8's Pallas kernel, the wrapper has its launch counter, and
+    the CUDA source holds the kernel and its C entry."""
+    from lajolla_tpu_torch import kernels
+    mod = _chip_smoke()
+    path, line = mod.FILM_SUM_REPLACES.split(':')
+    with open(os.path.join(REPO, path)) as f:
+        text = f.readlines()[int(line) - 1]
+    assert 'film = film + jnp.where(died & fin' in text, text
+    assert kernels.LAUNCHES['film_sum'] == 0
+    with open(os.path.join(REPO, mod.K8_SOURCE)) as f:
+        source = f.read()
+    assert '\nfilm_sum_kernel(' in source
+    assert 'int lj_film_sum(' in source
 
 
 def test_exits_nonzero_without_a_gpu(tmp_path):
