@@ -13,12 +13,18 @@ exits non-zero and prints no final line:
     of the Cornell box (with and without merged quads) and of the
     sphere-light scene (testing.assert_advance_agrees); both timed at
     2^18 lanes;
- 4. kernel K1 (render_fused_kernel) against its plain form on the Cornell
+ 4. kernel K1 (render_fused_kernel, with film_sum_kernel summing its
+    per-item buffer) against its plain form on the Cornell
     box at 512x512 and the sphere-light scene at 256x256, and the
     per-bounce driver with K2 against it with the plain advance on the
     Cornell box at 96x96, 4 spp each: median per-pixel relative
     difference < 1e-4 and film means within 1%; K1 and its plain form
-    timed on the Cornell box;
+    timed on the Cornell box, K1's SIMT counters at 4 spp counting the
+    plain form's vertices (within 1e-3); K1 at the main path's launch,
+    512x512 x 256 spp: timed, with its SIMT counters (the share of warp
+    lanes that advance a vertex in the loop's iterations, beside the
+    plain form's lockstep proxies), the bound of the vertices they count,
+    and two launches bit-equal;
  5. the white box with K1 at 128x128 x 64 spp: mean within 3% of the
     analytic Le / (1 - rho) = 3.0;
  6. the main path through the CLI, with the launch counters reset before
@@ -55,9 +61,10 @@ exits non-zero and prints no final line:
     at the main path's 64 spp a launch, with its SIMT counters (the share
     of warp lanes that hold a path in the loop's iterations, beside the
     plain form's lockstep proxy) and the bound of the vertices they
-    count; film_sum_kernel (the ordered film sum of K8 and K9) bit-equal
-    to its plain form on buffers with non-finite samples at K8's and K9's
-    main-path shapes and at a padded stride, timed at 512x512 x 64 spp;
+    count; film_sum_kernel (the ordered film sum of K1, K8 and K9)
+    bit-equal to its plain form on buffers with non-finite samples at
+    K8's, K9's and K1's main-path shapes and at a padded stride, timed at
+    512x512 x 64 spp;
 11. the general volumetric engine (volpath._render_volpath_block) on the
     card at 128x128 x 4 spp: on 'vol' against K8, and on 'vol_glass' with
     K3 against it with the plain casts (it must launch K3 and not K8):
@@ -89,7 +96,10 @@ exits non-zero and prints no final line:
     tie fixture (testing.sweep_tie_fixture: identical triangles a warp
     round of 32 apart in one cluster and in a second, listed first)
     through K5 in both list modes, K4 on its hits and K6, closest and any
-    hit, every output bit-equal to the plain forms. Gates:
+    hit, every output bit-equal to the plain forms; and K4 on the
+    resolve's own tie fixture (testing.resolve_tie_fixture: two
+    triangles of one cluster in different lanes at equal err), bit-equal
+    to its plain form and naming the rule's prim. Gates:
     t bit-equal on >= 99.9% of rays and within rtol 3e-4 / atol 3e-5 on
     all, prim equal on >= 99.9%, u and v within 1e-4 where prim agrees,
     occlusion equal on all, prim >= 0 exactly where t is finite. A second witness on 2^14
@@ -108,7 +118,9 @@ exits non-zero and prints no final line:
     (hugemesh-768) at render shape: on the rays of the closest-hit and
     the shadow cast of the warm render's sixth loop iteration (8192 or
     16384 rays), timed, with its plain form's time and the bound of the
-    work the plain form counted. Each film at 128x96 x 2
+    work the plain form counted; in bigmesh-683 also K4 on K5's hits of
+    that closest-hit cast, bit-equal to its plain form, timed the same
+    way. Each film at 128x96 x 2
     spp against the same render with the casts patched to
     intersect_binned: median < 1e-4, means within 1%. K7 on a path of
     its own: render() of the mesh Cornell box (~3.5k triangles, 128x96 x
@@ -118,10 +130,10 @@ Then one JSON line of per-kernel results (each kernel's launches on the
 main path of [6] or, for K4-K7, of [15], its largest difference from its plain form, its time,
 its plain form's time, its bound and what bounds it, and the time of a
 library call that computes the same function: none has one; K5, K6 and K7
-also carry their any-hit variant's numbers as `any_hit_*`, K5 and K6 their
-render-shape numbers as `render_*` and `render_any_hit_*`, K8 and K9
-their main-path numbers as `render_*` with `render_spp` and
-`simt_efficiency`), and last the device line.
+also carry their any-hit variant's numbers as `any_hit_*`, K4, K5 and K6
+their render-shape numbers as `render_*` (K5, K6 also
+`render_any_hit_*`), K1, K8 and K9 their main-path numbers as `render_*`
+with `render_spp` and `simt_efficiency`), and last the device line.
 `python3 chip_smoke.py --sweep-only` runs [1], [2], [14] and [15] and
 prints neither of the two last lines (a shorter run while working on the
 sweeps).
@@ -150,6 +162,12 @@ FILM_SUM_REPLACES = 'lajolla_tpu/integrators/volpath_kernel.py:612'
 # steps of K9, as per-lane totals.
 K8_LOCKSTEP_PROXY = 0.539
 K9_LOCKSTEP_PROXY = 0.174
+# K1's (tools/profile_torch_path.py --proxies: the Cornell box at 64x64 x
+# 256 spp, warps of 32 consecutive pixels): the nested sample and vertex
+# loops it replaced (per sample), and one flat loop a pixel (per-lane
+# totals), the design its persistent warps beat.
+K1_NESTED_PROXY = 0.481
+K1_FLAT_PROXY = 0.815
 SWEEP_SOURCE = 'lajolla_tpu_torch/csrc/sweep_kernels.cu'
 SWEEP_REPLACES = dict(
     sweep_resolve='lajolla_tpu/ops/intersect_sweep.py:368',
@@ -196,6 +214,31 @@ def cuda_ms(torch, fn, reps):
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def device_ms(torch, fn, reps, name):
+    """Mean device milliseconds of the kernels whose name holds `name`
+    over reps calls of fn(), from a torch.profiler trace: a launch shorter
+    than the host's time to issue it is timed by the card, where CUDA
+    events around back-to-back launches would time the host. The trace
+    may miss launches (9 of 10 were seen on the H100, and once none): the
+    mean is over those it holds, and a trace that holds none is taken
+    again, three times at most."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        ms = [(e.time_range.end - e.time_range.start) / 1e3
+              for e in prof.events()
+              if e.device_type == DeviceType.CUDA and name in e.name]
+        if ms:
+            return sum(ms) / len(ms)
+    raise AssertionError(f"three traces hold no launch of {name}")
 
 
 def kernel_name(symbol):
@@ -291,7 +334,8 @@ def kernel_alone_ms(torch, kernels, fn, reps):
     the buffer in place of the film): the time of the kernel that fn
     launches (its wrapper's buffer, counter and launch)."""
     with mock.patch.object(kernels, 'film_sum',
-                           lambda buf, n, stride, nspp: buf[:n].T):
+                           lambda buf, n, stride, nspp, film=None:
+                           buf[:n].T):
         return cuda_ms(torch, fn, reps)
 
 
@@ -304,17 +348,27 @@ def simt(counters, stage, lanes):
 def film_sum_agrees(torch, kernels, plain, dev, shapes):
     """film_sum_kernel against its plain form, bit for bit, on random
     buffers of each (n, stride, nspp) shape with every 97th sample given
-    a non-finite channel; prints one line and raises on a difference."""
+    a non-finite channel, summed whole and, as K1 sums its chunked
+    launches, in two chunks of samples, the second added onto the film of
+    the first; prints one line and raises on a difference."""
     for n, stride, nspp in shapes:
         g = torch.Generator(device=dev).manual_seed(n + nspp)
         buf = torch.rand((nspp * stride, 3), generator=g, device=dev)
         bad = torch.arange(0, nspp * stride, 97, device=dev)
         buf[bad, bad % 3] = torch.tensor(
             [float('nan'), float('inf'), -float('inf')], device=dev)[bad % 3]
+        want = plain(buf, n, stride, nspp)
+        k = nspp // 3
+        film = kernels.film_sum(buf, n, stride, k)
+        film = kernels.film_sum(buf[k * stride:], n, stride, nspp - k, film)
         same = bool(torch.equal(kernels.film_sum(buf, n, stride, nspp),
-                                plain(buf, n, stride, nspp)))
+                                want))
+        onto = bool(torch.equal(film, want))
         print(f"[10] film_sum_kernel vs plain, {nspp} samples of {n} pixels "
-              f"at stride {stride}: bit-equal {same}")
+              f"at stride {stride}: bit-equal {same}; in chunks of {k} and "
+              f"{nspp - k} samples, the second added onto the first, "
+              f"bit-equal {onto}")
+        same = same and onto
         if not same:
             raise AssertionError("film_sum_kernel differs from its plain "
                                  "form")
@@ -480,6 +534,23 @@ def sweep_phases(torch, np, dev, smi):
                 raise AssertionError(f"ties: {label} {what} differs from "
                                      "its plain form")
 
+    # the resolve's own ties: equal err at t_best -+ delta in two lanes of
+    # the warp (testing.RESOLVE_PAIRS), the lower index in the lower and in
+    # the higher lane, and a strictly smaller err at a higher index
+    tables, rrays, rkid, rwant = PT.resolve_tie_fixture(seed=5)
+    rargs = (torch.from_numpy(rrays).to(dev), torch.from_numpy(rkid).to(dev),
+             torch.from_numpy(tables['sw_lane']).to(dev))
+    got = kernels.sweep_resolve(*rargs)
+    same = all(bool(torch.equal(a, b)) for a, b in
+               zip(got, SW.sweep_resolve_plain(*rargs)))
+    named = bool((got[0].cpu().numpy() == rwant).all())
+    print(f"[14] ties, K4 on equal err in two lanes {PT.RESOLVE_PAIRS} vs "
+          f"plain ({rrays.shape[0]} rays): every output bit-equal {same}, "
+          f"the prim the rule names {named}")
+    if not (same and named):
+        raise AssertionError("ties: K4 differs from its plain form or the "
+                             "rule")
+
     for kind, ray in rays_of(mesh).items():
         err, _ = resident_agrees(mesh, kind, ray, min(SW.LIST_LEN, K), 'K5')
         errs['sweep_resident'] = max(errs['sweep_resident'], err)
@@ -528,15 +599,18 @@ def sweep_phases(torch, np, dev, smi):
     entries = {}
 
     def timed(name, any_hit, kernel_fn, plain_fn, nbytes, tris,
-              label=None, nr=None):
+              label=None, nr=None, device=None):
         """A kernel's and its plain form's time and the bound of the work
         the plain form counted, printed under `label` (by default the
-        2^18-ray line of [14]) with the work per ray of its nr rays."""
+        2^18-ray line of [14]) with the work per ray of its nr rays. The
+        kernel's time is by CUDA events or, given the kernel's `device`
+        name, its device time in a trace (device_ms)."""
         nr = nr or n
         which = 'any hit, shadow' if any_hit else 'closest hit, bounce'
         label = label or f"[14] {name} at 2^18 {which} rays"
         stats = {}
-        ms = cuda_ms(torch, kernel_fn, 10)
+        ms = (device_ms(torch, kernel_fn, 10, device) if device else
+              cuda_ms(torch, kernel_fn, 10))
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         plain_fn(stats)
@@ -558,6 +632,17 @@ def sweep_phases(torch, np, dev, smi):
     def nbytes_of(*tensors):
         return sum(x.numel() * x.element_size() for x in tensors)
 
+    def resolve_bytes(kid, prim, lane):
+        """The bytes K4 must move: every ray's kid and (prim, u, v), each
+        hit ray (32 bytes), rows 0-11 (Woop) of the lane table of each
+        cluster a ray won, and the prim entry (row 12) of each triangle it
+        resolved, each once. Rows 13-15 and the clusters no ray won are not
+        read."""
+        won = kid >= 0
+        return (16 * kid.numel() + 32 * int(won.sum()) +
+                48 * lane.shape[2] * int(kid[won].unique().numel()) +
+                4 * int(prim[prim >= 0].unique().numel()))
+
     for any_hit, ray in ((False, rays['bounce']), (True, rays['shadow'])):
         key = 'any' if any_hit else 'closest'
         Kb = big.sw_aabb.shape[0]
@@ -573,12 +658,13 @@ def sweep_phases(torch, np, dev, smi):
             t, kid = kernels.sweep_resident(args[0], *lists, False)
             hits = torch.cat([args[0][:, :7], t[:, None]], dim=1).contiguous()
             n_hit = int((kid >= 0).sum())
+            prim = SW.sweep_resolve_plain(hits, kid, big.sw_lane)[0]
             entries[('sweep_resolve', key)] = timed(
                 'K4', False,
                 lambda: kernels.sweep_resolve(hits, kid, big.sw_lane),
                 lambda st: (st.update(cluster_tests=n_hit),
                             SW.sweep_resolve_plain(hits, kid, big.sw_lane)),
-                nbytes_of(hits, kid, big.sw_lane) + 12 * n, C)
+                resolve_bytes(kid, prim, big.sw_lane), C)
         args6 = SW.list_inputs(big, *ray, SW.LANE_R, Kb)
         lists6 = (big.sw_lane, big.sw_aabb, *args6[1:])
         entries[('sweep_list', key)] = timed(
@@ -647,6 +733,29 @@ def sweep_phases(torch, np, dev, smi):
         plain_fn = SW.sweep_resident_plain if resident else \
             SW.sweep_list_plain
         nr = args[0].shape[0]
+        if resident and not any_hit:
+            # K4 on K5's hits of the same rays, as the cast hands them over
+            t, kid = kernels.sweep_resident(args[0], *lists, False)
+            hits = torch.cat([args[0][:, :7], t[:, None]],
+                             dim=1).contiguous()
+            n_hit = int((kid >= 0).sum())
+            want = SW.sweep_resolve_plain(hits, kid, scene.sw_lane)
+            same = all(bool(torch.equal(a, b)) for a, b in zip(
+                kernels.sweep_resolve(hits, kid, scene.sw_lane), want))
+            entries[('sweep_resolve', 'render_closest')] = timed(
+                'K4', False,
+                lambda: kernels.sweep_resolve(hits, kid, scene.sw_lane),
+                lambda st: (st.update(cluster_tests=n_hit),
+                            SW.sweep_resolve_plain(hits, kid, scene.sw_lane)),
+                resolve_bytes(kid, want[0], scene.sw_lane), Cc,
+                label=f"[15] {cell} render shape: K4 on K5's hits of the {nr} "
+                f"rays of loop iteration {CAPTURE_CALL + 1} ({n_hit} hits, "
+                f"{nr // 8} CUDA blocks; every output bit-equal to the plain "
+                f"form's {same}; device time)", nr=nr,
+                device='sweep_resolve_kernel')
+            if not same:
+                raise AssertionError(f"{cell}: K4 differs from its plain form "
+                                     "at render shape")
         return timed(
             name, any_hit, lambda: kernel(args[0], *lists, any_hit),
             lambda st: plain_fn(args[0], *lists, any_hit, stats=st),
@@ -655,7 +764,7 @@ def sweep_phases(torch, np, dev, smi):
             f"{'any hit' if any_hit else 'closest hit'} on the {nr} rays of "
             f"loop iteration {CAPTURE_CALL + 1} ({nr // B} list blocks of "
             f"{float(args[1].abs().float().mean()):.1f} entries, {nr // 8} "
-            f"CUDA blocks)", nr=nr)
+            f"CUDA blocks; device time)", nr=nr, device=name + '_kernel')
 
     launches = dict.fromkeys(plain, 0)
     with tempfile.TemporaryDirectory() as tmp:
@@ -914,12 +1023,90 @@ def main():
                                  f"{fixture}")
         if scene is cbox:
             k1_err, k1_plain_ms = err, plain_ms
-            k1_bound = bound(vertex_ops(scene, int(sum(vertices))),
+            k1_plain_v = int(sum(vertices))
+            k1_bound = bound(vertex_ops(scene, k1_plain_v),
                              table_bytes(scene) + 12 * 512 * 512)
-    k1_ms = cuda_ms(torch, lambda: PMK.render_fused(cbox, options, 0, 0,
-                                                     spp), 3)
+    k1_ms = kernel_alone_ms(torch, kernels, lambda: PMK.render_fused(
+        cbox, options, 0, 0, spp), 3)
+    k1_cnt4 = {}
+    PMK.render_fused(cbox, options, 0, 0, spp, counters=k1_cnt4)
     print(f"[4] K1 at 512x512 x {spp} spp (Cornell box): kernel "
-          f"{k1_ms:.3f} ms, plain {k1_plain_ms:.1f} ms ({smi})")
+          f"{k1_ms:.3f} ms, plain {k1_plain_ms:.1f} ms; vertices: the "
+          f"kernel's counters {k1_cnt4['path_lanes']}, the plain form's "
+          f"{k1_plain_v} ({smi})")
+    if abs(k1_cnt4['path_lanes'] / k1_plain_v - 1.0) > 1e-3:
+        raise AssertionError("K1's counters and its plain form count "
+                             "different vertices")
+    # the main path's launch: the render's 256 spp (path.KERNEL_SPP_BLOCK)
+    main_spp = PP.KERNEL_SPP_BLOCK
+    k1_main_ms = kernel_alone_ms(torch, kernels, lambda: PMK.render_fused(
+        cbox, options, 0, 0, main_spp), 3)
+    k1_summed_ms = cuda_ms(torch, lambda: PMK.render_fused(
+        cbox, options, 0, 0, main_spp), 3)
+    k1_cnt = {}
+    films = [PMK.render_fused(cbox, options, 0, 0, main_spp,
+                              counters=k1_cnt),
+             PMK.render_fused(cbox, options, 0, 0, main_spp)]
+    same = bool(torch.equal(*films))
+    v = k1_cnt['path_lanes']
+    k1_main_bound = bound(vertex_ops(cbox, v),
+                          table_bytes(cbox) + 12 * 512 * 512)
+    k1_simt = simt(k1_cnt, 'iterations', 'path_lanes')
+    print(f"[4] K1 at 512x512 x {main_spp} spp (Cornell box, the main "
+          f"path's launch): kernel {k1_main_ms:.3f} ms ({k1_summed_ms:.3f} "
+          f"with its film sum), bound "
+          f"{k1_main_bound[0]:.3f} ms ({k1_main_bound[1]}); counters "
+          f"{k1_cnt}: {v / (512 * 512 * main_spp):.3f} vertices a path "
+          f"(the plain form's at {spp} spp, scaled: "
+          f"{k1_plain_v * main_spp / spp:.0f}), SIMT efficiency of the loop "
+          f"{k1_simt:.4f} (plain-form proxies of the nested design "
+          f"{K1_NESTED_PROXY}, of one flat loop a pixel {K1_FLAT_PROXY}); two "
+          f"launches bit-equal {same} ({smi})")
+    if not same:
+        raise AssertionError("two K1 launches gave different films")
+    if not v >= 512 * 512 * main_spp:
+        raise AssertionError("K1's counters count fewer vertices than paths")
+    # K1 against its plain form at the main path's launch
+    vertices = []
+
+    def counting(scene_, options_, *a):   # a[8]: the active lanes
+        vertices.append(a[8].sum())
+        return PK.advance_plain_t(scene_, options_, *a)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    film_p = _render_block_kernel(cbox, options, 0, 0, main_spp,
+                                  advance=counting)
+    torch.cuda.synchronize()
+    k1_main_plain_ms = 1e3 * (time.perf_counter() - t0)
+    med, mean_rel, k1_main_err = film_agreement(
+        films[0].cpu().numpy() / main_spp, film_p.cpu().numpy() / main_spp)
+    k1_main_plain_v = int(sum(vertices))
+    print(f"[4] K1 vs plain, Cornell box 512x512 x {main_spp} spp (the main "
+          f"path's launch): median rel {med:.3g}, mean rel {mean_rel:.3g}, "
+          f"max |diff| {k1_main_err:.3g}; vertices: the kernel's counters "
+          f"{v}, the plain form's {k1_main_plain_v}; plain form "
+          f"{k1_main_plain_ms / 1e3:.2f} s")
+    if not (med < 1e-4 and mean_rel < 0.01):
+        raise AssertionError(f"K1 disagrees with its plain form at "
+                             f"{main_spp} spp")
+    if abs(v / k1_main_plain_v - 1.0) > 1e-3:
+        raise AssertionError("K1's counters and its plain form count "
+                             f"different vertices at {main_spp} spp")
+    # a launch whose per-item buffer passes kernels.PATH_BUFFER_BYTES runs
+    # as launches of whole samples, each summed onto the film before it
+    chunk_spp = main_spp // 4
+    before = kernels.LAUNCHES['render_fused']
+    with mock.patch.object(kernels, 'PATH_BUFFER_BYTES',
+                           12 * 512 * 512 * chunk_spp):
+        chunked = PMK.render_fused(cbox, options, 0, 0, main_spp)
+    split = kernels.LAUNCHES['render_fused'] - before
+    same = bool(torch.equal(chunked, films[0]))
+    print(f"[4] K1 at 512x512 x {main_spp} spp under a buffer cap of "
+          f"{chunk_spp} samples: {split} launches, film bit-equal to the one "
+          f"launch's {same}")
+    if not (same and split == main_spp // chunk_spp):
+        raise AssertionError("K1's chunked launches differ from its one "
+                             "launch")
 
     # ---- 5. analytic white box through K1
     before = kernels.LAUNCHES['render_fused']
@@ -1170,7 +1357,7 @@ def main():
     n_main = 512 * 512
     film_sum_agrees(torch, kernels, PVK.film_sum_plain, dev,
                     ((n_main, n_main, spp), (768 * 576, 768 * 576, 32),
-                     (100000, 102400, 4)))
+                     (100000, 102400, 4), (n_main, n_main, 256)))
     buf = torch.rand((spp * n_main, 3), device=dev)
     fs_ms = cuda_ms(torch, lambda: kernels.film_sum(buf, n_main, n_main,
                                                     spp), 20)
@@ -1383,7 +1570,12 @@ def main():
     print(json.dumps({"kernels": [
         line("render_fused_kernel", KERNEL_SOURCE,
              "lajolla_tpu/integrators/path_megakernel.py:105",
-             launches['render_fused'], k1_err, k1_ms, k1_plain_ms, k1_bound),
+             launches['render_fused'], k1_err, k1_ms, k1_plain_ms, k1_bound,
+             render_spp=main_spp, render_ms=k1_main_ms,
+             render_plain_ms=k1_main_plain_ms,
+             render_max_abs_err=k1_main_err,
+             render_bound_ms=k1_main_bound[0],
+             render_bound_by=k1_main_bound[1], simt_efficiency=k1_simt),
         line("advance_kernel", KERNEL_SOURCE,
              "lajolla_tpu/integrators/path_kernel.py:895",
              launches['advance'], k2_err, k2_ms, k2_plain_ms, k2_bound),

@@ -13,10 +13,19 @@
 // `sweep_streaming_plain`, which state the rule all of them follow.
 //
 // The TPU kernels test a whole (rays x triangles) tile per listed cluster,
-// because the TPU's vector unit has no per-lane gather or branch. K4 and K7
-// give one thread one ray. K4 goes straight to its ray's winning cluster
-// (no sort by cluster, no per-block list of distinct clusters); K7 walks
-// the superclusters in id order behind two slab gates.
+// because the TPU's vector unit has no per-lane gather or branch. K7
+// gives one thread one ray and walks the superclusters in id order behind
+// two slab gates.
+//
+// K4 gives one warp one ray and goes straight to the ray's winning
+// cluster (no sort by cluster, no per-block list of distinct clusters):
+// lane l tests triangles l, l + 32, l + 64, l + 96 of it, and a shuffle
+// reduction on (err, index) picks the serial rule's triangle. In a render
+// K4 sees a lane pool of 8192 rays; one thread a ray made that 64 blocks
+// of 128 threads, each thread a dependent chain of 128 Woop tests with a
+// division each, latency-bound on half the SMs (the first design); one warp
+// a ray makes it 1024 blocks of 8 warps, 4 tests a lane, and the lanes
+// read neighbouring floats of each row.
 //
 // K5 and K6 give one warp one ray, and every block is independent. A CUDA
 // block of kSweepWarps warps takes kSweepWarps consecutive rays and reads
@@ -65,8 +74,8 @@
 
 namespace {
 
-constexpr int kRayThreads = 128;   // K4 and K7: threads per block
-constexpr int kSweepWarps = 8;     // K5 and K6: rays (warps) per block
+constexpr int kRayThreads = 128;   // K7: threads per block
+constexpr int kSweepWarps = 8;     // K4, K5 and K6: rays (warps) per block
 constexpr int kLaneRows = 16;      // rows of one cluster in the lane table
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -377,27 +386,32 @@ sweep_resident_kernel(const float* __restrict__ rays,
   }
 }
 
-// K4. One thread per ray: the triangle of the ray's winning cluster whose t
-// is nearest t_best (the ray's tfar slot), the lowest index on ties,
-// accepted within 1e-4 * max(|t_best|, 1e-6).
-__global__ void __launch_bounds__(kRayThreads)
+// K4. One warp per ray, kSweepWarps rays a block: the triangle of the
+// ray's winning cluster whose t is nearest t_best (the ray's tfar slot),
+// the lowest index on ties, accepted within 1e-4 * max(|t_best|, 1e-6).
+// Lane l tests triangles l, l + 32, ... in index order, a later one
+// winning only with a strictly smaller err; a shuffle reduction then picks
+// the least (err, index) over the lanes (compares only), and u, v come
+// from the winner's lane. A ray with no cluster (kid < 0) leaves at once.
+__global__ void __launch_bounds__(kSweepWarps * 32)
 sweep_resolve_kernel(const float* __restrict__ rays,
                      const int* __restrict__ kid_in,
-                     const float* __restrict__ lane, int n, int C,
+                     const float* __restrict__ lane_tab, int n, int C,
                      int* __restrict__ p_out, float* __restrict__ u_out,
                      float* __restrict__ v_out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const int kid = kid_in[i];
+  const int lane = threadIdx.x & 31;
+  const long long i = (long long)blockIdx.x * kSweepWarps + threadIdx.x / 32;
+  if (i >= n) return;                       // warp-uniform
+  const int kid = __ldg(kid_in + i);
   int prim = -1;
   float bu = 0.0f, bv = 0.0f;
-  if (kid >= 0) {
+  if (kid >= 0) {                           // warp-uniform
     const Ray r = load_ray(rays, i);
     const float tbest = r.tf;
-    const LaneRows w{lane + (long long)kid * kLaneRows * C, C};
+    const LaneRows w{lane_tab + (long long)kid * kLaneRows * C, C};
     float emin = inf_f(), eu = 0.0f, ev = 0.0f;
     int j = -1;
-    for (int c = 0; c < C; ++c) {
+    for (int c = lane; c < C; c += 32) {
       float t, u, v;
       if (woop_t(w, c, r, t) && woop_uv(w, c, r, t, u, v)) {
         const float err = fabsf(t - tbest);
@@ -409,16 +423,31 @@ sweep_resolve_kernel(const float* __restrict__ rays,
         }
       }
     }
-    const float tol = __fmul_rn(1e-4f, fmaxf(fabsf(tbest), 1e-6f));
-    if (j >= 0 && emin <= tol) {
-      prim = (int)w.prim(j);
-      bu = eu;
-      bv = ev;
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) {
+      const float oe = __shfl_xor_sync(kFull, emin, off);
+      const int oj = __shfl_xor_sync(kFull, j, off);
+      if (oj >= 0 && (j < 0 || oe < emin || (oe == emin && oj < j))) {
+        emin = oe;
+        j = oj;
+      }
+    }
+    if (j >= 0) {                           // the same j in every lane
+      eu = __shfl_sync(kFull, eu, j & 31);
+      ev = __shfl_sync(kFull, ev, j & 31);
+      const float tol = __fmul_rn(1e-4f, fmaxf(fabsf(tbest), 1e-6f));
+      if (emin <= tol) {
+        prim = (int)w.prim(j);
+        bu = eu;
+        bv = ev;
+      }
     }
   }
-  p_out[i] = prim;
-  u_out[i] = bu;
-  v_out[i] = bv;
+  if (lane == 0) {
+    p_out[i] = prim;
+    u_out[i] = bu;
+    v_out[i] = bv;
+  }
 }
 
 // K6. The sweep of K5 over full-width lists (no supercluster entries),
@@ -530,9 +559,9 @@ int lj_sweep_resident(const float* rays, const float* lane, const float* aabb,
 int lj_sweep_resolve(const float* rays, const int* kid, const float* lane,
                      int n, int C, int* p, float* u, float* v, void* stream) {
   if (n <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
-  sweep_resolve_kernel<<<blocks_for(n), kRayThreads, 0,
-                         (cudaStream_t)stream>>>(rays, kid, lane, n, C, p, u,
-                                                 v);
+  const int grid = (int)(((long long)n + kSweepWarps - 1) / kSweepWarps);
+  sweep_resolve_kernel<<<grid, kSweepWarps * 32, 0, (cudaStream_t)stream>>>(
+      rays, kid, lane, n, C, p, u, v);
   return (int)cudaGetLastError();
 }
 

@@ -1,5 +1,5 @@
 // Persistent warps that take work items from a device counter, shared by
-// the volumetric kernels K8 (volpath_kernels.cu) and K9
+// the fused kernels K1 (path_kernels.cu), K8 (volpath_kernels.cu) and K9
 // (volpath_grid_kernels.cu): the launch that fills the card, the fetch of
 // one warp, and the optional SIMT counters.
 //

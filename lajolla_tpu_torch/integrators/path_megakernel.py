@@ -11,15 +11,21 @@ per-lane sum.
 `render_fused` is the wrapper: CUDA tensors launch the CUDA kernel
 (csrc/path_kernels.cu `render_fused_kernel`), CPU tensors run the plain
 form `render_fused_plain`, which is the per-bounce driver of path.py
-with the plain advance — the same items, random numbers and sums.
+with the plain advance — the same items, random numbers and sums. The
+CUDA kernel runs the items in persistent warps, in no fixed lane, and
+writes each item's radiance to a buffer that film_sum_kernel sums per
+pixel in sample order; `path_items_plain` traces any list of items, the
+property that design rests on (tests/test_torch_path_item_order.py).
 """
 
 import torch
 
 from lajolla_tpu_torch.integrators.path import (_GOLD, _M32,
                                                 MAX_BOUNCES_CAP,
-                                                _hash_u01, _pcg_hash,
-                                                _render_block_kernel)
+                                                _check_items, _hash_u01,
+                                                _pcg_hash,
+                                                _render_block_kernel,
+                                                _vertex_uniforms)
 from lajolla_tpu_torch.integrators.path_kernel import (_norm3,
                                                        advance_plain_t,
                                                        statics)
@@ -84,12 +90,53 @@ def render_fused_plain(scene, options, seed, s0, nspp):
                                 advance=advance_plain_t)
 
 
-def render_fused(scene, options, seed, s0, nspp):
+def path_items_plain(scene, options, seed, items):
+    """The radiance (N, 3) of K1's work items `items` (N,) (item = pixel +
+    k*n), each traced from its camera ray to its end in its own lane,
+    non-finite values kept. Any order, any subset: a path's radiance
+    depends on its item alone."""
+    w, h = scene.meta.width, scene.meta.height
+    n = w * h
+    dev = scene.fp_tri.device
+    items = torch.as_tensor(items, dtype=torch.int64, device=dev)
+    if items.numel():
+        _check_items(int(items.max()) + 1)
+    su = int(seed) & _M32
+    pixel = items % n
+    cam = torch.cat([scene.sample_to_cam.reshape(-1),
+                     scene.cam_to_world.reshape(-1)])
+    orgT, dT = _primary(items, (pixel % w).float(), (pixel // w).float(), su,
+                        cam, w=w, h=h, filter_type=options.filter_type,
+                        filter_param=options.filter_param)
+    m = items.shape[0]
+    nv = torch.full((m,), 2, dtype=torch.int64, device=dev)
+    thrT = torch.ones((3, m), device=dev)
+    radT = torch.zeros((3, m), device=dev)
+    dir_pdf = torch.zeros(m, device=dev)
+    prevT = orgT
+    done = torch.zeros(m, dtype=torch.bool, device=dev)
+    out = torch.zeros((3, m), device=dev)
+    while not bool(done.all()):
+        uT = _vertex_uniforms(items, nv, su)
+        orgT, dT, thrT, radT, dir_pdf, prevT, alive = advance_plain_t(
+            scene, options, orgT, dT, thrT, radT, nv, dir_pdf, prevT, uT,
+            ~done, MAX_BOUNCES_CAP)
+        died = ~done & ~alive
+        out = torch.where(died[None], radT, out)
+        done = done | died
+        nv = nv + 1
+    return out.T
+
+
+def render_fused(scene, options, seed, s0, nspp, counters=None):
     """Render nspp samples/pixel (sample indices s0..s0+nspp) of the full
     film in one kernel launch. Returns the (h, w, 3) film sum. CPU scenes
     run the plain form; CUDA scenes launch the CUDA kernel, and anything
-    else raises."""
+    else raises. `counters`, a dict, receives the kernel's SIMT counters
+    (kernels.PATH_COUNTERS); the plain form has none."""
     if scene.fp_tri.device.type == 'cpu':
+        if counters is not None:
+            raise ValueError("SIMT counters come from the CUDA kernel")
         return render_fused_plain(scene, options, seed, s0, nspp)
     from lajolla_tpu_torch import kernels
     w, h = scene.meta.width, scene.meta.height
@@ -98,5 +145,5 @@ def render_fused(scene, options, seed, s0, nspp):
     film = kernels.render_fused(
         scene, cam, int(seed) & _M32, s0, nspp, w=w, h=h,
         filter_type=options.filter_type, filter_param=options.filter_param,
-        **statics(scene, options, MAX_BOUNCES_CAP))
+        counters=counters, **statics(scene, options, MAX_BOUNCES_CAP))
     return film.T.reshape(h, w, 3)

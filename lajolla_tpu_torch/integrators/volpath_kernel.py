@@ -547,15 +547,20 @@ def vol_items_plain(scene, options, seed, items):
     return out.T
 
 
-def film_sum_plain(buf, n, stride, nspp):
+def film_sum_plain(buf, n, stride, nspp, film=None):
     """The plain form of film_sum_kernel (csrc/volpath_kernels.cu), shared
-    by K8 and K9: the film (3, n) of a per-item buffer buf (nspp*stride,
+    by K1, K8 and K9: the film (3, n) of a per-item buffer buf (nspp*stride,
     3), whose column p sums rows s*stride + p, s = 0 .. nspp-1, in sample
-    order, dropping a sample with any non-finite channel."""
-    film = torch.zeros((3, n), device=buf.device)
+    order, dropping a sample with any non-finite channel. Given `film`
+    (3, n), the sums start from its values and it is returned, added onto
+    in place."""
+    acc = torch.zeros((3, n), device=buf.device) if film is None else film
     for s in range(nspp):
         v = buf[s * stride:s * stride + n].T
-        film = film + torch.where(torch.isfinite(v).all(dim=0), v, 0.0)
+        acc = acc + torch.where(torch.isfinite(v).all(dim=0), v, 0.0)
+    if film is None:
+        return acc
+    film.copy_(acc)
     return film
 
 

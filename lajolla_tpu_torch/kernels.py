@@ -19,10 +19,12 @@ themselves and launch the kernel for CUDA tensors, and so do the
 wrappers of the sweep casters K4-K7 (`sweep_resolve`, `sweep_resident`,
 `sweep_list`, `sweep_streaming`; plain forms in ops/intersect_sweep.py).
 K9's library is built with -fmad=false (csrc/volpath_grid_kernels.cu
-says why). K8 and K9 run persistent warps over a work-item counter that
-their wrappers zero before every launch, write a per-item buffer, and
-return its film through `film_sum` (film_sum_kernel), whose wrapper runs
-the plain form for CPU tensors itself.
+says why). K1, K8 and K9 run persistent warps over a work-item counter
+that their wrappers zero before every launch, write a per-item buffer,
+and return its film through `film_sum` (film_sum_kernel), whose wrapper
+runs the plain form for CPU tensors itself. K1 splits its samples into
+launches whose buffer stays within PATH_BUFFER_BYTES, each summed onto
+the film of the samples before it.
 """
 
 import ctypes
@@ -51,13 +53,19 @@ LAUNCHES = {'render_fused': 0, 'advance': 0, 'intersect_brute': 0,
             'sweep_resident': 0, 'sweep_list': 0, 'sweep_streaming': 0,
             'film_sum': 0}
 
-# The SIMT counters of K8 and K9 (csrc/work_queue.cuh SimtCounts), in
+# The most bytes of K1's per-item buffer (12 bytes an item): a launch of
+# more items is split into launches of whole samples (`sample_chunks`).
+# 512x512 x 256 spp, the main path's launch, takes 805 MB, one launch.
+PATH_BUFFER_BYTES = 1 << 30
+
+# The SIMT counters of K1, K8 and K9 (csrc/work_queue.cuh SimtCounts), in
 # pairs: the passes of a warp through a stage, and the lanes that worked
-# in them. K8: loop iterations with a path in some lane and those lanes
-# (one vertex each); fetches and the lanes they served. K9: loop
+# in them. K1: loop iterations with a path in some lane and those lanes
+# (one vertex each). K8: the same; fetches and the lanes they served. K9: loop
 # iterations and the lanes holding a path; casts; tracking steps;
 # vertices; then the SM cycles the warps spent in each of those three
 # stages (clock64, summed over warps).
+PATH_COUNTERS = ('iterations', 'path_lanes')
 VOL_COUNTERS = ('iterations', 'path_lanes', 'fetches', 'fetched_lanes')
 GRID_COUNTERS = ('iterations', 'path_lanes', 'cast_passes', 'casts',
                  'track_passes', 'track_steps', 'vertex_passes', 'vertices',
@@ -149,7 +157,7 @@ def _bind(libs):
     path.lj_render_fused.argtypes = [ctypes.POINTER(_Tables),
                                      ctypes.POINTER(_Camera), _I, _I, _I, _I,
                                      _I, ctypes.c_uint32, ctypes.c_longlong,
-                                     _I, _P, _P]
+                                     _I, _P, _P, _P, _P]
     path.lj_render_fused.restype = _I
     path.lj_advance.argtypes = ([ctypes.POINTER(_Tables), _I, _I, _I, _I] +
                                 [_P] * 16)
@@ -163,7 +171,7 @@ def _bind(libs):
         ctypes.POINTER(_Medium), ctypes.POINTER(_VolSalts), _I, _I, _I, _I,
         _I, _I, ctypes.c_uint32, ctypes.c_longlong, _I, _P, _P, _P, _P]
     vol.lj_render_fused_vol.restype = _I
-    vol.lj_film_sum.argtypes = [_P, _I, ctypes.c_longlong, _I, _P, _P]
+    vol.lj_film_sum.argtypes = [_P, _I, ctypes.c_longlong, _I, _I, _P, _P]
     vol.lj_film_sum.restype = _I
     grid = libs['volpath_grid_kernels']
     grid.lj_render_fused_grid.argtypes = [
@@ -284,24 +292,44 @@ def _camera(cam, w, h, filter_type, filter_param):
                    fhalf=filter_param / 2.0, ftype=filter_type)
 
 
+def sample_chunks(nspp, n):
+    """K1's launches for nspp samples of n pixels: (first sample, samples)
+    in sample order, as many samples a launch as keep its per-item buffer
+    (12 bytes an item) within PATH_BUFFER_BYTES, and at least one."""
+    step = max(1, min(nspp, PATH_BUFFER_BYTES // (12 * n)))
+    return [(k, min(step, nspp - k)) for k in range(0, nspp, step)]
+
+
 def render_fused(scene, cam, seed_u32, s0, nspp, *, w, h, filter_type,
                  filter_param, eps_isect, eps_shadow, max_depth, rr_depth,
-                 max_cap):
-    """Kernel K1: the (3, w*h) film sum of samples s0..s0+nspp."""
+                 max_cap, counters=None):
+    """Kernel K1: the (3, w*h) film sum of samples s0..s0+nspp, its items'
+    radiance summed by `film_sum`, one launch for each of `sample_chunks`
+    (each chunk's sums added onto the last's, so the film is the same bit
+    for bit). counters: a dict that receives the launches' SIMT counters
+    (PATH_COUNTERS), summed, or None."""
     lib = build()['path_kernels']
     device, tb, mats, quads, sph = _scene_args(
         scene, eps_isect, eps_shadow, max_depth, rr_depth, max_cap)
     n = w * h
     camera = _camera(cam, w, h, filter_type, filter_param)
-    film = torch.empty((3, n), dtype=torch.float32, device=device)
-    with torch.cuda.device(device):
-        stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.lj_render_fused(ctypes.byref(tb), ctypes.byref(camera),
-                                 mats, quads, sph, n, w, seed_u32, s0, nspp,
-                                 film.data_ptr(), stream)
-    if rc != 0:
-        raise RuntimeError(f"render_fused_kernel launch: CUDA error {rc}")
-    LAUNCHES['render_fused'] += 1
+    chunks = sample_chunks(nspp, n)
+    out, counter = _queue(chunks[0][1] * n, device)
+    cnt, cnt_ptr = _counters(counters, PATH_COUNTERS, device)
+    film = None
+    for k, m in chunks:
+        counter.zero_()
+        with torch.cuda.device(device):
+            stream = torch.cuda.current_stream(device).cuda_stream
+            rc = lib.lj_render_fused(ctypes.byref(tb), ctypes.byref(camera),
+                                     mats, quads, sph, n, w, seed_u32,
+                                     s0 + k, m, counter.data_ptr(),
+                                     out.data_ptr(), cnt_ptr, stream)
+        if rc != 0:
+            raise RuntimeError(f"render_fused_kernel launch: CUDA error {rc}")
+        LAUNCHES['render_fused'] += 1
+        film = film_sum(out, n, n, m, film)
+    _read_counters(counters, cnt, PATH_COUNTERS)
     return film
 
 
@@ -360,25 +388,36 @@ def render_fused_vol(scene, cam, medium, su, s0, nspp, *, w, h, filter_type,
     return film_sum(out, n, n, nspp)
 
 
-def film_sum(buf, n, stride, nspp):
-    """film_sum_kernel: the film (3, n) of a per-item buffer buf
-    (nspp*stride, 3) of K8 or K9, whose column p sums rows s*stride + p
-    in sample order, dropping a sample with any non-finite channel. CPU
+def film_sum(buf, n, stride, nspp, film=None):
+    """film_sum_kernel: the film (3, n) of a per-item buffer buf (at least
+    nspp*stride rows of 3) of K1, K8 or K9, whose column p sums rows
+    s*stride + p in sample order, dropping a sample with any non-finite
+    channel; given `film` (3, n), the film of earlier samples, the sums
+    start from its values and it is returned, added onto in place. CPU
     tensors run its plain form (volpath_kernel.film_sum_plain); CUDA
     tensors launch the kernel, and anything else raises."""
     if buf.device.type == 'cpu':
         from lajolla_tpu_torch.integrators.volpath_kernel import \
             film_sum_plain
-        return film_sum_plain(buf, n, stride, nspp)
+        return film_sum_plain(buf, n, stride, nspp, film)
     if stride < n:
         raise ValueError(f"stride {stride} shorter than the film ({n})")
     device = buf.device
-    ptr = _check(buf, 'buf', (nspp * stride, 3), torch.float32, device)
+    if buf.shape[0] < nspp * stride:
+        raise ValueError(f"buf: {buf.shape[0]} rows, fewer than "
+                         f"{nspp * stride}")
+    ptr = _check(buf[:nspp * stride], 'buf', (nspp * stride, 3),
+                 torch.float32, device)
     lib = build()['volpath_kernels']
-    film = torch.empty((3, n), dtype=torch.float32, device=device)
+    acc = film is not None
+    if acc:
+        _check(film, 'film', (3, n), torch.float32, device)
+    else:
+        film = torch.empty((3, n), dtype=torch.float32, device=device)
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.lj_film_sum(ptr, n, stride, nspp, film.data_ptr(), stream)
+        rc = lib.lj_film_sum(ptr, n, stride, nspp, int(acc), film.data_ptr(),
+                             stream)
     if rc != 0:
         raise RuntimeError(f"film_sum_kernel launch: CUDA error {rc}")
     LAUNCHES['film_sum'] += 1

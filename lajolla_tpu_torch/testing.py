@@ -1108,6 +1108,80 @@ def sweep_tie_fixture(seed=0, n=512):
     return tables, rays, region
 
 
+# Where the resolve's tie fixture (`resolve_tie_fixture`) puts its pairs of
+# triangles, by index in cluster 0, (index, lane = index % 32) and the
+# index each pair must resolve to: equal err, the lower index in the lower
+# lane (3 / 40) and in the higher lane (13 / 66), and a strictly smaller
+# err at the higher index (100 over 5, lanes 4 and 5).
+RESOLVE_PAIRS = (((3, 40), 3), ((66, 13), 13), ((5, 100), 100))
+RESOLVE_DELTA = 2.0 ** -16     # a pair's two planes at z = +-delta
+
+
+def resolve_tie_fixture(seed=0, n=512):
+    """Tables and rays that hold the resolve K4's tie rule, all made with
+    numpy from `seed`: two clusters of 128 triangles, the second of them
+    and most slots of the first small triangles off the rays' paths.
+
+    Cluster 0 holds, for each pair of RESOLVE_PAIRS, two unit right
+    triangles over one square of the xy plane: the first listed in the
+    plane z = +RESOLVE_DELTA, the second at z = -RESOLVE_DELTA (for the
+    third pair at z = +RESOLVE_DELTA / 2). Rays come straight down from z =
+    1 onto a pair's square, with t_best = 1 in their tfar slot, so both
+    triangles of a pair are hit at t = 1 -+ delta, every value exact in
+    fp32: the first two pairs tie at err = delta (the lower index must
+    win), the third does not. Some rays name no cluster (kid -1), some
+    miss every triangle, some carry a t_best beyond the tolerance.
+
+    Returns (tables, rays (n, 8) [o, tnear, d, t_best], kid (n,) int32,
+    want (n,) int32: the prim id each ray must resolve to, -1 for none;
+    prim ids are 128 * cluster + index)."""
+    from lajolla_tpu_torch.ops.intersect_binned import build_clusters
+    from lajolla_tpu_torch.ops.intersect_sweep import pack_sweep
+    rng = np.random.default_rng(seed)
+    C = 128
+    tri = np.stack([rng.uniform(5.0, 6.0, (2 * C, 3)),
+                    rng.uniform(-1.0, 1.0, (2 * C, 3)),
+                    rng.uniform(-0.5, 0.5, (2 * C, 3))], -1)
+    unit = np.array([[0.0, 0.0, 0.0], [1.0, 0.0, 0.0], [0.0, 1.0, 0.0]])
+    squares = []
+    for p, ((first, second), _) in enumerate(RESOLVE_PAIRS):
+        corner = np.array([-2.0 + 1.5 * p, -1.0, 0.0])
+        squares.append(corner[:2])
+        far = RESOLVE_DELTA / 2 if p == 2 else -RESOLVE_DELTA
+        tri[first] = corner + unit + [0.0, 0.0, RESOLVE_DELTA]
+        tri[second] = corner + unit + [0.0, 0.0, far]
+    tri = tri.astype(np.float32)
+    lo, hi = tri.min(axis=1), tri.max(axis=1)
+    bvh = dict(first=np.array([0, 0, C]), count=np.array([0, C, C]),
+               skip=np.array([3, 2, 3]),
+               lo=np.stack([lo.min(0), lo[:C].min(0), lo[C:].min(0)]),
+               hi=np.stack([hi.max(0), hi[:C].max(0), hi[C:].max(0)]),
+               prim=np.arange(2 * C))
+    cl = build_clusters(bvh, tri[:, 0], tri[:, 1] - tri[:, 0],
+                        tri[:, 2] - tri[:, 0], max_tris=C)
+    assert cl.pop('n_clusters') == 2
+    tables = {**cl, **pack_sweep(cl)}
+
+    # 0-2: a pair's square; 3: no triangle below; 4: no cluster named;
+    # 5: a pair's square with t_best beyond the tolerance
+    case = rng.choice([0, 0, 1, 1, 2, 2, 3, 4, 5], n)
+    pair = np.where(case <= 2, case, rng.integers(0, 3, n))
+    uv = rng.uniform(0.05, 0.45, (n, 2))
+    xy = np.array(squares)[pair] + uv
+    xy[case == 3, 0] += 4.5
+    f32 = np.float32
+    rays = np.zeros((n, 8), f32)
+    rays[:, 0:2] = xy
+    rays[:, 2] = 1.0
+    rays[:, 3] = 1e-4
+    rays[:, 6] = -1.0
+    rays[:, 7] = np.where(case == 5, 1.5, 1.0)
+    kid = np.where(case == 4, -1, 0).astype(np.int32)
+    want = np.where(case <= 2, np.array([w for _, w in RESOLVE_PAIRS])[pair],
+                    -1).astype(np.int32)
+    return tables, rays, kid, want
+
+
 def general_rays(scene, seed=0, device='cpu'):
     """The rays the general engine casts on the first vertices of a
     render of `scene` (one per pixel, on the scene's device), for holding

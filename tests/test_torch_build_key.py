@@ -15,7 +15,8 @@ READERS = {
                          'volpath_grid_kernels'},
     'camera.cuh': {'path_kernels', 'volpath_kernels', 'volpath_grid_kernels'},
     'volpath_common.cuh': {'volpath_kernels', 'volpath_grid_kernels'},
-    'work_queue.cuh': {'volpath_kernels', 'volpath_grid_kernels'},
+    'work_queue.cuh': {'path_kernels', 'volpath_kernels',
+                       'volpath_grid_kernels'},
 }
 
 

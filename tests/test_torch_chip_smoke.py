@@ -24,8 +24,8 @@ def _chip_smoke():
 # instantiations of two of them.
 PTXAS_LOG = """\
 ptxas info    : 0 bytes gmem
-ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119render_fused_kernelILi1ELb0ELb0EEEvN2lj6TablesENS0_6CameraEiijxiPf' for 'sm_90a'
-ptxas info    : Function properties for _ZN12_GLOBAL__N_119render_fused_kernelILi1ELb0ELb0EEEvN2lj6TablesENS0_6CameraEiijxiPf
+ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119render_fused_kernelILi1ELb0ELb0EEEvN2lj6TablesENS0_6CameraEiijxxPyPfS3_' for 'sm_90a'
+ptxas info    : Function properties for _ZN12_GLOBAL__N_119render_fused_kernelILi1ELb0ELb0EEEvN2lj6TablesENS0_6CameraEiijxxPyPfS3_
     8 bytes stack frame, 44 bytes spill stores, 44 bytes spill loads
 ptxas info    : Used 80 registers, used 0 barriers, 8 bytes cumulative stack size
 ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_114advance_kernelILi3ELb1ELb1EEEvN2lj6TablesEiPKfS4_S4_S4_S4_S4_S4_S4_PKbPfS7_S7_S7_S7_Pb' for 'sm_90a'

@@ -48,6 +48,14 @@ def test_render_fused_matches_jax_interpret(builder, monkeypatch):
     assert_films_agree(got, want)
 
 
+def test_render_fused_counters_come_from_the_kernel():
+    """K1's SIMT counters are the CUDA kernel's: the plain form, which CPU
+    scenes run, refuses a counters dict rather than leave it empty."""
+    scene = PT.make_cornell_box(64)
+    with pytest.raises(ValueError, match='SIMT counters'):
+        PMK.render_fused(scene, RenderOptions(), 0, 0, 1, counters={})
+
+
 def test_render_entry_point_matches_jax(monkeypatch):
     """render() on a 32x32 film takes the per-bounce driver
     (_render_block_kernel); lajolla_tpu's fused kernel renders the same

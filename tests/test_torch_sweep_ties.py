@@ -13,6 +13,14 @@ port's plain forms on CPU tensors, by the routes K5 + K4, K5 with
 overflowing lists (supercluster mode) and K6. Gates: prim equal on every
 ray, and the prim each rule names; t within rtol 3e-4 (XLA may fuse the
 Woop products into FMAs), u and v within 1e-4; occlusion equal.
+
+testing.resolve_tie_fixture holds the resolve's own rule, which kernel K4
+keeps with a warp reduction on (err, index): two triangles of one cluster
+in different lanes of a warp hit at t_best -+ delta (equal err, exact in
+fp32), so the lower index must win whichever lane holds it; its rays go
+through lajolla_tpu's `_resolve_hits` (INTERPRET = True) and the port's
+resolve on CPU tensors (its plain form), which must name the same prims,
+bit-equal u and v, and the prim the rule names.
 """
 
 import types
@@ -114,6 +122,26 @@ def test_any_hit_ties(ties, route):
     np.testing.assert_array_equal(t_any[on_a], t_near[on_a])
     assert (t_any[on_b] > t_near[on_b] + 0.05).all()
     assert np.isinf(t_any[region < 0]).all()
+
+
+def test_resolve_cross_lane_ties_match_pallas_interpret(monkeypatch):
+    from lajolla_tpu_torch import kernels
+    monkeypatch.setattr(JSW, 'INTERPRET', True)
+    tables, rays, kid, want = PT.resolve_tie_fixture(seed=7)
+    K = tables['sw_aabb'].shape[0]
+    js = types.SimpleNamespace(sw_lane=jnp.asarray(tables['sw_lane']))
+    jp, ju, jv = (np.asarray(x) for x in JSW._resolve_hits(
+        js, jnp.asarray(rays[:, 0:3]), jnp.asarray(rays[:, 4:7]),
+        jnp.asarray(rays[:, 3]), jnp.asarray(rays[:, 7]), jnp.asarray(kid),
+        K))
+    p, u, v = (x.numpy() for x in kernels.sweep_resolve(
+        torch.from_numpy(rays), torch.from_numpy(kid),
+        torch.from_numpy(tables['sw_lane'])))
+    assert {w for _, w in PT.RESOLVE_PAIRS} <= set(want.tolist())
+    assert (jp.astype(np.int32) == want).all()
+    assert (p == want).all()
+    np.testing.assert_array_equal(u, ju)
+    np.testing.assert_array_equal(v, jv)
 
 
 def test_tie_fixture_lists_cluster_1_first(ties):
