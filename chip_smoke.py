@@ -12,7 +12,11 @@ exits non-zero and prints no final line:
  3. kernel K2 (advance_kernel) against its plain form on 2^16 random lanes
     of the Cornell box (with and without merged quads) and of the
     sphere-light scene (testing.assert_advance_agrees); both timed at
-    2^18 lanes;
+    2^18 lanes, the kernel by device time (device_ms) beside its CUDA-event
+    figure, the host's issue rate; and K2 at cbox-96's shape (the
+    per-bounce driver's launches of 9,216 lanes on the Cornell box at
+    96x96 x 16 spp, each kept and replayed): device time a launch, and the
+    bound of the lanes each launch advances;
  4. kernel K1 (render_fused_kernel, with film_sum_kernel summing its
     per-item buffer) against its plain form on the Cornell
     box at 512x512 and the sphere-light scene at 256x256, and the
@@ -42,8 +46,12 @@ exits non-zero and prints no final line:
     plain forms on the 2^18 camera, bounce and shadow rays of the glass
     Cornell box and the sphere-light scene at 512x512
     (testing.general_rays): prim ids and hit bits agree on >= 99.9% of
-    rays, t/u/v within rtol 1e-5 where both hit the same prim; both variants
-    and their plain forms timed by CUDA events;
+    rays, t/u/v within rtol 1e-5 where both hit the same prim, and the rays
+    on which K3 and the plain forms differ at all counted and printed; at
+    glass-512's shape (the glass box's 2^18 bounce and shadow rays: the
+    engine's pool is one lane a pixel) both variants timed by device time
+    beside their CUDA-event figures, the host's issue rate, and their
+    plain forms by CUDA events;
  8. the general engine with K3 against it with the plain casts (the K3
     wrappers patched to their plain forms for that run): the glass
     Cornell box at 128x128 x 4 spp, median per-pixel relative difference
@@ -96,7 +104,9 @@ exits non-zero and prints no final line:
     tie fixture (testing.sweep_tie_fixture: identical triangles a warp
     round of 32 apart in one cluster and in a second, listed first)
     through K5 in both list modes, K4 on its hits and K6, closest and any
-    hit, every output bit-equal to the plain forms; and K4 on the
+    hit, and at 64 triangles a cluster (copies in lanes 7, 2 and 7 of a
+    round) through K7, every output bit-equal to the plain forms; and K4 on
+    the
     resolve's own tie fixture (testing.resolve_tie_fixture: two
     triangles of one cluster in different lanes at equal err), bit-equal
     to its plain form and naming the rule's prim. Gates:
@@ -108,7 +118,9 @@ exits non-zero and prints no final line:
     tolerances. Then each kernel timed by CUDA events at 2^18 rays
     (bounce rays for closest hit, shadow rays for any hit), each plain
     form once (its counters give the work the bound counts), and a whole
-    cast (sort, lists, kernel) beside its kernel;
+    cast (sort, lists, kernel) beside its kernel; K7 by device time, the
+    median of 5 traces, beside its CUDA events (long enough there to time
+    the card): they must agree within 20%;
 15. the large-scene main path through the CLI, launch counters reset
     before each run and read after: `bigmesh-683` (the mesh Cornell box
     at ~56k triangles, 683x512 x 2 spp: K5 + K4) and `hugemesh-768`
@@ -124,16 +136,23 @@ exits non-zero and prints no final line:
     spp against the same render with the casts patched to
     intersect_binned: median < 1e-4, means within 1%. K7 on a path of
     its own: render() of the mesh Cornell box (~3.5k triangles, 128x96 x
-    1 spp) with its tables repacked at 64 triangles a cluster, against
-    the unrepacked scene's film.
+    1 spp, `mesh-64`) with its tables repacked at 64 triangles a cluster,
+    against the unrepacked scene's film; every K7 launch of that render
+    kept: the rays a cast, every output bit-equal to the plain form on
+    every cast, K7's device time a launch over the render's casts (closest
+    and any hit), the plain form's time and the bound of the work it
+    counted.
 Then one JSON line of per-kernel results (each kernel's launches on the
 main path of [6] or, for K4-K7, of [15], its largest difference from its plain form, its time,
 its plain form's time, its bound and what bounds it, and the time of a
 library call that computes the same function: none has one; K5, K6 and K7
-also carry their any-hit variant's numbers as `any_hit_*`, K4, K5 and K6
-their render-shape numbers as `render_*` (K5, K6 also
-`render_any_hit_*`), K1, K8 and K9 their main-path numbers as `render_*`
-with `render_spp` and `simt_efficiency`), and last the device line.
+also carry their any-hit variant's numbers as `any_hit_*`, K4-K7
+their render-shape numbers as `render_*` (K5-K7 also
+`render_any_hit_*`; K7 its CUDA-event times at 2^18 as
+`cuda_event_ms` and `any_hit_cuda_event_ms`), K1, K8 and K9 their main-path numbers as `render_*`
+with `render_spp` and `simt_efficiency`, K2 and K3 their render-shape
+device times as `render_*` and their CUDA-event figures as
+`host_issue_ms`), and last the device line.
 `python3 chip_smoke.py --sweep-only` runs [1], [2], [14] and [15] and
 prints neither of the two last lines (a shorter run while working on the
 sweeps).
@@ -223,12 +242,14 @@ def device_ms(torch, fn, reps, name):
     events around back-to-back launches would time the host. The trace
     may miss launches (9 of 10 were seen on the H100, and once none): the
     mean is over those it holds, and a trace that holds none is taken
-    again, three times at most."""
+    again, five times at most. After that (three traces in a row once held
+    none, late in a run) the calls are timed by queued_ms instead, and a
+    line says so."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    for _ in range(3):
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 fn()
@@ -238,7 +259,29 @@ def device_ms(torch, fn, reps, name):
               if e.device_type == DeviceType.CUDA and name in e.name]
         if ms:
             return sum(ms) / len(ms)
-    raise AssertionError(f"three traces hold no launch of {name}")
+    ms = queued_ms(torch, fn, reps)
+    print(f"device_ms: five traces held no launch of {name}; timed by "
+          f"queued_ms instead: {ms:.4f} ms a call")
+    return ms
+
+
+def queued_ms(torch, fn, reps):
+    """Mean device milliseconds of one fn() (all its launches) over reps
+    calls, by CUDA events around each call while a spin kernel holds the
+    stream: the calls queue behind it and then run back to back, so each
+    pair of events brackets the card's work, not the host's time to issue
+    it."""
+    fn()
+    torch.cuda.synchronize()
+    pairs = [(torch.cuda.Event(enable_timing=True),
+              torch.cuda.Event(enable_timing=True)) for _ in range(reps)]
+    torch.cuda._sleep(200_000_000)          # ~0.1 s: longer than the issue
+    for start, stop in pairs:
+        start.record()
+        fn()
+        stop.record()
+    torch.cuda.synchronize()
+    return sum(a.elapsed_time(b) for a, b in pairs) / reps
 
 
 def kernel_name(symbol):
@@ -534,6 +577,25 @@ def sweep_phases(torch, np, dev, smi):
                 raise AssertionError(f"ties: {label} {what} differs from "
                                      "its plain form")
 
+    # K7's ties: the fixture at 64 triangles a cluster, copies of A at 7,
+    # 34 and 39 (lanes 7, 2 and 7 of a round), the clusters in id order
+    tables, tie_rays, _ = PT.sweep_tie_fixture(seed=5, C=64)
+    ties = types.SimpleNamespace(**{k: torch.from_numpy(v).to(dev)
+                                    for k, v in tables.items()})
+    tie_ray = tuple(torch.from_numpy(x).to(dev) for x in tie_rays)
+    perm = torch.argsort(SW._sort_keys(ties, *tie_ray[:2]), stable=True)
+    tie_ray = packed(tuple(x[perm].contiguous() for x in tie_ray))
+    tabs = (ties.sw_saabb, ties.sw_aabb, ties.sw_lane)
+    for what, any_hit in (('closest', False), ('any', True)):
+        same = all(bool(torch.equal(a, b)) for a, b in zip(
+            kernels.sweep_streaming(tie_ray, *tabs, any_hit),
+            SW.sweep_streaming_plain(tie_ray, *tabs, any_hit)))
+        print(f"[14] ties at 64 a cluster, K7 {what} vs plain "
+              f"({tie_ray.shape[0]} rays): every output bit-equal {same}")
+        if not same:
+            raise AssertionError(f"ties: K7 {what} differs from its plain "
+                                 "form")
+
     # the resolve's own ties: equal err at t_best -+ delta in two lanes of
     # the warp (testing.RESOLVE_PAIRS), the lower index in the lower and in
     # the higher lane, and a strictly smaller err at a higher index
@@ -563,7 +625,7 @@ def sweep_phases(torch, np, dev, smi):
         same_occlusion(f"K6 any hit vs plain, {kind} rays",
                        kernels.sweep_list(args[0], *lists, True)[1] >= 0,
                        SW.sweep_list_plain(args[0], *lists, True)[1] >= 0)
-        tabs = (mesh64.sw_saabb, mesh64.sw_aabb, mesh64.sw_A, mesh64.sw_prim)
+        tabs = (mesh64.sw_saabb, mesh64.sw_aabb, mesh64.sw_lane)
         errs['sweep_streaming'] = max(errs['sweep_streaming'], hits_agree(
             torch, f"K7 vs plain, {kind} rays",
             kernels.sweep_streaming(packed(ray), *tabs, False),
@@ -597,20 +659,37 @@ def sweep_phases(torch, np, dev, smi):
     rays = rays_of(big)
     n = rays['bounce'][0].shape[0]
     entries = {}
+    k7_events = {}                  # K7 at 2^18 by CUDA events
 
     def timed(name, any_hit, kernel_fn, plain_fn, nbytes, tris,
-              label=None, nr=None, device=None):
+              label=None, nr=None, device=None, events=None):
         """A kernel's and its plain form's time and the bound of the work
         the plain form counted, printed under `label` (by default the
         2^18-ray line of [14]) with the work per ray of its nr rays. The
         kernel's time is by CUDA events or, given the kernel's `device`
-        name, its device time in a trace (device_ms)."""
+        name, its device time in a trace (device_ms). Given `events`, a
+        dict, the device time is the median of 5 traces (one trace has
+        read half the time of a 1.8 ms launch), the CUDA-event time goes
+        into events[name, any_hit], and the two must agree within 20%:
+        for a launch far longer than its host call."""
         nr = nr or n
         which = 'any hit, shadow' if any_hit else 'closest hit, bounce'
         label = label or f"[14] {name} at 2^18 {which} rays"
         stats = {}
         ms = (device_ms(torch, kernel_fn, 10, device) if device else
               cuda_ms(torch, kernel_fn, 10))
+        if events is not None:
+            traced = sorted([ms] + [device_ms(torch, kernel_fn, 10, device)
+                                    for _ in range(4)])
+            ms = traced[2]
+            ev = events[name, any_hit] = cuda_ms(torch, kernel_fn, 10)
+            label += (" [median of traces " +
+                      ", ".join(f"{x:.4f}" for x in traced) +
+                      f"; CUDA events {ev:.4f} ms]")
+            if abs(ms - ev) > 0.2 * ev:
+                raise AssertionError(
+                    f"{name}'s device time {ms:.4f} ms and CUDA events "
+                    f"{ev:.4f} ms disagree by more than 20%")
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         plain_fn(stats)
@@ -632,6 +711,13 @@ def sweep_phases(torch, np, dev, smi):
     def nbytes_of(*tensors):
         return sum(x.numel() * x.element_size() for x in tensors)
 
+    def streaming_bytes(rays, scene):
+        """The bytes K7 must move: its rays in, (t, prim, u, v) out, the
+        box rows and the lane table's rows 0-12 (Woop, prim), each once."""
+        K, _, Cs = scene.sw_lane.shape
+        return (nbytes_of(rays, scene.sw_saabb, scene.sw_aabb) +
+                16 * rays.shape[0] + 4 * 13 * K * Cs)
+
     def resolve_bytes(kid, prim, lane):
         """The bytes K4 must move: every ray's kid and (prim, u, v), each
         hit ray (32 bytes), rows 0-11 (Woop) of the lane table of each
@@ -645,6 +731,7 @@ def sweep_phases(torch, np, dev, smi):
 
     for any_hit, ray in ((False, rays['bounce']), (True, rays['shadow'])):
         key = 'any' if any_hit else 'closest'
+        which = 'any hit, shadow' if any_hit else 'closest hit, bounce'
         Kb = big.sw_aabb.shape[0]
         args = SW.list_inputs(big, *ray, SW.LIST_B, min(SW.LIST_LEN, Kb))
         lists = (big.sw_lane, big.sw_aabb, *args[1:])
@@ -673,13 +760,15 @@ def sweep_phases(torch, np, dev, smi):
             lambda st: SW.sweep_list_plain(args6[0], *lists6, any_hit,
                                            stats=st),
             nbytes_of(args6[0], *lists6) + 16 * n, C)
-        tabs = (big64.sw_saabb, big64.sw_aabb, big64.sw_A, big64.sw_prim)
+        tabs = (big64.sw_saabb, big64.sw_aabb, big64.sw_lane)
         pk = packed(ray)
         entries[('sweep_streaming', key)] = timed(
             'K7', any_hit,
             lambda: kernels.sweep_streaming(pk, *tabs, any_hit),
             lambda st: SW.sweep_streaming_plain(pk, *tabs, any_hit, stats=st),
-            nbytes_of(pk, *tabs) + 16 * n, 64)
+            streaming_bytes(pk, big64), 64,
+            label=f"[14] K7 at 2^18 {which} rays (device time)",
+            device='sweep_streaming_kernel', events=k7_events)
         cast = SW.occluded_sweep if any_hit else SW.intersect_sweep
         for route, resident in (('K5 + K4', SW.RESIDENT_BYTES), ('K6', 0)):
             with mock.patch.object(SW, 'RESIDENT_BYTES', resident):
@@ -859,9 +948,17 @@ def sweep_phases(torch, np, dev, smi):
     small64 = PT.repack_clusters(small, 64)
     opt1 = RenderOptions(samples_per_pixel=1)
     want = render(small, opt1, device=dev)
+    render(small64, opt1, device=dev)               # warm
+    k7_calls = []
+    real_k7 = kernels.sweep_streaming
+
+    def keep_k7(*a):
+        k7_calls.append(a)
+        return real_k7(*a)
     for k in kernels.LAUNCHES:
         kernels.LAUNCHES[k] = 0
-    got = render(small64, opt1, device=dev)
+    with mock.patch.object(kernels, 'sweep_streaming', keep_k7):
+        got = render(small64, opt1, device=dev)
     ran = dict(kernels.LAUNCHES)
     med, mean_rel, _ = film_agreement(got, want)
     print(f"[15] mesh Cornell box ({small.meta.num_triangles} triangles) at "
@@ -873,6 +970,39 @@ def sweep_phases(torch, np, dev, smi):
         raise AssertionError("the repacked scene did not render through K7, "
                              "or its film differs")
     launches['sweep_streaming'] = ran['sweep_streaming']
+    # K7 at render shape: the render's own casts, replayed
+    for any_hit in (False, True):
+        calls = [a for a in k7_calls if bool(a[-1]) == any_hit]
+        same = all(bool(torch.equal(x, y)) for a in calls for x, y in zip(
+            real_k7(*a), SW.sweep_streaming_plain(*a)))
+        nr = calls[0][0].shape[0]
+        stats = {}
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for a in calls:
+            SW.sweep_streaming_plain(*a, stats=stats)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0) / len(calls)
+        ms = device_ms(torch, lambda: [real_k7(*a) for a in calls], 3,
+                       'sweep_streaming_kernel')
+        ops = (stats['slab_tests'] * OPS['slab_test'] +
+               stats['cluster_tests'] * 64 *
+               OPS['any_test' if any_hit else 'closest_test'])
+        bnd = bound(ops / len(calls), streaming_bytes(calls[0][0], small64))
+        key = 'render_any' if any_hit else 'render_closest'
+        entries[('sweep_streaming', key)] = (ms, plain_ms, bnd)
+        print(f"[15] mesh-64 render shape: K7 "
+              f"{'any hit' if any_hit else 'closest hit'} on the render's "
+              f"{len(calls)} casts of {nr} rays ({nr // 8} CUDA blocks): "
+              f"every output bit-equal to the plain form's on every cast "
+              f"{same}; kernel {ms:.4f} ms a launch of device time, plain "
+              f"{plain_ms:.1f} ms, bound {bnd[0]:.5f} ms ({bnd[1]}); per ray "
+              f"{stats['slab_tests'] / (nr * len(calls)):.2f} slab tests, "
+              f"{stats['cluster_tests'] / (nr * len(calls)):.3f} clusters of "
+              f"64 triangles tested ({smi})")
+        if not same:
+            raise AssertionError("K7 differs from its plain form at render "
+                                 "shape")
 
     lines = []
     for name in ('sweep_resolve', 'sweep_resident', 'sweep_list',
@@ -892,6 +1022,9 @@ def sweep_phases(torch, np, dev, smi):
                               prefix + 'plain_ms': plain_ms,
                               prefix + 'bound_ms': bnd[0],
                               prefix + 'bound_by': bnd[1]})
+        if name == 'sweep_streaming':
+            entry.update(cuda_event_ms=k7_events['K7', False],
+                         any_hit_cuda_event_ms=k7_events['K7', True])
         lines.append(entry)
     return lines
 
@@ -977,17 +1110,50 @@ def main():
         k2_err = max(k2_err, max_abs)
     cbox = PT.make_cornell_box(512).to(dev)
     args = lanes_on(cbox, 1 << 18, 12)
-    k2_ms = cuda_ms(torch, lambda: PK.advance_kernel_t(
-        cbox, options, *args, MAX_BOUNCES_CAP), 20)
+
+    def k2_fn():
+        return PK.advance_kernel_t(cbox, options, *args, MAX_BOUNCES_CAP)
+    k2_ms = device_ms(torch, k2_fn, 20, 'advance_kernel')
+    k2_issue_ms = cuda_ms(torch, k2_fn, 20)
     k2_plain_ms = cuda_ms(torch, lambda: PK.advance_plain_t(
         cbox, options, *args, MAX_BOUNCES_CAP), 5)
-    n2 = args[0].shape[1]
-    # lanes in (org, dir, thr, rad, prev 3 each, nv, dir_pdf, un 8: fp32;
-    # act: bool), lanes out (4 x 3 + 1 fp32, alive: bool), the tables
-    k2_bytes = n2 * (4 * (15 + 2 + 8) + 1 + 4 * 13 + 1) + table_bytes(cbox)
-    k2_bound = bound(vertex_ops(cbox, int(args[8].sum())), k2_bytes)
-    print(f"[3] K2 at 2^18 lanes (Cornell box): kernel {k2_ms:.3f} ms, "
-          f"plain {k2_plain_ms:.3f} ms ({smi})")
+
+    def k2_bytes(scene, n):
+        # lanes in (org, dir, thr, rad, prev 3 each, nv, dir_pdf, un 8:
+        # fp32; act: bool), lanes out (4 x 3 + 1 fp32, alive: bool), the
+        # tables
+        return n * (4 * (15 + 2 + 8) + 1 + 4 * 13 + 1) + table_bytes(scene)
+    k2_bound = bound(vertex_ops(cbox, int(args[8].sum())),
+                     k2_bytes(cbox, args[0].shape[1]))
+    print(f"[3] K2 at 2^18 lanes (Cornell box): kernel {k2_ms:.4f} ms of "
+          f"device time (CUDA events, the host's issue rate: "
+          f"{k2_issue_ms:.4f} ms), plain {k2_plain_ms:.3f} ms, bound "
+          f"{k2_bound[0]:.5f} ms ({k2_bound[1]}) ({smi})")
+    # cbox-96's shape: the per-bounce driver's launches on the Cornell box
+    # at 96x96 x 16 spp (one lane a pixel), kept and replayed
+    cbox96 = PT.make_cornell_box(96).to(dev)
+    k2_calls = []
+
+    def keep(scene_, options_, *a):
+        k2_calls.append((scene_, options_, *(
+            x.clone() if torch.is_tensor(x) else x for x in a)))
+        return PK.advance_kernel_t(scene_, options_, *a)
+    _render_block_kernel(cbox96, options, 0, 0, 16, advance=keep)
+    k2_render_ms = device_ms(torch, lambda: [PK.advance_kernel_t(*c)
+                                             for c in k2_calls], 2,
+                             'advance_kernel')
+    k2_render_plain_ms = cuda_ms(torch, lambda: [PK.advance_plain_t(*c)
+                                                 for c in k2_calls], 1) / \
+        len(k2_calls)
+    active = [int(c[10].sum()) for c in k2_calls]     # c[10]: the act lanes
+    k2_render_bound = bound(
+        sum(vertex_ops(cbox96, a) for a in active) / len(k2_calls),
+        k2_bytes(cbox96, 96 * 96))
+    print(f"[3] K2 at cbox-96's shape ({len(k2_calls)} launches of "
+          f"{96 * 96} lanes, {sum(active) / len(active):.0f} active on "
+          f"average): kernel {k2_render_ms:.4f} ms a launch of device time, "
+          f"plain {k2_render_plain_ms:.3f} ms, bound "
+          f"{k2_render_bound[0]:.5f} ms ({k2_render_bound[1]}) ({smi})")
 
     # ---- 4. films: kernels against the plain forms
     spp = 4
@@ -1201,11 +1367,16 @@ def main():
                         for a, b in ((t, pt), (u, pu), (v, pv)))
             prim_share = float(same.float().mean())
             occ_share = float((occ == pocc).float().mean())
+            # rays on which K3 differs at all: prim or t anywhere, u or v
+            # on a hit, occlusion
+            differ = ~same | (t != pt) | (hit & ((u != pu) | (v != pv)))
             print(f"[7] K3 vs plain, {fixture}, {kind} rays "
                   f"({ray[0].shape[0]}): prim agree {prim_share:.6f} "
                   f"(hits {float((pprim >= 0).float().mean()):.3f}), max "
                   f"|t,u,v diff| {err:.3g}; any-hit agree {occ_share:.6f} "
-                  f"(occluded {float(pocc.float().mean()):.3f})")
+                  f"(occluded {float(pocc.float().mean()):.3f}); rays that "
+                  f"differ at all: closest hit {int(differ.sum())}, any hit "
+                  f"{int((occ != pocc).sum())}")
             if not (prim_share >= 0.999 and occ_share >= 0.999 and close
                     and torch.isinf(t[pprim < 0]).all()):
                 raise AssertionError(f"K3 disagrees with its plain forms on "
@@ -1228,19 +1399,28 @@ def main():
             k3['occ_bound'] = bound(
                 ((ns - occluded) * t_occ + occluded) * OPS['any_test'],
                 ns * (32 + 1) + t_occ * 52)
-            k3['ms'] = cuda_ms(torch, lambda: kernels.intersect_brute(
-                scene, *bounce), 20)
-            k3['plain_ms'] = cuda_ms(torch, lambda: _brute_force_batched(
-                scene, *bounce), 5)
-            k3['occ_ms'] = cuda_ms(torch, lambda: kernels.occluded_brute(
-                scene, *shadow), 20)
-            k3['occ_plain_ms'] = cuda_ms(torch, lambda: _occluded_batched(
-                scene, *shadow), 5)
-            print(f"[7] K3 at 2^18 rays (glass cbox): closest hit, bounce "
-                  f"rays: kernel {k3['ms']:.4f} ms, plain "
-                  f"{k3['plain_ms']:.4f} ms; any hit, shadow rays: kernel "
-                  f"{k3['occ_ms']:.4f} ms, plain {k3['occ_plain_ms']:.4f} "
-                  f"ms ({smi})")
+            # glass-512's shape: its engine casts one lane a pixel
+            for key, fn, plain_fn, kname, ray in (
+                    ('', kernels.intersect_brute, _brute_force_batched,
+                     'intersect_brute_kernel', bounce),
+                    ('occ_', kernels.occluded_brute, _occluded_batched,
+                     'occluded_brute_kernel', shadow)):
+                k3[key + 'ms'] = device_ms(torch, lambda: fn(scene, *ray),
+                                           20, kname)
+                k3[key + 'issue_ms'] = cuda_ms(torch,
+                                               lambda: fn(scene, *ray), 20)
+                k3[key + 'plain_ms'] = cuda_ms(
+                    torch, lambda: plain_fn(scene, *ray), 5)
+            print(f"[7] K3 at 2^18 rays (glass cbox, glass-512's shape), "
+                  f"device time: closest hit, bounce rays: kernel "
+                  f"{k3['ms']:.5f} ms (CUDA events, the host's issue rate: "
+                  f"{k3['issue_ms']:.4f} ms), plain {k3['plain_ms']:.4f} "
+                  f"ms, bound {k3['bound'][0]:.5f} ms ({k3['bound'][1]}); "
+                  f"any hit, shadow rays: kernel {k3['occ_ms']:.5f} ms "
+                  f"(CUDA events {k3['occ_issue_ms']:.4f} ms), plain "
+                  f"{k3['occ_plain_ms']:.4f} ms, bound "
+                  f"{k3['occ_bound'][0]:.5f} ms ({k3['occ_bound'][1]}) "
+                  f"({smi})")
 
     # ---- 8. the general engine with K3 against it with the plain casts
     glass = PT.make_cornell_box(128, variant='glass').to(dev)
@@ -1578,13 +1758,24 @@ def main():
              render_bound_by=k1_main_bound[1], simt_efficiency=k1_simt),
         line("advance_kernel", KERNEL_SOURCE,
              "lajolla_tpu/integrators/path_kernel.py:895",
-             launches['advance'], k2_err, k2_ms, k2_plain_ms, k2_bound),
+             launches['advance'], k2_err, k2_ms, k2_plain_ms, k2_bound,
+             host_issue_ms=k2_issue_ms, render_ms=k2_render_ms,
+             render_plain_ms=k2_render_plain_ms,
+             render_bound_ms=k2_render_bound[0],
+             render_bound_by=k2_render_bound[1]),
         line("intersect_brute_kernel", K3_SOURCE, K3_REPLACES,
              launches['intersect_brute'], k3['closest_err'], k3['ms'],
-             k3['plain_ms'], k3['bound']),
+             k3['plain_ms'], k3['bound'], host_issue_ms=k3['issue_ms'],
+             render_ms=k3['ms'], render_plain_ms=k3['plain_ms'],
+             render_bound_ms=k3['bound'][0],
+             render_bound_by=k3['bound'][1]),
         line("occluded_brute_kernel", K3_SOURCE, K3_REPLACES,
              launches['occluded_brute'], k3['occ_err'], k3['occ_ms'],
-             k3['occ_plain_ms'], k3['occ_bound']),
+             k3['occ_plain_ms'], k3['occ_bound'],
+             host_issue_ms=k3['occ_issue_ms'], render_ms=k3['occ_ms'],
+             render_plain_ms=k3['occ_plain_ms'],
+             render_bound_ms=k3['occ_bound'][0],
+             render_bound_by=k3['occ_bound'][1]),
         line("render_fused_vol_kernel", K8_SOURCE, K8_REPLACES,
              launches['render_fused_vol'], k8_err, k8_ms, k8_plain_ms,
              k8_bound, render_spp=PV.VOLK_SPP_BLOCK, render_ms=k8_main_ms,

@@ -18,12 +18,19 @@
 // hits on the shared edge of two coplanar triangles). The any-hit
 // variant stops at its first hit.
 //
-// What bounds it: per-ray ALU work, ~20 FLOPs and one division per prim,
-// with the table broadcast from shared memory to every thread of a warp
-// (all threads read the same word, so there are no bank conflicts). Ray
-// traffic is 32 B in and 16 B out per ray. A cast is far from the
-// memory roofline; fusing it into the engine's vertex, or sorting rays
-// by direction for coherence, would pay more than tuning it alone.
+// What bounds it: instruction issue. A Woop test is ~45 fp32 operations
+// (no FMA: see Numerics), an IEEE division (a subroutine of ~10
+// instructions), the compares and the best's update: ~100 instructions a
+// prim and ray. At glass-512's 2^18 rays and 16 prims that is ~13M warp
+// instructions, ~14 us at the card's issue rate, where the counted bound
+// (the rays' 48 bytes, or 45 operations a test) is 3.8 us. Measured and
+// not kept (PERF.md): skipping the division for a prim that cannot give
+// t > tnear (exact for tnear >= 0: |dz| <= 1e-12, oz = 0, or -oz and dz
+// of opposite signs) or u and v for a t out of range (a warp skips work
+// only where all 32 rays do, and the branches cost more); persistent
+// blocks (every block of a 2^18 cast fits on the card at once anyway);
+// 2 or 4 rays a thread, over this table or over float4 rows (at best
+// 0.94x, for a second copy of the test).
 //
 // Numerics: every product that feeds a sum is written with __fmul_rn /
 // __fadd_rn, which nvcc never contracts into an FMA, in the order the

@@ -13,9 +13,7 @@
 // `sweep_streaming_plain`, which state the rule all of them follow.
 //
 // The TPU kernels test a whole (rays x triangles) tile per listed cluster,
-// because the TPU's vector unit has no per-lane gather or branch. K7
-// gives one thread one ray and walks the superclusters in id order behind
-// two slab gates.
+// because the TPU's vector unit has no per-lane gather or branch.
 //
 // K4 gives one warp one ray and goes straight to the ray's winning
 // cluster (no sort by cluster, no per-block list of distinct clusters):
@@ -27,7 +25,7 @@
 // a ray makes it 1024 blocks of 8 warps, 4 tests a lane, and the lanes
 // read neighbouring floats of each row.
 //
-// K5 and K6 give one warp one ray, and every block is independent. A CUDA
+// K5, K6 and K7 give one warp one ray, and every block is independent. A CUDA
 // block of kSweepWarps warps takes kSweepWarps consecutive rays and reads
 // the list of the ray block (LIST_B or LANE_R rays) they belong to. The
 // warp walks that list front to back in chunks of 32 entries: each lane
@@ -61,6 +59,21 @@
 // memory: a listed cluster is read by the few warps whose rays enter it,
 // not by a whole block.
 //
+// K7 has no lists: the warp walks the S superclusters in id order, 32 at a
+// time. Lane l slab-tests supercluster s0 + l for the horizon at the
+// chunk's start and a ballot gives the candidates; the horizon only falls,
+// so a box that fails there fails later too, and each candidate is tested
+// again, in id order, for the horizon of the moment. The G (<= 32) member
+// clusters of an entered supercluster are slab-tested by lanes 0..G-1 the
+// same way, each member again when it is entered, and an entered cluster
+// is tested by the whole warp over the lane table (warp_cluster_test,
+// which skips the triangles past C: K7's cluster size need not be a
+// multiple of 128). One thread a ray, the design it replaces, gave a
+// render's cast of 8192 rays 64 blocks of 128 threads for 132 SMs, each
+// thread a serial chain over 64-triangle clusters read from the
+// triangle-major rows (12 floats, 48 bytes apart), entered by the whole
+// warp when any of its 32 rays passed a gate.
+//
 // Numerics: every product that feeds a sum is written with __fmul_rn /
 // __fadd_rn, which nvcc never contracts into an FMA, in the order the
 // plain forms add them; division is IEEE (no fast math). K5 and K4 share
@@ -74,8 +87,7 @@
 
 namespace {
 
-constexpr int kRayThreads = 128;   // K7: threads per block
-constexpr int kSweepWarps = 8;     // K4, K5 and K6: rays (warps) per block
+constexpr int kSweepWarps = 8;     // K4-K7: rays (warps) per block
 constexpr int kLaneRows = 16;      // rows of one cluster in the lane table
 constexpr unsigned kFull = 0xffffffffu;
 
@@ -130,7 +142,7 @@ __device__ __forceinline__ bool slab(const float* __restrict__ ab,
 }
 
 // Where the 12 Woop components and the prim id of triangle c of a cluster
-// are: the lane table (rows of C floats) ...
+// are in the lane table (rows of C floats).
 struct LaneRows {
   const float* base;   // the cluster's (16, C) block
   int C;
@@ -139,18 +151,6 @@ struct LaneRows {
   }
   __device__ __forceinline__ float prim(int c) const {
     return __ldg(base + 12 * C + c);
-  }
-};
-
-// ... or the row-major (C, 12) block of sw_A with sw_prim beside it.
-struct TriRows {
-  const float* base;   // the cluster's (C, 12) block
-  const float* prims;  // the cluster's (C,) prim ids
-  __device__ __forceinline__ float operator()(int j, int c) const {
-    return __ldg(base + 12 * c + j);
-  }
-  __device__ __forceinline__ float prim(int c) const {
-    return __ldg(prims + c);
   }
 };
 
@@ -188,68 +188,39 @@ __device__ __forceinline__ bool woop_uv(const Rows& w, int c, const Ray& r,
   return u >= 0.0f && v >= 0.0f && __fadd_rn(u, v) <= 1.0f;
 }
 
-constexpr int kTriUnroll = 4;  // z rows in flight in a thread's triangle loop
-
-// K7's cluster test, one thread's: the nearest hit of the ray below `lim`
-// among a cluster's C triangles, in index order, a later triangle winning
-// only with a strictly smaller t (any-hit: the first hit). Returns its
-// index, or -1. The z rows of
-// kTriUnroll triangles are computed before any is looked at, so that their
-// loads and divisions overlap; the triangles are still taken in index
-// order against the running best.
-template <bool kAny, class Rows>
-__device__ __forceinline__ int cluster_test(const Rows& w, int C,
-                                            const Ray& r, float lim,
-                                            float& bt, float& bu, float& bv) {
-  int j = -1;
-  float cur = lim;
-  for (int c0 = 0; c0 < C; c0 += kTriUnroll) {
-    float t[kTriUnroll];
-    bool ok[kTriUnroll];
-#pragma unroll
-    for (int k = 0; k < kTriUnroll; ++k) {
-      const int c = c0 + k;
-      ok[k] = woop_t(w, min(c, C - 1), r, t[k]) && c < C;
-    }
-#pragma unroll
-    for (int k = 0; k < kTriUnroll; ++k) {
-      float u, v;
-      if (ok[k] && t[k] < cur && woop_uv(w, c0 + k, r, t[k], u, v)) {
-        cur = t[k];
-        j = c0 + k;
-        bt = t[k];
-        bu = u;
-        bv = v;
-        if (kAny) return j;
-      }
-    }
-  }
-  return j;
-}
+constexpr int kTriUnroll = 4;  // z rows in flight in a lane's triangle loop
+// K7's: two z rows a lane (a 64-triangle cluster in one round), and at
+// least 3 blocks an SM (80 registers); measured faster than 4 z rows and
+// than no bound or 4 blocks (PERF.md)
+constexpr int kStreamUnroll = 2;
+constexpr int kStreamMinBlocks = 3;
 
 // The nearest hit of the warp's ray below `lim` among the C triangles of
-// the cluster at `base` (a (16, C) lane block, C a multiple of 128), by
-// the serial rule: in index order, a later triangle winning only with a
-// strictly smaller t (any hit: the first hit). Lane l tests triangles
-// l + 32k, kTriUnroll z rows in flight before any is looked at (C is a
-// multiple of 32 kTriUnroll). Returns the
-// winner's index in every lane, or -1; t, u and v are the winner's in
-// every lane. Call with the whole warp converged.
-template <bool kAny>
+// the cluster at `base` (a (16, C) lane block), by the serial rule: in
+// index order, a later triangle winning only with a strictly smaller t
+// (any hit: the first hit). Lane l tests triangles l + 32k, kUnroll z
+// rows in flight before any is looked at. K5 and K6 take C a multiple of
+// 32 kUnroll; kTail (K7) lets C be any size, a lane testing nothing past
+// it. Returns the winner's index in every lane, or -1; t, u and v are the
+// winner's in every lane. Call with the whole warp converged.
+template <bool kAny, int kUnroll = kTriUnroll, bool kTail = false>
 __device__ __forceinline__ int warp_cluster_test(
     const float* __restrict__ base, int C, const Ray& r, float lim, int lane,
     float& bt, float& bu, float& bv) {
   const LaneRows w{base, C};
   float ct = lim, cu = 0.0f, cv = 0.0f;
   int cj = -1;
-  for (int c0 = 0; c0 < C; c0 += 32 * kTriUnroll) {
-    float t[kTriUnroll];
-    bool ok[kTriUnroll];
+  for (int c0 = 0; c0 < C; c0 += 32 * kUnroll) {
+    float t[kUnroll];
+    bool ok[kUnroll];
 #pragma unroll
-    for (int k = 0; k < kTriUnroll; ++k)
-      ok[k] = woop_t(w, c0 + 32 * k + lane, r, t[k]);
+    for (int k = 0; k < kUnroll; ++k) {
+      const int c = c0 + 32 * k + lane;
+      ok[k] = kTail ? c < C && woop_t(w, min(c, C - 1), r, t[k])
+                    : woop_t(w, c, r, t[k]);
+    }
 #pragma unroll
-    for (int k = 0; k < kTriUnroll; ++k) {
+    for (int k = 0; k < kUnroll; ++k) {
       const int c = c0 + 32 * k + lane;
       float u, v;
       const bool hit = ok[k] && t[k] < ct && woop_uv(w, c, r, t[k], u, v);
@@ -484,48 +455,76 @@ sweep_list_kernel(const float* __restrict__ rays,
   }
 }
 
-// K7. No lists: every ray walks the S superclusters in id order, gated by
-// its slab test against the supercluster and then against each of the G
-// member clusters, both for the running [tnear, min(best, tfar)].
+// K7. No lists: one warp per ray, kSweepWarps rays a block; the warp walks
+// the S superclusters in id order, gated by its slab test against the
+// supercluster and then against each of its G member clusters, both for
+// the running [tnear, min(best, tfar)] (see the header). The rule of
+// sweep_streaming_plain: for any hit, stop at the first hit, the lowest
+// index of the first cluster that holds one.
 template <bool kAny>
-__global__ void __launch_bounds__(kRayThreads)
+__global__ void __launch_bounds__(kSweepWarps * 32, kStreamMinBlocks)
 sweep_streaming_kernel(const float* __restrict__ rays,
                        const float* __restrict__ saabb,
                        const float* __restrict__ aabb,
-                       const float* __restrict__ A,
-                       const float* __restrict__ prims, int n, int S, int G,
-                       int C, float* __restrict__ t_out,
+                       const float* __restrict__ lane_tab, int n, int S,
+                       int G, int C, float* __restrict__ t_out,
                        int* __restrict__ p_out, float* __restrict__ u_out,
                        float* __restrict__ v_out) {
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
+  const int lane = threadIdx.x & 31;
+  const long long i = (long long)blockIdx.x * kSweepWarps + threadIdx.x / 32;
+  if (i >= n) return;                       // warp-uniform
   const Ray r = load_ray(rays, i);
   float best = inf_f(), bu = 0.0f, bv = 0.0f;
-  int prim = -1;
-  for (int s = 0; s < S && !(kAny && prim >= 0); ++s) {
-    if (!slab(saabb + 8 * s, r, limit(best, r.tf))) continue;
-    for (int g = 0; g < G && !(kAny && prim >= 0); ++g) {
-      const long long kid = (long long)s * G + g;
-      const float lim = limit(best, r.tf);
-      if (!slab(aabb + 8 * kid, r, lim)) continue;
-      const TriRows w{A + kid * C * 12, prims + kid * C};
-      float t, u, v;
-      const int j = cluster_test<kAny>(w, C, r, lim, t, u, v);
-      if (j >= 0) {
-        best = t;
-        prim = kAny ? 0 : (int)w.prim(j);
-        bu = kAny ? 0.0f : u;
-        bv = kAny ? 0.0f : v;
+  long long kwin = -1;
+  int jwin = -1;
+  bool stop = false;
+  for (int s0 = 0; s0 < S && !stop; s0 += 32) {
+    const int sl = s0 + lane;
+    unsigned cand = __ballot_sync(
+        kFull, sl < S && slab(saabb + 8 * (long long)sl, r,
+                              limit(best, r.tf)));
+    while (cand && !stop) {                 // warp-uniform: ballot bits
+      const int s = s0 + __ffs(cand) - 1;
+      cand &= cand - 1;
+      if (!slab(saabb + 8 * (long long)s, r, limit(best, r.tf))) continue;
+      const long long k0 = (long long)s * G;
+      unsigned mem = __ballot_sync(
+          kFull, lane < G && slab(aabb + 8 * (k0 + lane), r,
+                                  limit(best, r.tf)));
+      while (mem) {
+        const long long kid = k0 + __ffs(mem) - 1;
+        mem &= mem - 1;
+        const float lim = limit(best, r.tf);
+        if (!slab(aabb + 8 * kid, r, lim)) continue;
+        float t, u, v;
+        const int j = warp_cluster_test<kAny, kStreamUnroll, true>(
+            lane_tab + kid * kLaneRows * C, C, r, lim, lane, t, u, v);
+        if (j >= 0) {
+          best = t;
+          kwin = kid;
+          jwin = j;
+          bu = u;
+          bv = v;
+          if (kAny) {
+            stop = true;
+            break;
+          }
+        }
       }
     }
   }
-  t_out[i] = best;
-  p_out[i] = prim;
-  u_out[i] = bu;
-  v_out[i] = bv;
+  if (lane == 0) {
+    int prim = -1;
+    if (jwin >= 0)
+      prim = kAny ? 0
+                  : (int)LaneRows{lane_tab + kwin * kLaneRows * C, C}.prim(
+                        jwin);
+    t_out[i] = best;
+    p_out[i] = prim;
+    u_out[i] = kAny || jwin < 0 ? 0.0f : bu;
+    v_out[i] = kAny || jwin < 0 ? 0.0f : bv;
+  }
 }
-
-int blocks_for(long long n) { return (int)((n + kRayThreads - 1) / kRayThreads); }
 
 // The launch shape of K5 and K6: one warp per ray, kSweepWarps rays a
 // block; B a multiple of kSweepWarps, so a block's rays share one list.
@@ -581,18 +580,21 @@ int lj_sweep_list(const float* rays, const float* lane, const float* aabb,
   return (int)cudaGetLastError();
 }
 
+// rays (n, 8); lane (K, 16, C) with K = S * G; G at most 32.
 int lj_sweep_streaming(const float* rays, const float* saabb,
-                       const float* aabb, const float* A, const float* prims,
-                       int n, int S, int G, int C, int any_hit, float* t,
-                       int* p, float* u, float* v, void* stream) {
-  if (n <= 0 || S <= 0 || G <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+                       const float* aabb, const float* lane, int n, int S,
+                       int G, int C, int any_hit, float* t, int* p, float* u,
+                       float* v, void* stream) {
+  if (n <= 0 || S <= 0 || G <= 0 || G > 32 || C <= 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
+  const int grid = (int)(((long long)n + kSweepWarps - 1) / kSweepWarps);
   if (any_hit)
-    sweep_streaming_kernel<true><<<blocks_for(n), kRayThreads, 0, s>>>(
-        rays, saabb, aabb, A, prims, n, S, G, C, t, p, u, v);
+    sweep_streaming_kernel<true><<<grid, kSweepWarps * 32, 0, s>>>(
+        rays, saabb, aabb, lane, n, S, G, C, t, p, u, v);
   else
-    sweep_streaming_kernel<false><<<blocks_for(n), kRayThreads, 0, s>>>(
-        rays, saabb, aabb, A, prims, n, S, G, C, t, p, u, v);
+    sweep_streaming_kernel<false><<<grid, kSweepWarps * 32, 0, s>>>(
+        rays, saabb, aabb, lane, n, S, G, C, t, p, u, v);
   return (int)cudaGetLastError();
 }
 

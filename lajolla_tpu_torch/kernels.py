@@ -184,7 +184,7 @@ def _bind(libs):
     sweep.lj_sweep_resident.argtypes = [_P] * 6 + [_I] * 6 + [_P] * 3
     sweep.lj_sweep_resolve.argtypes = [_P] * 3 + [_I] * 2 + [_P] * 4
     sweep.lj_sweep_list.argtypes = [_P] * 6 + [_I] * 5 + [_P] * 5
-    sweep.lj_sweep_streaming.argtypes = [_P] * 5 + [_I] * 5 + [_P] * 5
+    sweep.lj_sweep_streaming.argtypes = [_P] * 4 + [_I] * 5 + [_P] * 5
     for fn in (sweep.lj_sweep_resident, sweep.lj_sweep_resolve,
                sweep.lj_sweep_list, sweep.lj_sweep_streaming):
         fn.restype = _I
@@ -729,28 +729,28 @@ def sweep_list(rays, lane, aabb, counts, clist, tlist, any_hit):
     return outs
 
 
-def sweep_streaming(rays, saabb, aabb, A, prim, any_hit):
+def sweep_streaming(rays, saabb, aabb, lane, any_hit):
     """Kernel K7: every ray walks the superclusters in id order behind two
-    slab gates, over the row-major (K*C, 12) table. Arguments and results
-    as ops/intersect_sweep.sweep_streaming_plain, which CPU tensors run;
-    CUDA tensors launch the kernel."""
+    slab gates, one warp a ray, over the lane table (K, 16, C) of any
+    cluster size C. Arguments and results as
+    ops/intersect_sweep.sweep_streaming_plain, which CPU tensors run; CUDA
+    tensors launch the kernel."""
     if rays.device.type == 'cpu':
         from lajolla_tpu_torch.ops.intersect_sweep import \
             sweep_streaming_plain
-        return sweep_streaming_plain(rays, saabb, aabb, A, prim, any_hit)
+        return sweep_streaming_plain(rays, saabb, aabb, lane, any_hit)
     device = rays.device
-    f32 = torch.float32
     n = rays.shape[0]
-    S, K = saabb.shape[0], aabb.shape[0]
-    if S == 0 or K % S or A.shape[0] % K:
-        raise ValueError(f"{K} clusters, {S} superclusters, {A.shape[0]} "
-                         "rows: no whole groups")
-    C = A.shape[0] // K
+    S = saabb.shape[0]
+    K, _, C = lane.shape
+    if S == 0 or K % S or K // S > 32 or aabb.shape[0] != K:
+        raise ValueError(f"{K} clusters, {S} superclusters, "
+                         f"{aabb.shape[0]} boxes: no whole groups of at "
+                         "most 32")
     ptrs = [_sweep_rays(rays, device),
             _check16(saabb, 'sw_saabb', (S, 8), device),
             _check16(aabb, 'sw_aabb', (K, 8), device),
-            _check(A, 'sw_A', (K * C, 12), f32, device),
-            _check(prim, 'sw_prim', (K * C, 1), f32, device)]
+            _check(lane, 'sw_lane', (K, 16, C), torch.float32, device)]
     lib = build()['sweep_kernels']
     outs = _hit_outputs(n, device)
     with torch.cuda.device(device):

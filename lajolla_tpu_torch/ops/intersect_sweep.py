@@ -24,7 +24,8 @@ kernels.py), chosen by `_call` as lajolla_tpu chooses, with its constants:
 - K6 `sweep_list` (larger tables): blocks of LANE_R rays, full-width
   lists, (t, prim, u, v) in one pass;
 - K7 `sweep_streaming` (cluster size not a multiple of 128): no lists,
-  every ray walks the superclusters in id order behind two slab gates.
+  every ray walks the superclusters in id order behind two slab gates,
+  over the lane table as K5 and K6 read it.
 
 Each kernel's plain PyTorch form is here (`*_plain`): the same arguments,
 the same outputs, the same rule, as batched tensor code with a Python
@@ -77,10 +78,9 @@ LIST_CHUNK_ELEMS = 1 << 26
 
 def pack_sweep(cl, group=GROUP, aligned=True):
     """Repack cluster data for the sweep kernels. Returns dict with
-    sw_A (K*C, 12) f32 rows [a0x a1x a2x bx | ...y | ...z] per triangle,
-    sw_prim (K*C, 1) f32 global tri ids (-1 pad), sw_lane (K, 16, C) f32
-    (the 12 Woop components and, as row 12, the prim ids, triangles along
-    the last axis), sw_aabb (K, 8) f32 [lo3 hi3 0 0] per cluster,
+    sw_lane (K, 16, C) f32 (rows 0-11 the Woop components [a0x a1x a2x bx
+    | ...y | ...z], row 12 the global tri ids as f32 (-1 pad), triangles
+    along the last axis), sw_aabb (K, 8) f32 [lo3 hi3 0 0] per cluster,
     sw_saabb (K/group, 8) supercluster AABBs. K is padded to a multiple
     of `group` with clusters of inverted infinite AABBs and zero rows.
     aligned=False lifts the rule that C is a multiple of 128 (such
@@ -98,11 +98,10 @@ def pack_sweep(cl, group=GROUP, aligned=True):
     A[:K0] = cl_A.reshape(K0, 3, 3, C)
     b = np.zeros((K, 3, C), np.float32)
     b[:K0] = cl_b.reshape(K0, 3, C)
-    sw = np.zeros((K, C, 12), np.float32)
+    lane = np.zeros((K, 16, C), np.float32)
     for axis in range(3):
-        sw[:, :, 4 * axis:4 * axis + 3] = A[:, :, axis, :].transpose(
-            0, 2, 1)
-        sw[:, :, 4 * axis + 3] = b[:, axis, :]
+        lane[:, 4 * axis:4 * axis + 3, :] = A[:, :, axis, :]
+        lane[:, 4 * axis + 3, :] = b[:, axis, :]
     aabb = np.zeros((K, 8), np.float32)
     aabb[:, 0:3] = INF
     aabb[:, 3:6] = -INF
@@ -116,13 +115,8 @@ def pack_sweep(cl, group=GROUP, aligned=True):
     prim[:K0] = cl_prim.astype(np.float32)
     assert cl_prim.max(initial=0) < (1 << 24), \
         "sweep prim ids stored as f32: exact only below 2^24"
-    lane = np.zeros((K, 16, C), np.float32)
-    lane[:, :12, :] = sw.transpose(0, 2, 1)
     lane[:, 12, :] = prim
-    return dict(sw_A=sw.reshape(K * C, 12),
-                sw_prim=prim.reshape(K * C, 1),
-                sw_lane=lane,
-                sw_aabb=aabb, sw_saabb=saabb)
+    return dict(sw_lane=lane, sw_aabb=aabb, sw_saabb=saabb)
 
 
 # ---------------------------------------------------------------------------
@@ -364,24 +358,23 @@ def sweep_resolve_plain(rays, kid, lane):
     return tuple(torch.cat(x) for x in zip(*outs))
 
 
-def sweep_streaming_plain(rays, saabb, aabb, A, prim, any_hit, stats=None):
+def sweep_streaming_plain(rays, saabb, aabb, lane, any_hit, stats=None):
     """Plain form of K7. rays (Np, 8) [o, tnear, d, tfar]; saabb (S, 8);
-    aabb (K, 8); A (K*C, 12); prim (K*C, 1) f32. Every ray walks the
-    superclusters in id order; it tests a supercluster's member clusters
-    if its slab test against the supercluster passes, and a cluster's
-    triangles if the cluster's passes, both against the running
+    aabb (K, 8); lane (K, 16, C): rows 0-11 the Woop components, row 12
+    the prim ids. Every ray walks the superclusters in id order; it
+    tests a supercluster's member clusters if its slab test against the
+    supercluster passes, and a cluster's triangles if the cluster's
+    passes, both against the running
     [tnear, min(best, tfar)]. Returns (t, prim i32, u, v) as
     sweep_list_plain does."""
     Np = rays.shape[0]
     S, K = saabb.shape[0], aabb.shape[0]
     G = K // S
-    C = A.shape[0] // K
+    C = lane.shape[2]
     dev = rays.device
     o, tnear, d, tfar = rays[:, 0:3], rays[:, 3], rays[:, 4:7], rays[:, 7]
     inv = _inv_dir(d)
-    # (K, 12, C): the layout _woop reads
-    rows = A.reshape(K, C, 12).transpose(1, 2)
-    prims = prim.reshape(K, C)
+    prims = lane[:, 12, :]
     best = torch.full((Np,), INF, device=dev)
     prim_o = torch.full((Np,), -1.0, device=dev)
     u_o = torch.zeros(Np, device=dev)
@@ -405,7 +398,7 @@ def sweep_streaming_plain(rays, saabb, aabb, A, prim, any_hit, stats=None):
                    cluster_tests=enter.sum())
             if not bool(enter.any()):
                 continue
-            t, u, v, hit = _woop(rows[k], o, d, tnear)
+            t, u, v, hit = _woop(lane[k], o, d, tnear)
             hit = hit & (t < lim[:, None]) & enter[:, None]
             t = torch.where(hit, t, INF)
             if any_hit:
@@ -506,13 +499,12 @@ def _call_streaming(scene, o, d, tnear, tfar, any_hit):
     o, d, tnear, tfar = _pad_rays(o, d, tnear, tfar, BLOCK_R)
     t, p, u, v = kernels.sweep_streaming(
         _pack_rays(o, tnear, d, tfar), scene.sw_saabb, scene.sw_aabb,
-        scene.sw_A, scene.sw_prim, any_hit)
+        scene.sw_lane, any_hit)
     return t[:N], p[:N], u[:N], v[:N]
 
 
 def _call(scene, o, d, tnear, tfar, any_hit):
-    K = scene.sw_aabb.shape[0]
-    C = scene.sw_A.shape[0] // K
+    C = scene.sw_lane.shape[2]
     if C % 128 == 0:
         if scene.sw_lane.numel() * 4 <= RESIDENT_BYTES:
             return _call_res(scene, o, d, tnear, tfar, any_hit)

@@ -175,9 +175,7 @@ def bvh_tables(bvh, p0, e1, e2, num_tris, use_binned):
                   cl_A=np.zeros((1, 3, 3), np.float32),
                   cl_b=np.zeros((1, 3), np.float32),
                   cl_prim=np.full((1, 1), -1, np.int32))
-        sw = dict(sw_A=np.zeros((1, 12), np.float32),
-                  sw_prim=np.full((1, 1), -1.0, np.float32),
-                  sw_lane=np.zeros((1, 16, 1), np.float32),
+        sw = dict(sw_lane=np.zeros((1, 16, 1), np.float32),
                   sw_aabb=np.zeros((1, 8), np.float32),
                   sw_saabb=np.zeros((1, 8), np.float32))
         BUILD_SECONDS.update(clusters=0.0, pack=0.0)
@@ -206,7 +204,6 @@ def bvh_tables(bvh, p0, e1, e2, num_tris, use_binned):
         cl_lo=_f32(cl['cl_lo']), cl_hi=_f32(cl['cl_hi']),
         cl_A=_f32(cl['cl_A']), cl_b=_f32(cl['cl_b']),
         cl_prim=_i32(cl['cl_prim']),
-        sw_A=_f32(sw['sw_A']), sw_prim=_f32(sw['sw_prim']),
         sw_lane=_f32(sw['sw_lane']),
         sw_aabb=_f32(sw['sw_aabb']), sw_saabb=_f32(sw['sw_saabb']))
 

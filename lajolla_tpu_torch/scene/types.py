@@ -182,8 +182,6 @@ class Scene:
     cl_A: Any            # (K, 3, 3C) f32 dense Woop transform blocks
     cl_b: Any            # (K, 3C) f32
     cl_prim: Any         # (K, C) i32 triangle ids (-1 pad)
-    sw_A: Any            # (K*C, 12) f32 sweep-kernel Woop rows
-    sw_prim: Any         # (K*C, 1) f32 global tri ids (-1 pad)
     sw_lane: Any         # (K, 16, C) f32 lane-major Woop + prim table (padded)
     sw_aabb: Any         # (K, 8) f32 cluster [lo3 hi3 0 0]
     sw_saabb: Any        # (K/G, 8) f32 supercluster AABBs (sweep gate)

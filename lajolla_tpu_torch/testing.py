@@ -1030,39 +1030,56 @@ def repack_clusters(scene, max_tris):
         k: torch.from_numpy(v).to(dev) for k, v in tables.items()})
 
 
+def sweep_rows(sw_lane):
+    """The triangle-major sweep rows of a lane table (K, 16, C), as
+    lajolla_tpu's sweep tables also hold them: {'sw_A': (K*C, 12) Woop
+    rows [a0x a1x a2x bx | ...y | ...z], 'sw_prim': (K*C, 1) f32 prim
+    ids}, numpy."""
+    lane = np.asarray(sw_lane)
+    K, _, C = lane.shape
+    return {'sw_A': np.ascontiguousarray(
+                lane[:, :12, :].transpose(0, 2, 1)).reshape(K * C, 12),
+            'sw_prim': np.ascontiguousarray(lane[:, 12, :]).reshape(
+                K * C, 1)}
+
+
 # Where the tie fixture (`sweep_tie_fixture`) puts its triangles, by index
 # in the cluster: lane l of a warp tests indices l + 32k, so the copies of
-# triangle A sit in lanes 7 and 2, one and more rounds apart.
+# triangle A sit in lanes 7 and 2, one and more rounds apart (at 64
+# triangles a cluster, the streaming sweep's size, the copies below 64:
+# indices 7, 34 and 39, lanes 7, 2 and 7).
 TIE_COPIES_A = (7, 34, 39, 71, 103)   # cluster 0; cluster 1 holds one at 0
 TIE_FAR_B, TIE_NEAR_B = 9, 40         # cluster 0: B at z = 0 and z = 0.1
 
 
-def sweep_tie_fixture(seed=0, n=512):
-    """Two clusters of 128 triangles whose hits tie, for holding the
-    sweeps' tie rules, and n rays, all made with numpy from `seed`.
+def sweep_tie_fixture(seed=0, n=512, C=128):
+    """Two clusters of C (128, or 64 for the streaming sweep K7) triangles
+    whose hits tie, for holding the sweeps' tie rules, and n rays, all
+    made with numpy from `seed`.
 
-    Cluster 0 holds five identical copies of a triangle A in the plane
-    z = 0 (indices TIE_COPIES_A), a triangle B at z = 0 (index TIE_FAR_B)
-    and a copy of B lifted to z = 0.1 (index TIE_NEAR_B); cluster 1 holds
-    one more copy of A (index 0). The other slots hold small triangles off
-    the rays' paths, cluster 1's reaching z = 0.5, so that a block's list
-    holds cluster 1 before cluster 0. Rays come down from z ~ 2.5, nearly
-    vertical, onto A (3/8), onto B (3/8) or onto nothing (1/4).
+    Cluster 0 holds identical copies of a triangle A in the plane z = 0
+    (the indices of TIE_COPIES_A below C), a triangle B at z = 0 (index
+    TIE_FAR_B) and a copy of B lifted to z = 0.1 (index TIE_NEAR_B);
+    cluster 1 holds one more copy of A (index 0). The other slots hold
+    small triangles off the rays' paths, cluster 1's reaching z = 0.5, so
+    that a block's list holds cluster 1 before cluster 0. Rays come down
+    from z ~ 2.5, nearly vertical, onto A (3/8), onto B (3/8) or onto
+    nothing (1/4).
 
     Closest hit: a ray on A gets the copy of the first listed cluster (1,
     its index 0) or, where a block sweeps superclusters (members in id
-    order), cluster 0's lowest index; a ray on B the lifted copy. Any hit:
-    the lowest index of the first cluster that holds a hit, so a ray on B
-    stops at the copy at z = 0, not at the nearer one.
+    order) and in K7's walk in id order, cluster 0's lowest index; a ray
+    on B the lifted copy. Any hit: the lowest index of the first cluster
+    that holds a hit, so a ray on B stops at the copy at z = 0, not at the
+    nearer one.
 
     Returns (tables, rays, region): tables as `ops.intersect_sweep`'s
-    callers read them (cl_* and sw_* numpy arrays; prim ids are 128 *
+    callers read them (cl_* and sw_* numpy arrays; prim ids are C *
     cluster + index), rays (o, d, tnear, tfar) float32 arrays, region (n,)
     0 on A, 1 on B, -1 off both."""
     from lajolla_tpu_torch.ops.intersect_binned import build_clusters
     from lajolla_tpu_torch.ops.intersect_sweep import pack_sweep
     rng = np.random.default_rng(seed)
-    C = 128
     tri = np.zeros((2 * C, 3, 3))
 
     def fillers(k, x0, z0, z1):
@@ -1074,7 +1091,8 @@ def sweep_tie_fixture(seed=0, n=512):
     a = np.array([[-1.0, -1.0, 0.0], [-0.1, -1.0, 0.0], [-1.0, 0.8, 0.0]])
     b = a + [1.3, 0.0, 0.0]
     for c in TIE_COPIES_A:
-        tri[c] = a
+        if c < C:
+            tri[c] = a
     tri[C] = a
     tri[TIE_FAR_B] = b
     tri[TIE_NEAR_B] = b + [0.0, 0.0, 0.1]
@@ -1090,7 +1108,7 @@ def sweep_tie_fixture(seed=0, n=512):
     cl = build_clusters(bvh, tri[:, 0], tri[:, 1] - tri[:, 0],
                         tri[:, 2] - tri[:, 0], max_tris=C)
     assert cl.pop('n_clusters') == 2
-    tables = {**cl, **pack_sweep(cl)}
+    tables = {**cl, **pack_sweep(cl, aligned=C % 128 == 0)}
 
     region = rng.choice([0, 0, 0, 1, 1, 1, -1, -1], n)
     u = rng.uniform(0.1, 0.8, n)

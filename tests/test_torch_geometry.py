@@ -12,6 +12,9 @@ compiled tables (bridge.py).
   where they agree on a hit (JAX contracts with a HIGHEST-precision
   matmul, the port with products added left to right: a last-bit
   difference can move a hit on a shared edge).
+- The same plain casters against lajolla_tpu's on hand-written Woop rows
+  and rays made to sit on the test's edges (adversarial_table /
+  adversarial_rays): prims and occlusion equal on every ray.
 - `intersect_scene` hit records against `jax.vmap(intersect_scene)`:
   ids agree on >= 99.9% of rays, and where both hit the same prim, every
   float field agrees to rtol / atol 1e-5 (the frame 1e-4, FRAME_TOL) on
@@ -19,6 +22,7 @@ compiled tables (bridge.py).
 """
 
 import functools
+import types
 
 import jax
 import jax.numpy as jnp
@@ -115,6 +119,123 @@ def test_casters_match_pallas_interpret(fixture, monkeypatch):
     got = kernels.occluded_brute(ps, *(torch.from_numpy(x)
                                        for x in (o, d, tn, tf))).numpy()
     assert (got == want).mean() >= 0.999
+
+
+def _woop_row(ax, bx, ay, by, az, bz):
+    """A prim's 12 Woop entries [x row, bias | y | z]."""
+    return [*ax, bx, *ay, by, *az, bz]
+
+
+# (rows, quad flag): u = x, v = y on the plane z = 0 and its neighbours
+ADVERSARIAL_PRIMS = (
+    (_woop_row((1, 0, 0), 0, (0, 1, 0), 0, (0, 0, 1), 0), 0),    # x + y <= 1
+    (_woop_row((-1, 0, 0), 1, (0, -1, 0), 1, (0, 0, 1), 0), 0),  # x + y >= 1
+    (_woop_row((1, 0, 0), -2, (0, 1, 0), 0, (0, 0, 1), -0.5), 1),  # quad
+    (_woop_row((0.5, 0, 0), 0.5, (0, 0.5, 0), 0.5, (0, 0, 1), 0.5), 0),
+    (_woop_row((1, 0, 0), 0, (0, 1, 0), 0, (0, 0, 1), 0), 0),    # copy of 0
+    (_woop_row((1, 0, 0), -1, (0, 1, 0), 0, (0.5, 0, 1), -0.25), 0),  # tilt
+    (_woop_row((1, 0, 0), 0, (0, 1, 0), 0, (0, 0, -1), 1.0), 0),  # -z, z 1
+)
+
+
+def adversarial_table():
+    """The cast table of ADVERSARIAL_PRIMS (exact entries: two triangles
+    of one plane that share an edge, an exact copy of the first, a quad
+    whose back half remaps to its partner, planes in front of and behind
+    the origins, a tilted plane, a z row of negative sign) as both
+    packages' brute forces read it, the occluder table the same."""
+    w = np.array([r for r, _ in ADVERSARIAL_PRIMS], np.float32)
+    T = len(ADVERSARIAL_PRIMS)
+    A = np.concatenate([w[:, 0:3].T, w[:, 4:7].T, w[:, 8:11].T], 1)
+    b = np.concatenate([w[:, 3], w[:, 7], w[:, 11]])
+    quad = np.array([q for _, q in ADVERSARIAL_PRIMS], np.float32)
+    return dict(tri_woop_A=A, tri_woop_b=b, tri_woop_A_occ=A,
+                tri_woop_b_occ=b, fp_woop=w, fp_woop_occ=w, cast_quad=quad,
+                cast_occ_quad=quad,
+                cast_src=np.arange(10, 10 + T, dtype=np.int32),
+                cast_alt=np.arange(20, 20 + T, dtype=np.int32))
+
+
+def adversarial_rays(seed, n=6144):
+    """(o, d, tnear, tfar) float32 from `seed`: tnear = 0, -0.0, < 0 (hits
+    behind the origin count) and NaN; origins on a plane (oz = 0 exactly);
+    dz = 0, -0.0, +-1e-12 and its neighbours; rays straight down onto the
+    shared edge; NaN origins and directions."""
+    rng = np.random.default_rng(seed)
+    o = np.stack([rng.uniform(-0.5, 3.5, n), rng.uniform(-0.5, 1.5, n),
+                  rng.choice([-1.0, -0.5, 0.0, 0.25, 0.5, 1.0, 2.0, 0.0],
+                             n)], -1)
+    free = rng.random(n) < 0.25          # origins off the planes too
+    o[free, 2] = rng.uniform(-1.5, 2.5, free.sum())
+    d = rng.normal(size=(n, 3))
+    d /= np.linalg.norm(d, axis=1, keepdims=True)
+    tiny = np.float32(1e-12)
+    dz = np.array([0.0, -0.0, tiny, -tiny, np.nextafter(tiny, np.float32(1)),
+                   -np.nextafter(tiny, np.float32(1)),
+                   np.nextafter(tiny, np.float32(0)), 1e-30, -1.0, 1.0],
+                  np.float32)
+    pick = rng.random(n) < 0.2
+    d[pick, 2] = rng.choice(dz, pick.sum())
+    # rays straight down onto the shared edge x + y = 1 of prims 0 and 1
+    edge = rng.random(n) < 0.1
+    x = rng.integers(0, 9, edge.sum()) / 8.0
+    o[edge] = np.stack([x, 1.0 - x, np.ones(edge.sum())], -1)
+    d[edge] = (0.0, 0.0, -1.0)
+    tn = rng.choice(np.array([0.0, -0.0, -1.0, -0.25, 1e-4, 0.3],
+                             np.float32), n)
+    tf = rng.choice(np.array([np.inf, 0.75, 3.0, 1.0], np.float32), n)
+    nan = rng.random(n) < 0.02
+    o[nan & (rng.random(n) < 0.5), 1] = np.nan
+    d[nan & (rng.random(n) < 0.5), 2] = np.nan
+    tn[rng.random(n) < 0.01] = np.nan
+    return tuple(x.astype(np.float32) for x in (o, d, tn, tf))
+
+
+@pytest.mark.parametrize('any_hit', [False, True], ids=['closest', 'any'])
+@pytest.mark.parametrize('seed', [0, 1, 2])
+def test_plain_casters_on_adversarial_rays_match_jax(seed, any_hit):
+    """Both packages' brute forces on adversarial_table and
+    adversarial_rays: prims (closest hit) or occlusion (any hit) equal on
+    every ray, t, u, v to rtol 1e-5 on every hit; the wrapper of K3 runs
+    the plain form on CPU tensors. The cases are there: the edge's tie
+    won by the lower index, hits behind the origin, quad back halves,
+    misses."""
+    tab = adversarial_table()
+    ps = types.SimpleNamespace(**{k: torch.from_numpy(v)
+                                  for k, v in tab.items()})
+    js = types.SimpleNamespace(**{k: jnp.asarray(v) for k, v in tab.items()})
+    rays_ = adversarial_rays(seed)
+    t_ = [torch.from_numpy(x) for x in rays_]
+    j_ = [jnp.asarray(x) for x in rays_]
+    if any_hit:
+        got = _occluded_batched(ps, *t_).numpy()
+        assert (got == np.asarray(JI._occluded_batched(js, *j_))).all()
+        assert got.any() and not got.all()
+        assert torch.equal(kernels.occluded_brute(ps, *t_),
+                           torch.from_numpy(got))
+        return
+    got = _brute_force_batched(ps, *t_)
+    t, prim, u, v = (x.numpy() for x in got)
+    wt, wprim, wu, wv = (np.asarray(x) for x in
+                         JI._brute_force_batched(js, *j_))
+    assert (prim == wprim).all()
+    hit = prim >= 0
+    assert np.isinf(t[~hit]).all()
+    for g, w in ((t, wt), (u, wu), (v, wv)):
+        np.testing.assert_allclose(g[hit], w[hit], rtol=1e-5, atol=1e-6)
+    for g, w in zip(kernels.intersect_brute(ps, *t_), got):
+        np.testing.assert_array_equal(g.numpy(), w.numpy())  # NaN == NaN
+    # an edge ray starts on the z = 1 plane: with tnear < 0 it hits it at
+    # t = 0, else prims 0, 1 and 4 at t = 1, where prim 0 wins the tie
+    o, d, tn, tf = rays_
+    on_edge = (d[:, 2] == -1.0) & (o[:, 2] == 1.0) & (o[:, 0] + o[:, 1] == 1.0)
+    on_edge &= (tf > 1.0) & (tn < 1.0)
+    assert (prim[on_edge & (tn >= 0)] == 10).all()
+    assert (prim[on_edge & (tn < 0)] == 16).all()
+    assert (on_edge & (tn >= 0)).any() and (on_edge & (tn < 0)).any()
+    assert (hit & (t <= 0.0)).any()
+    assert (prim == 20 + 2).any() and (prim == 10 + 2).any()
+    assert (~hit).any()
 
 
 def test_empty_triangle_set_never_hits():

@@ -27,6 +27,7 @@ import lajolla_tpu_torch.ops.bvh as PBVH
 import lajolla_tpu_torch.ops.intersect_binned as PIB
 import lajolla_tpu_torch.ops.intersect_sweep as PSW
 from lajolla_tpu_torch import kernels
+from lajolla_tpu_torch import testing as PT
 
 ROUTES = {  # route: (LIST_LEN, RESIDENT_BYTES, triangles per cluster)
     'resident': (PSW.LIST_LEN, PSW.RESIDENT_BYTES, 128),
@@ -62,9 +63,10 @@ def soup():
         cl = PIB.build_clusters(b, p0, e1, e2, max_tris=C)
         cl.pop('n_clusters')
         tabs = {**cl, **PSW.pack_sweep(cl, aligned=False)}
+        jtabs = {**tabs, **PT.sweep_rows(tabs['sw_lane'])}
         scenes[C] = (
             types.SimpleNamespace(**{k: jnp.asarray(v)
-                                     for k, v in tabs.items()}),
+                                     for k, v in jtabs.items()}),
             types.SimpleNamespace(**{k: torch.from_numpy(v)
                                      for k, v in tabs.items()}))
     o = rng.uniform(-2, 2, size=(N, 3)).astype(np.float32)

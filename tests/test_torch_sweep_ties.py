@@ -1,18 +1,22 @@
-"""The tie rules of the sweep casters, which kernels K5 and K6 keep with a
-warp reduction: among hits at equal t the lowest triangle index of the
-first listed cluster wins (closest hit), and the lowest index of the
-first cluster with a hit decides (any hit).
+"""The tie rules of the sweep casters, which kernels K5, K6 and K7 keep
+with a warp reduction: among hits at equal t the lowest triangle index of
+the first listed cluster wins (closest hit; K7 walks the clusters in id
+order), and the lowest index of the first cluster with a hit decides (any
+hit).
 
 testing.sweep_tie_fixture (numpy, from a seed) puts identical triangles
-at indices 7, 34, 39, 71 and 103 of one cluster (lanes 7 and 2 of a
-warp, rounds of 32 apart) and one more in a second cluster that the lists
-hold first, beside a triangle whose lifted copy sits at a higher index.
-Its rays go through lajolla_tpu's `intersect_sweep` / `occluded_sweep`
-(INTERPRET = True, as tests/test_torch_sweep.py runs them) and through the
-port's plain forms on CPU tensors, by the routes K5 + K4, K5 with
-overflowing lists (supercluster mode) and K6. Gates: prim equal on every
-ray, and the prim each rule names; t within rtol 3e-4 (XLA may fuse the
-Woop products into FMAs), u and v within 1e-4; occlusion equal.
+at indices 7, 34, 39, 71 and 103 of one cluster of 128 (lanes 7 and 2 of
+a warp, rounds of 32 apart; at 64 triangles a cluster, K7's tables, the
+copies at 7, 34 and 39, lanes 7, 2 and 7) and one more in a second
+cluster that the lists hold first, beside a triangle whose lifted copy
+sits at a higher index. Its rays go through lajolla_tpu's
+`intersect_sweep` / `occluded_sweep` (INTERPRET = True, as
+tests/test_torch_sweep.py runs them) and through the port's plain forms
+on CPU tensors, by the routes K5 + K4, K5 with overflowing lists
+(supercluster mode), K6 and K7 (the fixture at 64 a cluster). Gates:
+prim equal on every ray, and the prim each rule names; t within rtol
+3e-4 (XLA may fuse the Woop products into FMAs), u and v within 1e-4;
+occlusion equal.
 
 testing.resolve_tie_fixture holds the resolve's own rule, which kernel K4
 keeps with a warp reduction on (err, index): two triangles of one cluster
@@ -34,12 +38,12 @@ import lajolla_tpu.ops.intersect_sweep as JSW
 import lajolla_tpu_torch.ops.intersect_sweep as PSW
 from lajolla_tpu_torch import testing as PT
 
-ROUTES = {  # route: (LIST_LEN, RESIDENT_BYTES)
-    'resident': (PSW.LIST_LEN, PSW.RESIDENT_BYTES),
-    'overflow': (4, PSW.RESIDENT_BYTES),
-    'list': (PSW.LIST_LEN, 0),
+ROUTES = {  # route: (LIST_LEN, RESIDENT_BYTES, triangles per cluster)
+    'resident': (PSW.LIST_LEN, PSW.RESIDENT_BYTES, 128),
+    'overflow': (4, PSW.RESIDENT_BYTES, 128),
+    'list': (PSW.LIST_LEN, 0, 128),
+    'streaming': (PSW.LIST_LEN, PSW.RESIDENT_BYTES, 64),
 }
-C = 128
 
 
 @pytest.fixture(scope='module', autouse=True)
@@ -52,31 +56,43 @@ def one_thread():
 
 
 @pytest.fixture(scope='module')
-def ties():
-    tables, rays, region = PT.sweep_tie_fixture(seed=5)
-    js = types.SimpleNamespace(**{k: jnp.asarray(v)
-                                  for k, v in tables.items()})
-    ps = types.SimpleNamespace(**{k: torch.from_numpy(v)
-                                  for k, v in tables.items()})
-    return js, ps, rays, region
+def tie_sets():
+    """{C: (lajolla_tpu tables, port tables, rays, region)} of the tie
+    fixture at 128 and at 64 triangles a cluster."""
+    out = {}
+    for C in (128, 64):
+        tables, rays, region = PT.sweep_tie_fixture(seed=5, C=C)
+        jtables = {**tables, **PT.sweep_rows(tables['sw_lane'])}
+        js = types.SimpleNamespace(**{k: jnp.asarray(v)
+                                      for k, v in jtables.items()})
+        ps = types.SimpleNamespace(**{k: torch.from_numpy(v)
+                                      for k, v in tables.items()})
+        out[C] = (js, ps, rays, region)
+    return out
+
+
+@pytest.fixture
+def ties(tie_sets):
+    return tie_sets[128]
 
 
 @pytest.fixture
 def route(request, monkeypatch):
-    list_len, resident = ROUTES[request.param]
+    list_len, resident, C = ROUTES[request.param]
     for mod in (JSW, PSW):
         monkeypatch.setattr(mod, 'LIST_LEN', list_len)
         monkeypatch.setattr(mod, 'RESIDENT_BYTES', resident)
     monkeypatch.setattr(JSW, 'INTERPRET', True)
-    return request.param
+    return request.param, C
 
 
-def expected_prims(route, region):
+def expected_prims(route, C, region):
     """The prim each tie rule names: a ray on A takes the copy of the
-    first listed cluster (cluster 1, index 0), or cluster 0's lowest
-    index where the block sweeps its supercluster's members in id order;
-    a ray on B the nearer, lifted copy."""
-    on_a = C if route != 'overflow' else PT.TIE_COPIES_A[0]
+    first listed cluster (cluster 1, index 0: prim C), or cluster 0's
+    lowest index where the block sweeps its supercluster's members in id
+    order and where K7 walks the clusters in id order; a ray on B the
+    nearer, lifted copy."""
+    on_a = C if route in ('resident', 'list') else PT.TIE_COPIES_A[0]
     return np.select([region == 0, region == 1], [on_a, PT.TIE_NEAR_B], -1)
 
 
@@ -85,13 +101,14 @@ def torch_rays(rays):
 
 
 @pytest.mark.parametrize('route', sorted(ROUTES), indirect=True)
-def test_closest_hit_ties_match_pallas_interpret(ties, route):
-    js, ps, rays, region = ties
+def test_closest_hit_ties_match_pallas_interpret(tie_sets, route):
+    route, C = route
+    js, ps, rays, region = tie_sets[C]
     t, prim, u, v = (x.numpy() for x in
                      PSW.intersect_sweep(ps, *torch_rays(rays)))
     jt, jprim, ju, jv = (np.asarray(x) for x in JSW.intersect_sweep(
         js, *(jnp.asarray(x) for x in rays)))
-    assert (jprim == expected_prims(route, region)).all()
+    assert (jprim == expected_prims(route, C, region)).all()
     assert (prim == jprim).all()
     np.testing.assert_allclose(np.where(np.isfinite(t), t, 1e9),
                                np.where(np.isfinite(jt), jt, 1e9),
@@ -105,11 +122,11 @@ def test_closest_hit_ties_match_pallas_interpret(ties, route):
 
 
 @pytest.mark.parametrize('route', sorted(ROUTES), indirect=True)
-def test_any_hit_ties(ties, route):
+def test_any_hit_ties(tie_sets, route):
     """Occlusion equals lajolla_tpu's; the any-hit t is that of the lowest
     index that hits (a ray on B stops at the copy at z = 0, beyond the
     nearer copy at a higher index), which the kernels return too."""
-    js, ps, rays, region = ties
+    js, ps, rays, region = tie_sets[route[1]]
     occ = PSW.occluded_sweep(ps, *torch_rays(rays)).numpy()
     jocc = np.asarray(JSW.occluded_sweep(js, *(jnp.asarray(x)
                                                for x in rays)))

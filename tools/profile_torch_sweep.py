@@ -5,6 +5,7 @@ spp (`hugemesh-768`: the list sweep K6), through render().
 
 usage, from the repository root: python3 tools/profile_torch_sweep.py
     [--runs 2] [--label TEXT] [--out PATH]
+    [--k7 [--films PATH] [--against PATH]]
 
 Prints, and writes as JSON to --out, for each of the two cells:
 - the card's `nvidia-smi` name and power limit;
@@ -34,6 +35,24 @@ Prints, and writes as JSON to --out, for each of the two cells:
 - for bigmesh-683 only, K5 and K6 at 2^18 rays as `chip_smoke.py` [14]
   times them (the bounce and shadow rays of the 56k-triangle mesh box's
   512x512 film; K6 on full-width lists of the same table), with bounds.
+
+With --k7 it measures the streaming sweep K7 alone, in place of all that:
+- `mesh-64` (chip_smoke.py [15]: the mesh Cornell box at ~3.5k triangles,
+  128x96 x 1 spp, its tables repacked at 64 triangles a cluster): every
+  K7 launch of one render() is kept (its inputs and outputs) and replayed,
+  and K7's device time a launch over the render's casts (closest and any
+  hit apart) in --runs traces (torch.profiler: the mean and median of
+  each, so the runs give the spread); the device time of K7's launches in
+  a trace of one render() besides;
+- 2^18 rays: the bounce (closest hit) and shadow (any hit) rays of the
+  56k-triangle mesh box's 512x512 film, repacked at 64, as chip_smoke.py
+  [14] times them: device time --runs times, and CUDA events (which at
+  render shape time the host's issue rate);
+- the ptxas registers and spills of the tree's sweep kernels.
+--films PATH saves every output (t, prim, u, v of each launch) and the
+rays; --against PATH, a file another tree saved, gives the share of rays
+whose outputs are bit-equal between the trees, launch by launch (and
+whether the two renders cast the same rays).
 Imports no JAX. It reads only what the package has had since K4-K7 were
 ported, so a copy of it placed in an older checkout measures that tree:
 run it there and here in turns, in one call, to compare two trees.
@@ -77,6 +96,11 @@ def main():
     ap.add_argument('--label', default='')
     ap.add_argument('--out', default=os.path.join(
         REPO, 'chiprun_out', 'profile_torch_sweep.json'))
+    ap.add_argument('--k7', action='store_true',
+                    help='measure the streaming sweep K7 alone')
+    ap.add_argument('--films', help='with --k7: save every output here')
+    ap.add_argument('--against',
+                    help='with --k7: compare with the outputs saved here')
     args = ap.parse_args()
 
     import torch
@@ -108,6 +132,12 @@ def main():
            'build_s': time.perf_counter() - t0}
     print(f"tree {REPO} ({args.label}); {card}; build + load "
           f"{out['build_s']:.1f} s", flush=True)
+    if args.k7:
+        out['k7'] = k7_ab(args, torch, dev, card)
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
+        with open(args.out, 'w') as f:
+            json.dump(out, f, indent=1)
+        return
 
     def nbytes(*tensors):
         return sum(x.numel() * x.element_size() for x in tensors)
@@ -344,6 +374,94 @@ def main():
     os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
     with open(args.out, 'w') as f:
         json.dump(out, f, indent=1)
+
+
+def k7_ab(args, torch, dev, card):
+    """The --k7 measurements (see the module docstring); returns them."""
+    import inspect
+
+    from chip_smoke import cuda_ms
+    from lajolla_tpu_torch import kernels, render
+    from lajolla_tpu_torch import testing as PT
+    from lajolla_tpu_torch.ops import intersect_sweep as SW
+    from lajolla_tpu_torch.scene.types import RenderOptions
+    from tools.profile_torch_general import (ab_outputs, brief, device_runs,
+                                             kernel_registers, trace_ms)
+
+    name = 'sweep_streaming_kernel'
+    real = kernels.sweep_streaming
+    res = {'registers': kernel_registers(kernels.build_log(), ('sweep_',))}
+    saved = {}
+
+    # ---- mesh-64: the render's own launches
+    small = PT.make_cornell_box((128, 96), 1, 'mesh', triangles=3500).to(dev)
+    mesh64 = PT.repack_clusters(small, 64)
+    opt = RenderOptions(samples_per_pixel=1)
+    kept = []
+
+    def keep(*a):
+        outs = real(*a)
+        kept.append((a, tuple(x.clone() for x in outs)))
+        return outs
+    render(mesh64, opt, device=dev)                      # warm
+    with mock.patch.object(kernels, 'sweep_streaming', keep):
+        render(mesh64, opt, device=dev)
+    torch.cuda.synchronize()
+    for a, outs in kept:
+        key = 'render any' if a[-1] else 'render closest'
+        saved.setdefault(key, []).append(outs)
+        saved.setdefault(key + ' rays', []).append((a[0],))
+    res['render_launches'] = len(kept)
+    res['render_rays_a_launch'] = sorted({a[0].shape[0] for a, _ in kept})
+    for any_hit in (False, True):
+        calls = [a for a, _ in kept if bool(a[-1]) == any_hit]
+        key = 'any' if any_hit else 'closest'
+        ms = device_runs(torch, lambda: [real(*a) for a in calls], 3, name,
+                         args.runs)
+        res[f'render_{key}_launches'] = len(calls)
+        res[f'render_{key}_device_ms'] = ms
+        print(f"K7 {key} hit on the {len(calls)} launches of a mesh-64 "
+              f"render ({res['render_rays_a_launch']} rays a launch), "
+              f"device ms a launch, {args.runs} runs: {ms}; {card}",
+              flush=True)
+    res['render_trace'] = trace_ms(torch, lambda: render(mesh64, opt,
+                                                         device=dev), name)
+    print(f"K7 in a traced mesh-64 render: {res['render_trace']}", flush=True)
+
+    # ---- 2^18 rays of the 56k-triangle mesh box, as chip_smoke.py [14]
+    big = PT.make_cornell_box(512, 1, 'mesh', triangles=56000).to(dev)
+    big64 = PT.repack_clusters(big, 64)
+    plain = {k: getattr(SW, k + '_plain') for k in (
+        'sweep_resident', 'sweep_resolve', 'sweep_list', 'sweep_streaming')}
+    with mock.patch.multiple(kernels, **plain):
+        rays = PT.general_rays(big, seed=13, device=dev)
+    if 'lane' in inspect.signature(real).parameters:
+        tabs = (big64.sw_saabb, big64.sw_aabb, big64.sw_lane)
+    else:                                   # K7 before it read sw_lane
+        tabs = (big64.sw_saabb, big64.sw_aabb, big64.sw_A, big64.sw_prim)
+    for any_hit, kind in ((False, 'bounce'), (True, 'shadow')):
+        o, d, tn, tf = rays[kind]
+        perm = torch.argsort(SW._sort_keys(big, o, d), stable=True)
+        o, d, tn, tf = SW._pad_rays(*(x[perm].contiguous()
+                                      for x in (o, d, tn, tf)), SW.BLOCK_R)
+        pk = SW._pack_rays(o, tn, d, tf)
+        key = 'any' if any_hit else 'closest'
+        saved[f'2^18 {key}'] = [tuple(x.clone() for x in
+                                      real(pk, *tabs, any_hit))]
+        saved[f'2^18 {key} rays'] = [(pk,)]
+        ms = device_runs(torch, lambda: real(pk, *tabs, any_hit), 5, name,
+                         args.runs)
+        ev = cuda_ms(torch, lambda: real(pk, *tabs, any_hit), 10)
+        res[f'2^18_{key}_device_ms'] = ms
+        res[f'2^18_{key}_cuda_event_ms'] = ev
+        print(f"K7 {key} hit at 2^18 {kind} rays (56k-triangle mesh box at "
+              f"64 a cluster, {big64.sw_aabb.shape[0]} clusters): device ms, "
+              f"{args.runs} runs: {ms}; CUDA events {ev:.4f} ms; {card}",
+              flush=True)
+    res['between_trees'] = ab_outputs(saved, args.films, args.against)
+    print(f"K7 registers and spills: {res['registers']}; between trees: "
+          f"{brief(res['between_trees'])}", flush=True)
+    return res
 
 
 if __name__ == '__main__':
