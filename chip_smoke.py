@@ -9,14 +9,18 @@ exits non-zero and prints no final line:
  1. the device, and `nvidia-smi` name and power limit;
  2. nvcc builds csrc/ (kernels.build: one nvcc per .cu, all at once),
     timed, with ptxas register counts per kernel;
- 3. kernel K2 (advance_kernel) against its plain form on 2^16 random lanes
-    of the Cornell box (with and without merged quads) and of the
-    sphere-light scene (testing.assert_advance_agrees); both timed at
-    2^18 lanes, the kernel by device time (device_ms) beside its CUDA-event
-    figure, the host's issue rate; and K2 at cbox-96's shape (the
-    per-bounce driver's launches of 9,216 lanes on the Cornell box at
-    96x96 x 16 spp, each kept and replayed): device time a launch, and the
-    bound of the lanes each launch advances;
+ 3. kernel K2 (advance_kernel) at each group size G (1, 2, 4, 8 threads a
+    lane) against its plain form on 2^16 random lanes of the Cornell box
+    (with and without merged quads) and of the sphere-light scene
+    (testing.assert_advance_agrees), and the 5% inactive lanes of each
+    returned exactly as they went in, alive false; both timed at 2^18
+    lanes, the kernel by device time (device_ms) beside its CUDA-event
+    figure, the host's issue rate; K2 at cbox-96's shape (the per-bounce
+    driver's launches of 9,216 lanes on the Cornell box at 96x96 x 16
+    spp, each kept and replayed) and at cbox-1080's (a traced 1 spp render
+    of a 1920x1080 film, not a whole number of K1's blocks): device time a
+    launch, the G it takes there, and the bound of the lanes each launch
+    advances;
  4. kernel K1 (render_fused_kernel, with film_sum_kernel summing its
     per-item buffer) against its plain form on the Cornell
     box at 512x512 and the sphere-light scene at 256x256, and the
@@ -151,8 +155,8 @@ their render-shape numbers as `render_*` (K5-K7 also
 `render_any_hit_*`; K7 its CUDA-event times at 2^18 as
 `cuda_event_ms` and `any_hit_cuda_event_ms`), K1, K8 and K9 their main-path numbers as `render_*`
 with `render_spp` and `simt_efficiency`, K2 and K3 their render-shape
-device times as `render_*` and their CUDA-event figures as
-`host_issue_ms`), and last the device line.
+device times as `render_*` (K2 also cbox-1080's as `render_1080_*`) and
+their CUDA-event figures as `host_issue_ms`), and last the device line.
 `python3 chip_smoke.py --sweep-only` runs [1], [2], [14] and [15] and
 prints neither of the two last lines (a shorter run while working on the
 sweeps).
@@ -372,14 +376,17 @@ def block_rms(got, want, b=8):
     return float(((a - c) ** 2).mean() ** 0.5 / c.mean())
 
 
-def kernel_alone_ms(torch, kernels, fn, reps):
-    """cuda_ms of fn() with kernels.film_sum left out (a (3, n) view of
-    the buffer in place of the film): the time of the kernel that fn
-    launches (its wrapper's buffer, counter and launch)."""
+def kernel_alone_ms(torch, kernels, fn, reps, timer=None):
+    """queued_ms (or `timer`) of fn() with kernels.film_sum left out (a
+    (3, n) view of the buffer in place of the film): the time of the
+    kernel that fn launches (its wrapper's buffer, counter and launch).
+    queued_ms warms up and times each call on the card alone: a host
+    stall between back-to-back calls (cuda_ms) would count as kernel
+    time."""
     with mock.patch.object(kernels, 'film_sum',
                            lambda buf, n, stride, nspp, film=None:
                            buf[:n].T):
-        return cuda_ms(torch, fn, reps)
+        return (timer or queued_ms)(torch, fn, reps)
 
 
 def simt(counters, stage, lanes):
@@ -1029,6 +1036,159 @@ def sweep_phases(torch, np, dev, smi):
     return lines
 
 
+def k2_phase(torch, np, dev, smi):
+    """[3]: K2 at each group size against its plain form, the lanes it
+    passes through, launches of a cbox-1080 render, and its device time at
+    2^18 lanes, cbox-96's shape and cbox-1080's. Returns the numbers of its
+    line in the kernels JSON."""
+    from lajolla_tpu_torch import kernels
+    from lajolla_tpu_torch import testing as PT
+    from lajolla_tpu_torch.integrators import path_kernel as PK
+    from lajolla_tpu_torch.integrators.path import (MAX_BOUNCES_CAP,
+                                                    _render_block_kernel)
+    from lajolla_tpu_torch.scene import compile as PC
+    from lajolla_tpu_torch.scene.types import RenderOptions
+    options = RenderOptions()
+
+    def lanes_on(scene, n, seed):
+        lanes = PT.random_lanes(scene, n, seed)
+        return [torch.from_numpy(lanes[k]).to(dev) for k in
+                ('org', 'dir', 'thr', 'rad', 'nv', 'dir_pdf', 'prev', 'un',
+                 'act')]
+
+    def as_dict(out):
+        org, d, thr, rad, dp, _prev, alive = (x.cpu().numpy() for x in out)
+        return dict(org=org, dir=d, thr=thr, rad=rad, dir_pdf=dp), alive
+
+    def k2_at(scene, args, group):
+        org, d, thr, rad, dp, alive = kernels.advance(
+            scene, *args[:4], args[4].float(), *args[5:], group=group,
+            **PK.statics(scene, options, MAX_BOUNCES_CAP))
+        return org, d, thr, rad, dp, org, alive
+
+    def held(scene, args, out, label):
+        """Holds K2's outputs `out` on lanes `args` against the plain
+        form's: an inactive lane exactly as it went in, alive false, and
+        the active lanes within ADVANCE_RTOL. Returns max |diff|."""
+        off = ~args[8]
+        passed = all(torch.equal(x[..., off], y[..., off]) for x, y in
+                     zip(out[:5], args[:4] + [args[5]]))
+        if not passed or out[6][off].any():
+            raise AssertionError(f"K2 changed an inactive lane of {label}")
+        want, want_alive = as_dict(PK.advance_plain_t(
+            scene, options, *args, MAX_BOUNCES_CAP))
+        got, got_alive = as_dict(out)
+        alive_share, shares, max_abs = PT.advance_agreement(
+            got, got_alive, want, want_alive)
+        print(f"[3] K2 vs plain, {label}: alive bits agree "
+              f"{alive_share:.6f}, alive {want_alive.mean():.3f}; share "
+              f"within tolerance {shares}; max |diff| {max_abs:.3g}; the "
+              f"{int(off.sum())} inactive lanes passed through")
+        PT.assert_advance_agrees(got, got_alive, want, want_alive)
+        return max_abs
+
+    PC.MERGE_QUADS = False          # the kernels' has_quads=False branch
+    try:
+        no_quads = PT.make_cornell_box(512)
+    finally:
+        PC.MERGE_QUADS = True
+    err = 0.0
+    for fixture, scene in (('cornell_box', PT.make_cornell_box(512)),
+                           ('cornell_box_no_quads', no_quads),
+                           ('sphere_lights', PT.make_sphere_light_scene())):
+        scene = scene.to(dev)
+        args = lanes_on(scene, 1 << 16, 11)
+        for group in (1, 2, 4, 8):
+            err = max(err, held(scene, args, k2_at(scene, args, group),
+                                f"G = {group}, {fixture}, 2^16 lanes"))
+    res = dict(err=err)
+
+    def k2_bytes(scene, n):
+        # lanes in (org, dir, thr, rad, prev 3 each, nv, dir_pdf, un 8:
+        # fp32; act: bool), lanes out (4 x 3 + 1 fp32, alive: bool), the
+        # tables
+        return n * (4 * (15 + 2 + 8) + 1 + 4 * 13 + 1) + table_bytes(scene)
+
+    cbox = PT.make_cornell_box(512).to(dev)
+    args = lanes_on(cbox, 1 << 18, 12)
+
+    def k2_fn():
+        return PK.advance_kernel_t(cbox, options, *args, MAX_BOUNCES_CAP)
+    res['ms'] = device_ms(torch, k2_fn, 20, 'advance_kernel')
+    res['issue_ms'] = cuda_ms(torch, k2_fn, 20)
+    res['plain_ms'] = cuda_ms(torch, lambda: PK.advance_plain_t(
+        cbox, options, *args, MAX_BOUNCES_CAP), 5)
+    res['bound'] = bound(vertex_ops(cbox, int(args[8].sum())),
+                         k2_bytes(cbox, args[0].shape[1]))
+    print(f"[3] K2 at 2^18 lanes (Cornell box, G = "
+          f"{kernels.advance_group(1 << 18)}): kernel {res['ms']:.4f} ms of "
+          f"device time (CUDA events, the host's issue rate: "
+          f"{res['issue_ms']:.4f} ms), plain {res['plain_ms']:.3f} ms, bound "
+          f"{res['bound'][0]:.5f} ms ({res['bound'][1]}) ({smi})")
+    # the per-bounce driver's launches on the Cornell box at cbox-96's
+    # shape (96x96 x 16 spp, one lane a pixel), kept and replayed, and at
+    # cbox-1080's (1920x1080, one traced render of 1 spp)
+    cbox96 = PT.make_cornell_box(96).to(dev)
+    calls = []
+
+    def keep(scene_, options_, *a):
+        calls.append((scene_, options_, *(
+            x.clone() if torch.is_tensor(x) else x for x in a)))
+        return PK.advance_kernel_t(scene_, options_, *a)
+    _render_block_kernel(cbox96, options, 0, 0, 16, advance=keep)
+    res['render_ms'] = device_ms(torch, lambda: [PK.advance_kernel_t(*c)
+                                                 for c in calls], 2,
+                                 'advance_kernel')
+    res['render_plain_ms'] = cuda_ms(torch, lambda: [
+        PK.advance_plain_t(*c) for c in calls], 1) / len(calls)
+    active = [int(c[10].sum()) for c in calls]     # c[10]: the act lanes
+    res['render_bound'] = bound(
+        sum(vertex_ops(cbox96, a) for a in active) / len(calls),
+        k2_bytes(cbox96, 96 * 96))
+    print(f"[3] K2 at cbox-96's shape ({len(calls)} launches of {96 * 96} "
+          f"lanes, {sum(active) / len(active):.0f} active on average, G = "
+          f"{kernels.advance_group(96 * 96)}): kernel {res['render_ms']:.4f} "
+          f"ms a launch of device time, plain {res['render_plain_ms']:.3f} "
+          f"ms, bound {res['render_bound'][0]:.5f} ms "
+          f"({res['render_bound'][1]}) ({smi})")
+    del calls
+    cbox1080 = PT.make_cornell_box((1920, 1080)).to(dev)
+    n = 1920 * 1080
+    active = []
+    # launches held against the plain form: the full pool, the first
+    # below half, a tenth and a hundredth of the lanes active
+    marks, kept = [n + 1, n / 2, n / 10, n / 100], []
+
+    def count(scene_, options_, *a):
+        active.append(int(a[8].sum()))
+        if marks and active[-1] < marks[0]:
+            while marks and active[-1] < marks[0]:
+                marks.pop(0)
+            kept.append((len(active) - 1, [x.clone() for x in a[:9]]))
+        return PK.advance_kernel_t(scene_, options_, *a)
+    _render_block_kernel(cbox1080, options, 0, 0, 1, advance=count)
+    for k, a in kept:
+        err = max(err, held(cbox1080, a, k2_at(cbox1080, a, 0),
+                            f"G = {kernels.advance_group(n)}, cbox-1080 1 "
+                            f"spp launch {k} "
+                            f"({active[k]} of {n} lanes active)"))
+    res['err'] = err
+    del kept
+    res['render_1080_ms'] = device_ms(
+        torch, lambda: _render_block_kernel(cbox1080, options, 0, 0, 1), 1,
+        'advance_kernel')
+    res['render_1080_bound'] = bound(
+        sum(vertex_ops(cbox1080, a) for a in active) / len(active),
+        k2_bytes(cbox1080, n))
+    print(f"[3] K2 at cbox-1080's shape (a 1 spp render: {len(active)} "
+          f"launches of {n} lanes, {sum(active) / len(active):.0f} active "
+          f"on average, G = {kernels.advance_group(n)}): kernel "
+          f"{res['render_1080_ms']:.4f} ms a launch of device time, bound "
+          f"{res['render_1080_bound'][0]:.5f} ms "
+          f"({res['render_1080_bound'][1]}) ({smi})")
+    return res
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -1076,84 +1236,8 @@ def main():
         return
 
     # ---- 3. K2 against plain
-    def lanes_on(scene, n, seed):
-        lanes = PT.random_lanes(scene, n, seed)
-        return [torch.from_numpy(lanes[k]).to(dev) for k in
-                ('org', 'dir', 'thr', 'rad', 'nv', 'dir_pdf', 'prev', 'un',
-                 'act')]
-
-    def as_dict(out):
-        org, d, thr, rad, dp, _prev, alive = (x.cpu().numpy() for x in out)
-        return dict(org=org, dir=d, thr=thr, rad=rad, dir_pdf=dp), alive
-
-    PC.MERGE_QUADS = False          # the kernels' has_quads=False branch
-    try:
-        no_quads = PT.make_cornell_box(512)
-    finally:
-        PC.MERGE_QUADS = True
-    k2_err = 0.0
-    for fixture, scene in (('cornell_box', PT.make_cornell_box(512)),
-                           ('cornell_box_no_quads', no_quads),
-                           ('sphere_lights', PT.make_sphere_light_scene())):
-        scene = scene.to(dev)
-        args = lanes_on(scene, 1 << 16, 11)
-        want, want_alive = as_dict(PK.advance_plain_t(
-            scene, options, *args, MAX_BOUNCES_CAP))
-        got, got_alive = as_dict(PK.advance_kernel_t(
-            scene, options, *args, MAX_BOUNCES_CAP))
-        alive_share, shares, max_abs = PT.advance_agreement(
-            got, got_alive, want, want_alive)
-        print(f"[3] K2 vs plain, {fixture}, 2^16 lanes: alive bits agree "
-              f"{alive_share:.6f}, alive {want_alive.mean():.3f}; share "
-              f"within tolerance {shares}; max |diff| {max_abs:.3g}")
-        PT.assert_advance_agrees(got, got_alive, want, want_alive)
-        k2_err = max(k2_err, max_abs)
+    k2 = k2_phase(torch, np, dev, smi)
     cbox = PT.make_cornell_box(512).to(dev)
-    args = lanes_on(cbox, 1 << 18, 12)
-
-    def k2_fn():
-        return PK.advance_kernel_t(cbox, options, *args, MAX_BOUNCES_CAP)
-    k2_ms = device_ms(torch, k2_fn, 20, 'advance_kernel')
-    k2_issue_ms = cuda_ms(torch, k2_fn, 20)
-    k2_plain_ms = cuda_ms(torch, lambda: PK.advance_plain_t(
-        cbox, options, *args, MAX_BOUNCES_CAP), 5)
-
-    def k2_bytes(scene, n):
-        # lanes in (org, dir, thr, rad, prev 3 each, nv, dir_pdf, un 8:
-        # fp32; act: bool), lanes out (4 x 3 + 1 fp32, alive: bool), the
-        # tables
-        return n * (4 * (15 + 2 + 8) + 1 + 4 * 13 + 1) + table_bytes(scene)
-    k2_bound = bound(vertex_ops(cbox, int(args[8].sum())),
-                     k2_bytes(cbox, args[0].shape[1]))
-    print(f"[3] K2 at 2^18 lanes (Cornell box): kernel {k2_ms:.4f} ms of "
-          f"device time (CUDA events, the host's issue rate: "
-          f"{k2_issue_ms:.4f} ms), plain {k2_plain_ms:.3f} ms, bound "
-          f"{k2_bound[0]:.5f} ms ({k2_bound[1]}) ({smi})")
-    # cbox-96's shape: the per-bounce driver's launches on the Cornell box
-    # at 96x96 x 16 spp (one lane a pixel), kept and replayed
-    cbox96 = PT.make_cornell_box(96).to(dev)
-    k2_calls = []
-
-    def keep(scene_, options_, *a):
-        k2_calls.append((scene_, options_, *(
-            x.clone() if torch.is_tensor(x) else x for x in a)))
-        return PK.advance_kernel_t(scene_, options_, *a)
-    _render_block_kernel(cbox96, options, 0, 0, 16, advance=keep)
-    k2_render_ms = device_ms(torch, lambda: [PK.advance_kernel_t(*c)
-                                             for c in k2_calls], 2,
-                             'advance_kernel')
-    k2_render_plain_ms = cuda_ms(torch, lambda: [PK.advance_plain_t(*c)
-                                                 for c in k2_calls], 1) / \
-        len(k2_calls)
-    active = [int(c[10].sum()) for c in k2_calls]     # c[10]: the act lanes
-    k2_render_bound = bound(
-        sum(vertex_ops(cbox96, a) for a in active) / len(k2_calls),
-        k2_bytes(cbox96, 96 * 96))
-    print(f"[3] K2 at cbox-96's shape ({len(k2_calls)} launches of "
-          f"{96 * 96} lanes, {sum(active) / len(active):.0f} active on "
-          f"average): kernel {k2_render_ms:.4f} ms a launch of device time, "
-          f"plain {k2_render_plain_ms:.3f} ms, bound "
-          f"{k2_render_bound[0]:.5f} ms ({k2_render_bound[1]}) ({smi})")
 
     # ---- 4. films: kernels against the plain forms
     spp = 4
@@ -1207,6 +1291,8 @@ def main():
     main_spp = PP.KERNEL_SPP_BLOCK
     k1_main_ms = kernel_alone_ms(torch, kernels, lambda: PMK.render_fused(
         cbox, options, 0, 0, main_spp), 3)
+    k1_events_ms = kernel_alone_ms(torch, kernels, lambda: PMK.render_fused(
+        cbox, options, 0, 0, main_spp), 3, cuda_ms)
     k1_summed_ms = cuda_ms(torch, lambda: PMK.render_fused(
         cbox, options, 0, 0, main_spp), 3)
     k1_cnt = {}
@@ -1219,8 +1305,9 @@ def main():
                           table_bytes(cbox) + 12 * 512 * 512)
     k1_simt = simt(k1_cnt, 'iterations', 'path_lanes')
     print(f"[4] K1 at 512x512 x {main_spp} spp (Cornell box, the main "
-          f"path's launch): kernel {k1_main_ms:.3f} ms ({k1_summed_ms:.3f} "
-          f"with its film sum), bound "
+          f"path's launch): kernel {k1_main_ms:.3f} ms (by CUDA events "
+          f"around 3 calls back to back: {k1_events_ms:.3f}; "
+          f"{k1_summed_ms:.3f} with its film sum), bound "
           f"{k1_main_bound[0]:.3f} ms ({k1_main_bound[1]}); counters "
           f"{k1_cnt}: {v / (512 * 512 * main_spp):.3f} vertices a path "
           f"(the plain form's at {spp} spp, scaled: "
@@ -1758,11 +1845,15 @@ def main():
              render_bound_by=k1_main_bound[1], simt_efficiency=k1_simt),
         line("advance_kernel", KERNEL_SOURCE,
              "lajolla_tpu/integrators/path_kernel.py:895",
-             launches['advance'], k2_err, k2_ms, k2_plain_ms, k2_bound,
-             host_issue_ms=k2_issue_ms, render_ms=k2_render_ms,
-             render_plain_ms=k2_render_plain_ms,
-             render_bound_ms=k2_render_bound[0],
-             render_bound_by=k2_render_bound[1]),
+             launches['advance'], k2['err'], k2['ms'], k2['plain_ms'],
+             k2['bound'], host_issue_ms=k2['issue_ms'],
+             render_ms=k2['render_ms'],
+             render_plain_ms=k2['render_plain_ms'],
+             render_bound_ms=k2['render_bound'][0],
+             render_bound_by=k2['render_bound'][1],
+             render_1080_ms=k2['render_1080_ms'],
+             render_1080_bound_ms=k2['render_1080_bound'][0],
+             render_1080_bound_by=k2['render_1080_bound'][1]),
         line("intersect_brute_kernel", K3_SOURCE, K3_REPLACES,
              launches['intersect_brute'], k3['closest_err'], k3['ms'],
              k3['plain_ms'], k3['bound'], host_issue_ms=k3['issue_ms'],

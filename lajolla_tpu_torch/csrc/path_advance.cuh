@@ -123,18 +123,33 @@ __device__ __forceinline__ Woop woop_rows(const float* __restrict__ W, V3 o,
   return r;
 }
 
+// The threads that scan one lane's casts together: G aligned lanes of a
+// warp, `mask` their lanes, `rank` this thread's place among them; thread
+// `rank` tests the prims rank, rank + G, ... of a scan. K1, K8 and K9 scan
+// alone (G = 1); K2 splits its scans over up to 8 (path_kernels.cu).
+template <int G>
+struct CastGroup {
+  unsigned mask = 0xffffffffu;
+  int rank = 0;
+};
+
 // Closest hit over the cast table in (tnear, tfar), or beyond tnear
-// where FAR is false: the first prim with the least t.
-template <bool QUADS, bool FAR>
+// where FAR is false: the first prim with the least t. A group's threads
+// each scan their share, then reduce by shuffle on (t, index): least t
+// first, lowest index among equal t, the serial scan's rule (strict <;
+// a NaN t never enters); u, v and the quad flag go with the winner, and
+// every thread of the group ends with the same hit.
+template <bool QUADS, bool FAR, int G = 1>
 __device__ __forceinline__ void intersect_range(const Tables& tb, V3 o, V3 d,
                                                 float tnear, float tfar,
                                                 float& t_best, int& idx,
                                                 float& ub, float& vb,
-                                                float& qb) {
+                                                float& qb,
+                                                CastGroup<G> grp = {}) {
   t_best = inf_f();
   idx = 0;
   ub = vb = qb = 0.0f;
-  for (int c = 0; c < tb.tc; ++c) {
+  for (int c = grp.rank; c < tb.tc; c += G) {
     Woop r = woop_rows(tb.woop + 12 * c, o, d);
     float t = -r.oz / r.dz;
     float u = r.ox + t * r.dx;
@@ -154,6 +169,23 @@ __device__ __forceinline__ void intersect_range(const Tables& tb, V3 o, V3 d,
       qb = q;
     }
   }
+  if constexpr (G > 1) {
+#pragma unroll
+    for (int off = G / 2; off > 0; off >>= 1) {
+      const float t2 = __shfl_xor_sync(grp.mask, t_best, off);
+      const int i2 = __shfl_xor_sync(grp.mask, idx, off);
+      const float u2 = __shfl_xor_sync(grp.mask, ub, off);
+      const float v2 = __shfl_xor_sync(grp.mask, vb, off);
+      const float q2 = __shfl_xor_sync(grp.mask, qb, off);
+      if (t2 < t_best || (t2 == t_best && i2 < idx)) {
+        t_best = t2;
+        idx = i2;
+        ub = u2;
+        vb = v2;
+        qb = q2;
+      }
+    }
+  }
 }
 
 // Closest hit over the cast table beyond eps_isect.
@@ -165,22 +197,34 @@ __device__ __forceinline__ void intersect(const Tables& tb, V3 o, V3 d,
                                 ub, vb, qb);
 }
 
-// Any-hit over the occluder subset, division-free (see _occluded).
-template <bool QUADS>
+// Any-hit over the occluder subset, division-free (see _occluded). A
+// group tests G occluders a round and stops on the group's vote: the
+// answer is a boolean, so the order does not matter.
+template <bool QUADS, int G = 1>
 __device__ __forceinline__ bool occluded(const Tables& tb, V3 o, V3 d,
-                                         float tfar) {
+                                         float tfar,
+                                         CastGroup<G> grp = {}) {
   const float tnear = tb.eps_shadow;
-  for (int c = 0; c < tb.t_occ; ++c) {
-    Woop r = woop_rows(tb.woop_occ + 12 * c, o, d);
-    float w = -r.oz;
-    float U = r.ox * r.dz + w * r.dx;
-    float V = r.oy * r.dz + w * r.dy;
-    float limv = (U + V - r.dz) * r.dz;
-    if (QUADS && __ldg(tb.cast_occ_quad + c) > 0.0f)
-      limv = mx((U - r.dz) * r.dz, (V - r.dz) * r.dz);
-    if (U * r.dz >= 0.0f && V * r.dz >= 0.0f && limv <= 0.0f &&
-        (w - tnear * r.dz) * r.dz > 0.0f && (w - tfar * r.dz) * r.dz < 0.0f)
-      return true;
+  for (int c0 = 0; c0 < tb.t_occ; c0 += G) {
+    const int c = c0 + grp.rank;
+    bool hit = false;
+    if (G == 1 || c < tb.t_occ) {
+      Woop r = woop_rows(tb.woop_occ + 12 * c, o, d);
+      float w = -r.oz;
+      float U = r.ox * r.dz + w * r.dx;
+      float V = r.oy * r.dz + w * r.dy;
+      float limv = (U + V - r.dz) * r.dz;
+      if (QUADS && __ldg(tb.cast_occ_quad + c) > 0.0f)
+        limv = mx((U - r.dz) * r.dz, (V - r.dz) * r.dz);
+      hit = U * r.dz >= 0.0f && V * r.dz >= 0.0f && limv <= 0.0f &&
+            (w - tnear * r.dz) * r.dz > 0.0f &&
+            (w - tfar * r.dz) * r.dz < 0.0f;
+    }
+    if constexpr (G == 1) {
+      if (hit) return true;
+    } else {
+      if (__any_sync(grp.mask, hit)) return true;
+    }
   }
   return false;
 }
@@ -384,14 +428,15 @@ struct HitScan {
 
 // The scan of the closest hit in (tnear, tfar), or beyond tnear where FAR
 // is false.
-template <bool QUADS, bool SPH, bool FAR>
+template <bool QUADS, bool SPH, bool FAR, int G = 1>
 __device__ __forceinline__ void closest_scan(const Tables& tb, V3 o, V3 d,
                                              float tnear, float tfar,
-                                             HitScan& h) {
+                                             HitScan& h,
+                                             CastGroup<G> grp = {}) {
   float t_tri, qb;
   int idx;
-  intersect_range<QUADS, FAR>(tb, o, d, tnear, tfar, t_tri, idx, h.ub, h.vb,
-                              qb);
+  intersect_range<QUADS, FAR, G>(tb, o, d, tnear, tfar, t_tri, idx, h.ub,
+                                 h.vb, qb, grp);
   h.found = t_tri < inf_f();
   h.t = t_tri;
   h.sph = -1;
@@ -439,19 +484,22 @@ __device__ __forceinline__ void surf_of(const Tables& tb, const HitScan& h,
 }
 
 // The closest hit in (tnear, tfar), or beyond tnear where FAR is false.
-template <bool QUADS, bool SPH, bool FAR>
+template <bool QUADS, bool SPH, bool FAR, int G = 1>
 __device__ __forceinline__ void closest_hit_range(const Tables& tb, V3 o,
                                                   V3 d, float tnear,
-                                                  float tfar, Surf& s) {
+                                                  float tfar, Surf& s,
+                                                  CastGroup<G> grp = {}) {
   HitScan h;
-  closest_scan<QUADS, SPH, FAR>(tb, o, d, tnear, tfar, h);
+  closest_scan<QUADS, SPH, FAR, G>(tb, o, d, tnear, tfar, h, grp);
   surf_of(tb, h, s);
 }
 
-template <bool QUADS, bool SPH>
+template <bool QUADS, bool SPH, int G = 1>
 __device__ __forceinline__ void closest_hit(const Tables& tb, V3 o, V3 d,
-                                            Surf& s) {
-  closest_hit_range<QUADS, SPH, false>(tb, o, d, tb.eps_isect, 0.0f, s);
+                                            Surf& s,
+                                            CastGroup<G> grp = {}) {
+  closest_hit_range<QUADS, SPH, false, G>(tb, o, d, tb.eps_isect, 0.0f, s,
+                                          grp);
 }
 
 // Shading data of the hit at point p: normals (the geometric one turned
@@ -596,10 +644,11 @@ __device__ __forceinline__ void sample_light(const Tables& tb, V3 p, float u0,
 
 // Shadow any-hit over the occluder subset and the spheres, in (eps_shadow,
 // tfar).
-template <bool QUADS, bool SPH>
+template <bool QUADS, bool SPH, int G = 1>
 __device__ __forceinline__ bool occluded_any(const Tables& tb, V3 p, V3 dl,
-                                             float tfar) {
-  if (occluded<QUADS>(tb, p, dl, tfar)) return true;
+                                             float tfar,
+                                             CastGroup<G> grp = {}) {
+  if (occluded<QUADS, G>(tb, p, dl, tfar, grp)) return true;
   if (SPH)
     for (int k = 0; k < tb.s; ++k)
       if (sphere_t(tb.sph + 24 * k, p, dl, tb.eps_shadow, tfar) < inf_f())
@@ -618,17 +667,18 @@ struct Lane {
 // One path vertex. On return st.o is the hit point, st.d the sampled
 // direction, st.thr/st.rad/st.dir_pdf the updated throughput, radiance
 // and solid-angle pdf; st.prev is left for the caller. `un` holds the
-// vertex's 8 uniforms. Returns alive.
-template <int MATS, bool QUADS, bool SPH>
+// vertex's 8 uniforms. Returns alive. A group (grp) splits the two cast
+// scans; every thread of it computes the rest on the same values.
+template <int MATS, bool QUADS, bool SPH, int G = 1>
 __device__ __forceinline__ bool advance_vertex(const Tables& tb, Lane& st,
                                                float nv, const float* un,
-                                               bool act) {
+                                               CastGroup<G> grp = {}) {
   const V3 o = st.o, d = st.d, thr = st.thr, prev = st.prev;
 
   // ---- closest hit: triangles + spheres
   Surf s;
-  closest_hit<QUADS, SPH>(tb, o, d, s);
-  bool valid = s.t < inf_f() && act;
+  closest_hit<QUADS, SPH, G>(tb, o, d, s, grp);
+  bool valid = s.t < inf_f();
   float t_eff = valid ? s.t : 0.0f;
   V3 p = v3(o.x + t_eff * d.x, o.y + t_eff * d.y, o.z + t_eff * d.z);
   Shade h;
@@ -659,7 +709,8 @@ __device__ __forceinline__ bool advance_vertex(const Tables& tb, Lane& st,
   LightSample ls;
   sample_light<SPH>(tb, p, un[0], un[1], un[2], un[3], ls);
   const V3 dl = ls.dl;
-  bool occ = occluded_any<QUADS, SPH>(tb, p, dl, tb.shadow_far_scale * ls.dist);
+  bool occ = occluded_any<QUADS, SPH, G>(tb, p, dl,
+                                         tb.shadow_far_scale * ls.dist, grp);
   float ln_dl = -dot3(dl, ls.ln);
   float Gn = occ ? 0.0f : mx(ln_dl, 0.0f) / ls.dist2;
   float p1 = ls.l_pmf * ls.p1_area;

@@ -10,9 +10,21 @@
 //    (lajolla_tpu/integrators/path_kernel.py `_kernel`, launched by
 //    `advance_kernel_t`): one path vertex for a batch of lanes.
 //
-// K2 is one thread per lane around lj::advance_vertex (path_advance.cuh).
-// K2 moves (3+3+3+3+1+1+3+8+1) floats in and 14 out per lane per vertex
-// on top of a vertex's work.
+// K2 runs lj::advance_vertex (path_advance.cuh) for the active lanes
+// only, each on a group of G threads that split its two cast scans
+// (lj::CastGroup); a lane with act false is passed through. The first
+// design, one thread a lane over all n lanes, ran a whole vertex for
+// inactive lanes too, and at the per-bounce driver's small films
+// (cbox-96: 9,216 lanes, 72 blocks of 128 threads for 132 SMs) nothing hid
+// the latency of each thread's one long chain: 14.1-14.8 us a launch
+// against a bound of 0.43 (PERF.md). G is chosen so that a launch fills
+// about one wave (advance_group): G = 8 at cbox-96 shortens the scans'
+// part of the chain eightfold, G = 1 at 2^18 lanes and above, where many
+// waves hide it. A warp takes one chunk of lanes at every n: a persistent
+// grid whose warps packed the active lanes of their chunks by ballot
+// measured 1.03x slower over a 1920x1080 render, 1.15x at its full pool
+// and 1.1x at its tail (PERF.md). K2 moves (3+3+3+3+1+1+3+8+1) floats in
+// and 14 out per lane per vertex on top of a vertex's work.
 //
 // K1 is persistent warps (work_queue.cuh), the design of K8: as
 // many blocks as fit on the card, each lane running one flat loop that
@@ -130,7 +142,7 @@ render_fused_kernel(lj::Tables tb, Camera cam, int n, int w, uint32_t su,
     if (busy) {
       float un[8];
       vertex_uniforms(su, s0 * n + c, nv, un);
-      if (advance_vertex<MATS, QUADS, SPH>(tb, st, (float)nv, un, true)) {
+      if (advance_vertex<MATS, QUADS, SPH>(tb, st, (float)nv, un)) {
         st.prev = st.o;
         ++nv;
       } else {
@@ -145,8 +157,20 @@ render_fused_kernel(lj::Tables tb, Camera cam, int n, int w, uint32_t su,
   cnt.flush(stats);
 }
 
-// K2: one vertex for each of n lanes; vectors are (3, n) rows, un (8, n).
-template <int MATS, bool QUADS, bool SPH>
+// K2's blocks an SM, for the group size's rule: 7, what 72 registers a
+// thread allow (ptxas gives the Cornell box's forms 64 at every G, the
+// others up to 72). K2 has no bound of its own: one of 7
+// blocks an SM took G = 1 to 72 registers and 2^18 lanes 1.1x slower
+// (tools/tune_torch_k2.py, PERF.md).
+constexpr int kAdvanceBlocksPerSM = 7;
+
+// K2: one vertex for each active lane of n; vectors are (3, n) rows, un
+// (8, n). Warp w takes the chunk of 32 / G lanes from w * 32 / G, one lane
+// to each group of G threads. Every thread of a group computes the whole
+// vertex on the same values (no broadcast), the scans split over the
+// group (lj::CastGroup), and the group's first thread writes the lane; a
+// lane with act false is written as it was read, alive false.
+template <int MATS, bool QUADS, bool SPH, int G>
 __global__ void __launch_bounds__(kThreads)
 advance_kernel(lj::Tables tb, int n, const float* __restrict__ org,
                const float* __restrict__ dir, const float* __restrict__ thr,
@@ -158,10 +182,16 @@ advance_kernel(lj::Tables tb, int n, const float* __restrict__ org,
                float* __restrict__ rad_o, float* __restrict__ dp_o,
                bool* __restrict__ alive_o) {
   using namespace lj;
-  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  const long long n2 = 2 * (long long)n;
-  auto row3 = [&](const float* a) { return v3(a[i], a[n + i], a[n2 + i]); };
+  const int wl = threadIdx.x & 31, g = wl / G, rank = wl % G;
+  const long long w = blockIdx.x * (long long)kWarps + (threadIdx.x >> 5);
+  const long long n1 = n, n2 = 2 * n1, i = w * (32 / G) + g;
+  if (i >= n1) return;
+  auto row3 = [&](const float* a) { return v3(a[i], a[n1 + i], a[n2 + i]); };
+  auto put3 = [&](float* a, V3 v) {
+    a[i] = v.x;
+    a[n1 + i] = v.y;
+    a[n2 + i] = v.z;
+  };
   Lane st;
   st.o = row3(org);
   st.d = row3(dir);
@@ -169,21 +199,23 @@ advance_kernel(lj::Tables tb, int n, const float* __restrict__ org,
   st.rad = row3(rad);
   st.prev = row3(prev);
   st.dir_pdf = dir_pdf[i];
+  const float nv_i = nv[i];
   float u[8];
 #pragma unroll
-  for (int k = 0; k < 8; ++k) u[k] = un[k * (long long)n + i];
-  const bool alive = advance_vertex<MATS, QUADS, SPH>(tb, st, nv[i], u, act[i]);
-  auto put3 = [&](float* a, V3 v) {
-    a[i] = v.x;
-    a[n + i] = v.y;
-    a[n2 + i] = v.z;
-  };
-  put3(org_o, st.o);
-  put3(dir_o, st.d);
-  put3(thr_o, st.thr);
-  put3(rad_o, st.rad);
-  dp_o[i] = st.dir_pdf;
-  alive_o[i] = alive;
+  for (int k = 0; k < 8; ++k) u[k] = un[k * n1 + i];
+  bool alive = false;
+  if (act[i]) {
+    const CastGroup<G> grp{(0xffffffffu >> (32 - G)) << (g * G), rank};
+    alive = advance_vertex<MATS, QUADS, SPH, G>(tb, st, nv_i, u, grp);
+  }
+  if (rank == 0) {
+    put3(org_o, st.o);
+    put3(dir_o, st.d);
+    put3(thr_o, st.thr);
+    put3(rad_o, st.rad);
+    dp_o[i] = st.dir_pdf;
+    alive_o[i] = alive;
+  }
 }
 
 // Calls f(M, Q, S) with the kernel specialisation as integral constants.
@@ -207,7 +239,39 @@ cudaError_t dispatch(int mats, int quads, int sph, F f) {
   return cudaErrorInvalidValue;
 }
 
-int blocks_for(long long n) { return (int)((n + kThreads - 1) / kThreads); }
+// Calls f(G) with K2's group size as an integral constant.
+template <class F>
+cudaError_t by_group(int group, F f) {
+  switch (group) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+  }
+  return cudaErrorInvalidValue;
+}
+
+// K2's group size: the largest G of 8, 4 and 2 whose n * G threads fit one
+// wave (kAdvanceBlocksPerSM blocks of kThreads threads on each of the
+// card's SMs), else 1. On the H100's 132 SMs: G = 8 up to 14,784 lanes
+// (cbox-96's 9,216), G = 1 from 59,137 (2^18 lanes, a 1920x1080 film).
+// The SM count of each device is read once.
+cudaError_t advance_group(long long n, int& g) {
+  constexpr int kMaxDevices = 64;
+  static int sms_of[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  int sms = dev < kMaxDevices ? sms_of[dev] : 0;
+  if (sms == 0) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (e != cudaSuccess) return e;
+    if (dev < kMaxDevices) sms_of[dev] = sms;
+  }
+  for (g = 8; g > 1; g >>= 1)
+    if (n * g <= (long long)sms * kAdvanceBlocksPerSM * kThreads) break;
+  return cudaSuccess;
+}
 
 }  // namespace
 
@@ -236,20 +300,36 @@ int lj_render_fused(const lj::Tables* tb, const lj::Camera* cam, int mats,
   return (int)e;
 }
 
-// K2.
+// K2's group size for n lanes on the current card (advance_group), or a
+// negative CUDA error.
+int lj_advance_group(int n) {
+  int g = 0;
+  cudaError_t e = advance_group(n, g);
+  return e == cudaSuccess ? g : -(int)e;
+}
+
+// K2. group: G (1, 2, 4 or 8), or 0 for advance_group's.
 int lj_advance(const lj::Tables* tb, int mats, int quads, int sph, int n,
-               const float* org, const float* dir, const float* thr,
-               const float* rad, const float* nv, const float* dir_pdf,
-               const float* prev, const float* un, const bool* act,
-               float* org_o, float* dir_o, float* thr_o, float* rad_o,
-               float* dp_o, bool* alive_o, void* stream) {
+               int group, const float* org, const float* dir,
+               const float* thr, const float* rad, const float* nv,
+               const float* dir_pdf, const float* prev, const float* un,
+               const bool* act, float* org_o, float* dir_o, float* thr_o,
+               float* rad_o, float* dp_o, bool* alive_o, void* stream) {
   if (n <= 0) return (int)cudaErrorInvalidValue;
-  cudaError_t e = dispatch(mats, quads, sph, [&](auto M, auto Q, auto S) {
-    advance_kernel<decltype(M)::value, decltype(Q)::value, decltype(S)::value>
-        <<<blocks_for(n), kThreads, 0, (cudaStream_t)stream>>>(
-            *tb, n, org, dir, thr, rad, nv, dir_pdf, prev, un, act, org_o,
-            dir_o, thr_o, rad_o, dp_o, alive_o);
-    return cudaGetLastError();
+  cudaError_t e = group ? cudaSuccess : advance_group(n, group);
+  if (e != cudaSuccess) return (int)e;
+  e = dispatch(mats, quads, sph, [&](auto M, auto Q, auto S) {
+    return by_group(group, [&](auto G) {
+      constexpr int kG = decltype(G)::value;
+      const long long chunks = ((long long)n + 32 / kG - 1) / (32 / kG);
+      const int blocks = (int)((chunks + kWarps - 1) / kWarps);
+      advance_kernel<decltype(M)::value, decltype(Q)::value,
+                     decltype(S)::value, kG>
+          <<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+              *tb, n, org, dir, thr, rad, nv, dir_pdf, prev, un, act, org_o,
+              dir_o, thr_o, rad_o, dp_o, alive_o);
+      return cudaGetLastError();
+    });
   });
   return (int)e;
 }

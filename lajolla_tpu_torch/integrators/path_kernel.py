@@ -109,15 +109,15 @@ def _intersect(o, d, tnear, W, qf, tfar=None):
     return t_best, idx, found, ub, vb, qb
 
 
-def _occluded(o, d, tnear, tfar, W, qf):
-    """Any-hit shadow cast, division-free. With U = ox*dz - oz*dx and
-    V = oy*dz - oz*dy (so u = U/dz, v = V/dz, t = -oz/dz) every hit
-    predicate is a sign test after multiplying through by dz:
+def _occluder_hits(o, d, tnear, tfar, W, qf):
+    """Which occluder each shadow ray hits, division-free. With U = ox*dz
+    - oz*dx and V = oy*dz - oz*dy (so u = U/dz, v = V/dz, t = -oz/dz)
+    every hit predicate is a sign test after multiplying through by dz:
       u >= 0        <=>  U*dz >= 0
       u + v <= 1    <=>  (U + V - dz)*dz <= 0
       t > tnear     <=>  (-oz - tnear*dz)*dz > 0
       t < tfar      <=>  (-oz - tfar*dz)*dz < 0
-    Returns occ (1, B) bool."""
+    Returns (T, B) bool."""
     oz, dz, ox, dx, oy, dy = _woop_rows(o, d, W)
     w = -oz
     U = ox * dz + w * dx
@@ -128,9 +128,14 @@ def _occluded(o, d, tnear, tfar, W, qf):
         lim_ok = torch.where(qf[:, None] > 0.0,
                              torch.maximum((U - dz) * dz, (V - dz) * dz),
                              (U + V - dz) * dz) <= 0.0
-    hit = ((U * dz >= 0.0) & (V * dz >= 0.0) & lim_ok &
-           ((w - tnear * dz) * dz > 0.0) & ((w - tfar * dz) * dz < 0.0))
-    return hit.any(dim=0, keepdim=True)
+    return ((U * dz >= 0.0) & (V * dz >= 0.0) & lim_ok &
+            ((w - tnear * dz) * dz > 0.0) & ((w - tfar * dz) * dz < 0.0))
+
+
+def _occluded(o, d, tnear, tfar, W, qf):
+    """Any-hit shadow cast over the occluders (_occluder_hits). Returns
+    occ (1, B) bool."""
+    return _occluder_hits(o, d, tnear, tfar, W, qf).any(dim=0, keepdim=True)
 
 
 def _norm3(x, y, z):
@@ -629,11 +634,18 @@ def _advance_core(scene, o, d, thr, rad, nv, dir_pdf, prev, un, act_in, *,
 
 def advance_plain_t(scene, options, orgT, dirT, thrT, radT, nv, dir_pdf,
                     prevT, uniformsT, active, max_cap):
-    """The plain form of kernel K2, on any device. Returns (orgT', dirT',
-    thrT', radT', dir_pdf', prevT', alive); prevT' is orgT'."""
+    """The plain form of kernel K2, on any device. A lane with `active`
+    false comes back as it went in, alive false, as the kernel returns it
+    (lajolla_tpu's kernel returns a computed vertex there, which no caller
+    reads). Returns (orgT', dirT', thrT', radT', dir_pdf', prevT', alive);
+    prevT' is orgT'."""
     org, d, thr, rad, dp, alive = _advance_core(
         scene, orgT, dirT, thrT, radT, nv.float()[None], dir_pdf[None],
         prevT, uniformsT, active[None], **statics(scene, options, max_cap))
+    new = torch.cat([org, d, thr, rad, dp])
+    old = torch.cat([orgT, dirT, thrT, radT, dir_pdf[None]])
+    org, d, thr, rad, dp = torch.where(active, new, old).split([3, 3, 3, 3,
+                                                                1])
     return org, d, thr, rad, dp[0], org, alive[0]
 
 

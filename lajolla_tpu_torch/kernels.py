@@ -159,9 +159,11 @@ def _bind(libs):
                                      _I, ctypes.c_uint32, ctypes.c_longlong,
                                      _I, _P, _P, _P, _P]
     path.lj_render_fused.restype = _I
-    path.lj_advance.argtypes = ([ctypes.POINTER(_Tables), _I, _I, _I, _I] +
+    path.lj_advance.argtypes = ([ctypes.POINTER(_Tables)] + [_I] * 5 +
                                 [_P] * 16)
     path.lj_advance.restype = _I
+    path.lj_advance_group.argtypes = [_I]
+    path.lj_advance_group.restype = _I
     isect.lj_intersect_brute.argtypes = [_P, _P, _P, _P, _I, _I] + [_P] * 9
     isect.lj_intersect_brute.restype = _I
     isect.lj_occluded_brute.argtypes = [_P, _P, _I, _I] + [_P] * 6
@@ -489,11 +491,24 @@ def render_fused_grid(scene, cam, svox2, su, s0, nspp, *, n_q, w, h,
     return film_sum(out, n, n_q, nspp)
 
 
+def advance_group(n):
+    """The group size G of threads a lane that K2 takes for n lanes on the
+    current card (csrc/path_kernels.cu advance_group)."""
+    g = build()['path_kernels'].lj_advance_group(n)
+    if g < 0:
+        raise RuntimeError(f"advance_group: CUDA error {-g}")
+    return g
+
+
 def advance(scene, org, d, thr, rad, nv, dir_pdf, prev, un, act, *,
-            eps_isect, eps_shadow, max_depth, rr_depth, max_cap):
+            eps_isect, eps_shadow, max_depth, rr_depth, max_cap, group=0):
     """Kernel K2: one vertex for N lanes. Vectors (3, N), un (8, N), nv and
-    dir_pdf (N,) float32, act (N,) bool. Returns (org', dir', thr', rad',
-    dir_pdf', alive)."""
+    dir_pdf (N,) float32, act (N,) bool. A lane with act false comes back
+    as it went in, alive false. group: the threads a lane (1, 2, 4 or 8),
+    or 0 for advance_group's. Returns (org', dir', thr', rad', dir_pdf',
+    alive)."""
+    if group not in (0, 1, 2, 4, 8):
+        raise ValueError(f"group {group}: K2 takes 1, 2, 4 or 8")
     lib = build()['path_kernels']
     device, tb, mats, quads, sph = _scene_args(
         scene, eps_isect, eps_shadow, max_depth, rr_depth, max_cap)
@@ -513,7 +528,8 @@ def advance(scene, org, d, thr, rad, nv, dir_pdf, prev, un, act, *,
              torch.empty(N, dtype=torch.bool, device=device)]
     with torch.cuda.device(device):
         stream = torch.cuda.current_stream(device).cuda_stream
-        rc = lib.lj_advance(ctypes.byref(tb), mats, quads, sph, N, *ins,
+        rc = lib.lj_advance(ctypes.byref(tb), mats, quads, sph, N, group,
+                            *ins,
                             *[o.data_ptr() for o in outs], stream)
     if rc != 0:
         raise RuntimeError(f"advance_kernel launch: CUDA error {rc}")

@@ -1254,6 +1254,64 @@ def general_rays(scene, seed=0, device='cpu'):
             for k, ray in rays.items()}
 
 
+# ---------------------------------------------------------------------------
+# K2's split scans on CPU tensors
+# ---------------------------------------------------------------------------
+
+def group_closest(o, d, tnear, W, qf, G):
+    """The closest hit of K2's scans split over a group of G threads
+    (csrc/path_advance.cuh intersect_range over a CastGroup), on CPU
+    tensors: thread r scans the cast prims r, r + G, ... in order with a
+    strict < (the least t of its share at its lowest index), then the
+    group reduces by xor shuffles on (t, index), least t first, lowest
+    index among equal t. o, d (3, B); W, qf as path_kernel._intersect
+    takes them. Returns (t, idx, u, v, q), each (B,), as the group's
+    threads all end with them (inf, 0, 0, 0, 0 on a miss)."""
+    import torch
+
+    from lajolla_tpu_torch.integrators.path_kernel import _hit_mask, _woop_tuv
+    t, u, v = _woop_tuv(o, d, W)
+    hit = _hit_mask(t, u, v, tnear, qf)
+    q = (torch.zeros_like(t) if qf is None else
+         qf[:, None].expand_as(t))
+    B = t.shape[1]
+    best = []
+    for r in range(G):
+        b = [torch.full((B,), float('inf')), torch.zeros(B, dtype=torch.long),
+             torch.zeros(B), torch.zeros(B), torch.zeros(B)]
+        for c in range(r, t.shape[0], G):
+            take = hit[c] & (t[c] < b[0])
+            b = [torch.where(take, x, y) for x, y in
+                 zip((t[c], torch.full((B,), c), u[c], v[c], q[c]), b)]
+        best.append(b)
+    off = G // 2
+    while off:
+        nxt = []
+        for r in range(G):
+            a, b = best[r], best[r ^ off]
+            take = (b[0] < a[0]) | ((b[0] == a[0]) & (b[1] < a[1]))
+            nxt.append([torch.where(take, y, x) for x, y in zip(a, b)])
+        best, off = nxt, off // 2
+    for other in best[1:]:
+        assert all(torch.equal(x, y) for x, y in zip(best[0], other))
+    return tuple(best[0])
+
+
+def group_occluded(o, d, tnear, tfar, W, qf, G):
+    """The any-hit of K2's split scans (csrc/path_advance.cuh occluded
+    over a CastGroup) on CPU tensors: rounds of G occluders, thread r
+    testing occluder c0 + r, until the group's vote finds a hit. Returns
+    (B,) bool."""
+    import torch
+
+    from lajolla_tpu_torch.integrators.path_kernel import _occluder_hits
+    hits = _occluder_hits(o, d, tnear, tfar, W, qf)
+    occ = torch.zeros(hits.shape[1], dtype=torch.bool)
+    for c0 in range(0, hits.shape[0], G):
+        occ = occ | hits[c0:c0 + G].any(dim=0)
+    return occ
+
+
 # Tolerances of one advance against its reference, per output: where both
 # sides are alive, a lane agrees if every component is within
 # rtol / atol 1e-5. dir_pdf gets rtol 1e-2: next to the GGX peak of a

@@ -4,7 +4,7 @@ general-engine run), and kernel K3 against its plain forms.
 
 usage, from the repository root: python3 tools/profile_torch_general.py
     [--runs 5] [--out chiprun_out/profile_torch_general.json]
-    [--k3 [--label TEXT] [--films PATH] [--against PATH]]
+    [--k3 | --k2 [--label TEXT] [--films PATH] [--against PATH]]
 
 Prints, and writes as JSON to --out:
 - the card's `nvidia-smi` name and power limit;
@@ -23,8 +23,8 @@ Prints, and writes as JSON to --out:
   glass Cornell box, and their plain forms, by CUDA events, alternating,
   --runs rounds.
 
-With --k3 it measures the brute-force casts K3 and the per-vertex kernel
-K2 alone, in place of all that:
+With --k3 it measures the brute-force casts K3 alone, in place of all
+that:
 - K3 on chip_smoke.py [7]'s rays (the camera, bounce and shadow rays of
   the glass Cornell box and the sphere-light scene at 512x512, 2^18 each),
   closest and any hit; at glass-512's shape (the bounce and shadow rays of
@@ -34,15 +34,31 @@ K2 alone, in place of all that:
   the host's issue rate: what the host-bound engine pays a call;
 - every K3 launch of one glass-512 render() (a digest of its outputs), and
   K3's device time a launch in a trace of another;
-- K2 at cbox-96's shape: every launch of the per-bounce driver on the
-  Cornell box at 96x96 x 16 spp (one lane a pixel, 9,216 lanes) kept and
-  replayed, its device time a launch --runs times, with the bound of each
-  launch's active lanes (chip_smoke.vertex_ops) averaged; and at
-  chip_smoke.py [3]'s 2^18 random lanes;
-- the ptxas registers and spills of K3 and K2.
+- the ptxas registers and spills of K3.
+With --k2 it measures the per-vertex kernel K2 and its driver alone, on
+the Cornell box through the per-bounce driver (one lane a pixel) at
+96x96 (cbox-96) and 1920x1080 (cbox-1080, not a whole number of K1's
+4096-pixel blocks), 16 spp each:
+- one run with every launch's active lanes counted and its outputs on
+  them kept (digests at 1920x1080), and the film;
+- render() walls over --runs warm runs; up to three traced renders (CPU
+  and CUDA activity, the driver's uniform hashing and camera rays in
+  ranges of their own): wall, device-busy time, idle share, K2's launches
+  and device time a launch, and the driver's other device time by part
+  (uniforms, camera, aten::where, aten::index_add_, ...);
+- launches replayed by device time: every launch of cbox-96 (--runs
+  traces), and cbox-1080's launches K2_REPLAY one by one;
+- K2's bound a launch from each launch's active lanes (chip_smoke.bound,
+  vertex_ops; every lane's bytes and the tables);
+- K1 (render_fused) on the 1920x1080 film at 16 spp, by CUDA events and
+  in a trace, and its film's digest (the routing keeps K1 off that film);
+- K2 at chip_smoke.py [3]'s 2^18 random lanes, by device time;
+- the ptxas registers and spills of K2 and K1, and the group size K2
+  picks at each shape where the tree has one (kernels.advance_group).
 --films PATH saves the outputs (and digests); --against PATH, a file
-another tree saved, gives the share of rays (of launches, for digests)
-whose outputs are bit-equal between the trees.
+another tree saved, gives the share of rays (of launches, for digests;
+with --k2 the active lanes of each launch) whose outputs are bit-equal
+between the trees.
 Imports no JAX. It reads only what the package has had since K3 was
 ported, so a copy of it placed in an older checkout measures that tree.
 """
@@ -144,6 +160,21 @@ def trace_events(torch, fn, name):
     return by
 
 
+def launch_ms(torch, fn, name):
+    """Device milliseconds of each launch of the kernels whose name holds
+    `name` in a trace of one fn(), in launch order."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return [(e.time_range.end - e.time_range.start) / 1e3 for e in
+            sorted((e for e in prof.events()
+                    if e.device_type == DeviceType.CUDA and name in e.name),
+                   key=lambda e: e.time_range.start)]
+
+
 def trace_ms(torch, fn, name):
     """trace_events of one fn() summed up by kernel: launches, mean,
     median, total."""
@@ -213,8 +244,7 @@ def k3_ab(args, torch, dev, card):
     from lajolla_tpu_torch.scene.types import RenderOptions
 
     res = {'registers': kernel_registers(
-        kernels.build_log(), ('intersect_brute', 'occluded_brute',
-                              'advance'))}
+        kernels.build_log(), ('intersect_brute', 'occluded_brute'))}
     saved = {}
 
     # ---- K3 on chip_smoke.py [7]'s rays; timed at glass-512's shape
@@ -277,49 +307,225 @@ def k3_ab(args, torch, dev, card):
           f"device time in a trace {res['render_trace']}; {card}",
           flush=True)
 
-    # ---- K2 at cbox-96's shape, and at 2^18 lanes
-    options = RenderOptions()
-    cbox96 = PT.make_cornell_box(96).to(dev)
-    calls = []
+    res['between_trees'] = ab_outputs(saved, args.films, args.against)
+    print(f"K3 registers and spills: {res['registers']}; between "
+          f"trees: {brief(res['between_trees'])}", flush=True)
+    return res
 
-    def capture(scene_, options_, *a):
-        calls.append((scene_, options_,
-                      *(x.clone() if torch.is_tensor(x) else x for x in a)))
-        return PK.advance_kernel_t(scene_, options_, *a)
-    PP._render_block_kernel(cbox96, options, 0, 0, 16, advance=capture)
-    saved['cbox-96 K2 digests'] = [
-        (digest(*PK.advance_kernel_t(*c)),) for c in calls]
-    n96 = 96 * 96
-    bytes96 = n96 * (4 * (15 + 2 + 8) + 1 + 4 * 13 + 1) + table_bytes(cbox96)
-    bounds = [bound(vertex_ops(cbox96, int(c[10].sum())), bytes96)[0]
-              for c in calls]
-    active = [int(c[10].sum()) for c in calls]
-    ms = device_runs(torch, lambda: [PK.advance_kernel_t(*c) for c in calls],
-                     2, 'advance_kernel', args.runs)
-    res['cbox96'] = dict(launches=len(calls), lanes=n96,
-                         active_lanes_mean=statistics.mean(active),
-                         device_ms=ms, bound_ms_mean=statistics.mean(bounds),
-                         bound_ms_total=sum(bounds))
-    print(f"K2 at cbox-96's shape (96x96 x 16 spp, {n96} lanes): "
-          f"{res['cbox96']}; {card}", flush=True)
+
+# K2's bytes a lane, as chip_smoke.py [3] counts them: in (org, dir, thr,
+# rad, prev 3 each, nv, dir_pdf, un 8: fp32; act: bool), out (4 x 3 + 1
+# fp32, alive: bool).
+K2_LANE_BYTES = 4 * (15 + 2 + 8) + 1 + 4 * 13 + 1
+# The per-bounce driver's films that --k2 renders at 16 spp: cbox-96 (the
+# test-size cell) and a 1920x1080 film (506.25 blocks of 4096 pixels, so
+# not K1's), each one lane a pixel.
+K2_CELLS = (('cbox-96', 96), ('cbox-1080', (1920, 1080)))
+K2_SPP = 16
+# Launches of cbox-1080 kept and replayed (by index in the render, where
+# it has them): the full pool, the middle and the tail of the render.
+K2_REPLAY = (0, 40, 60, 80, 100)
+
+
+def device_time(e):
+    """Self device microseconds of a profiler event (torch before and
+    after the rename of cuda to device)."""
+    t = getattr(e, 'self_device_time_total', None)
+    return t if t is not None else getattr(e, 'self_cuda_time_total', 0.0)
+
+
+def driver_split(torch, fn):
+    """One fn() (a render through the per-bounce driver) traced with CPU
+    and CUDA activity, the driver's uniform hashing (path._vertex_uniforms)
+    and camera rays (path_megakernel._primary) each in a range of its own.
+    Returns wall seconds, device-busy seconds, idle share, K2's launches
+    and device milliseconds of each, and the device milliseconds by part:
+    'K2', 'uniforms', 'camera', then each other aten op outside those
+    ranges by its name (aten::where, aten::index_add_, ...)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from lajolla_tpu_torch.integrators import path as PP
+    from lajolla_tpu_torch.integrators import path_megakernel as PMK
+
+    def ranged(name, f):
+        def g(*a, **k):
+            with record_function(f'k2drv::{name}'):
+                return f(*a, **k)
+        return g
+    torch.cuda.synchronize()
+    with mock.patch.object(PP, '_vertex_uniforms',
+                           ranged('uniforms', PP._vertex_uniforms)), \
+            mock.patch.object(PMK, '_primary',
+                              ranged('camera', PMK._primary)), \
+            profile(activities=[ProfilerActivity.CPU,
+                                ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    # a range also shows on the device as one span over its kernels and
+    # the gaps between them: neither device time nor a part of it
+    events = [e for e in prof.events() if not e.name.startswith('k2drv::')
+              or e.device_type == DeviceType.CPU]
+    dev_ev = [e for e in events if e.device_type == DeviceType.CUDA]
+    busy = busy_seconds((e.time_range.start, e.time_range.end)
+                        for e in dev_ev)
+    k2 = [(e.time_range.end - e.time_range.start) / 1e3 for e in dev_ev
+          if 'advance_kernel' in e.name]
+    parts = {'K2': sum(k2)}
+    for e in events:
+        if e.device_type != DeviceType.CPU:
+            continue
+        us = device_time(e)
+        # K2 is counted by its kernels' name; runtime calls (cudaLaunch...)
+        # hold the device time of the ops around them
+        if (not us or 'advance' in e.name or e.name.startswith('cu') or
+                e.name.startswith('k2drv::')):
+            continue
+        part, p = e.name, e.cpu_parent
+        while p is not None:
+            if p.name.startswith('k2drv::'):
+                part = p.name[len('k2drv::'):]
+                break
+            if p.name.startswith('aten::'):
+                part = p.name
+            p = p.cpu_parent
+        parts[part] = parts.get(part, 0.0) + us / 1e3
+    return dict(wall_s=wall, device_busy_s=busy, idle_share=1.0 - busy / wall,
+                k2_launches=len(k2), k2_ms=k2,
+                device_ms_by_part=dict(sorted(parts.items(),
+                                              key=lambda kv: -kv[1])))
+
+
+def k2_ab(args, torch, dev, card):
+    """The --k2 measurements (see the module docstring); returns them."""
+    from chip_smoke import bound, cuda_ms, table_bytes, vertex_ops
+    from lajolla_tpu_torch import kernels, render
+    from lajolla_tpu_torch import testing as PT
+    from lajolla_tpu_torch.integrators import path as PP
+    from lajolla_tpu_torch.integrators import path_kernel as PK
+    from lajolla_tpu_torch.integrators import path_megakernel as PMK
+    from lajolla_tpu_torch.scene.types import RenderOptions
+
+    res = {'registers': kernel_registers(kernels.build_log(),
+                                         ('advance', 'render_fused'))}
+    if hasattr(kernels, 'advance_group'):
+        res['group'] = {cell: kernels.advance_group(PT._film(r)[0] *
+                                                    PT._film(r)[1])
+                        for cell, r in K2_CELLS}
+        res['group']['2^18'] = kernels.advance_group(1 << 18)
+    saved = {}
+    options = RenderOptions(samples_per_pixel=K2_SPP)
+    for cell, film_res in K2_CELLS:
+        scene = PT.make_cornell_box(film_res, spp=K2_SPP).to(dev)
+        w, h = PT._film(film_res)
+        n = w * h
+        small = n <= 96 * 96
+        # one capture run: active lanes and the outputs on them, each call
+        calls, active, outs = [], [], []
+
+        def capture(scene_, options_, *a):
+            out = PK.advance_kernel_t(scene_, options_, *a)
+            act = a[8]
+            if small or len(active) in K2_REPLAY:
+                calls.append((scene_, options_, *(
+                    x.clone() if torch.is_tensor(x) else x for x in a)))
+            active.append(int(act.sum()))
+            on = tuple(x[:, act].T for x in out[:4]) + (out[4][act],
+                                                        out[6][act])
+            outs.append(on if small else (digest(*on),))
+            return out
+        film = PP._render_block_kernel(scene, options, 0, 0, K2_SPP,
+                                       advance=capture)
+        saved[f'{cell} K2 active outputs'] = outs
+        saved[f'{cell} film'] = [(film.reshape(-1, 3),) if small else
+                                 (digest(film),)]
+        nbytes = n * K2_LANE_BYTES + table_bytes(scene)
+        bounds = [bound(vertex_ops(scene, a), nbytes)[0] for a in active]
+
+        def timed_render():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            render(scene, options, device=dev)
+            torch.cuda.synchronize()
+            return time.perf_counter() - t0
+        timed_render()                                    # warm
+        walls = [timed_render() for _ in range(args.runs)]
+        traces = [driver_split(torch, lambda: render(scene, options,
+                                                     device=dev))
+                  for _ in range(min(args.runs, 3))]
+        if small:
+            replay = device_runs(
+                torch, lambda: [PK.advance_kernel_t(*c) for c in calls],
+                2, 'advance_kernel', args.runs)
+        else:       # each kept launch on its own: their work differs
+            replay = [launch_ms(torch, lambda: [PK.advance_kernel_t(*c)
+                                                for c in calls],
+                                'advance_kernel') for _ in range(args.runs)]
+        k2_traced = [statistics.median(t['k2_ms']) for t in traces
+                     if t['k2_ms']]
+        r = dict(lanes=n, launches=len(active),
+                 active_lanes_mean=statistics.mean(active),
+                 bound_ms_mean=statistics.mean(bounds),
+                 bound_ms_total=sum(bounds), render_walls_s=walls,
+                 render_mpaths_per_s=[n * K2_SPP / x / 1e6 for x in walls],
+                 k2_traced_median_ms=k2_traced,
+                 k2_traced_total_ms=[sum(t['k2_ms']) for t in traces],
+                 replayed_calls=[c for c in range(len(active))
+                                 if small or c in K2_REPLAY],
+                 replayed_device_ms=replay,
+                 traces=[{k: v for k, v in t.items() if k != 'k2_ms'}
+                         for t in traces])
+        res[cell] = r
+        print(f"K2 at {cell}'s shape ({w}x{h} x {K2_SPP} spp, {n} lanes, "
+              f"{len(active)} launches, {r['active_lanes_mean']:.0f} "
+              f"active on average): render() walls {walls} s; K2 a launch "
+              f"in the traced renders, medians {k2_traced} ms, totals "
+              f"{r['k2_traced_total_ms']} ms; replayed launches "
+              f"{r['replayed_calls'] if not small else 'all'}: {replay}; "
+              f"bound {r['bound_ms_mean']:.5f} ms a launch on average; "
+              f"{card}", flush=True)
+        for t in r['traces']:
+            print(f"  traced render(): wall {t['wall_s']:.4f} s, busy "
+                  f"{t['device_busy_s']:.4f} s, idle {t['idle_share']:.4f}, "
+                  f"K2 launches {t['k2_launches']}; device ms by part "
+                  f"{ {k: round(v, 3) for k, v in list(t['device_ms_by_part'].items())[:12]} }",
+                  flush=True)
+        if not small:
+            # K1 on the same film (the routing keeps it off such films)
+            k1 = lambda: PMK.render_fused(scene, options, 0, 0, K2_SPP)
+            saved[f'{cell} K1 film'] = [(digest(k1()),)]
+            res[f'{cell}_k1'] = dict(
+                cuda_event_ms=cuda_ms(torch, k1, 3),
+                traced_ms={k: launch_ms(torch, k1, k) for k in
+                           ('render_fused_kernel', 'film_sum_kernel')})
+            print(f"K1 on {cell}'s film x {K2_SPP} spp: {res[f'{cell}_k1']}; "
+                  f"{card}", flush=True)
+        del calls
+        torch.cuda.empty_cache()
+
     cbox = PT.make_cornell_box(512).to(dev)
     lanes = PT.random_lanes(cbox, 1 << 18, 12)
     args2 = [torch.from_numpy(lanes[k]).to(dev) for k in
              ('org', 'dir', 'thr', 'rad', 'nv', 'dir_pdf', 'prev', 'un',
               'act')]
-    from lajolla_tpu_torch.integrators.path import MAX_BOUNCES_CAP
-    fn = lambda: PK.advance_kernel_t(cbox, options, *args2, MAX_BOUNCES_CAP)
-    saved['2^18 K2 digest'] = [(digest(*fn()),)]
+    act = args2[8]
+    fn = lambda: PK.advance_kernel_t(cbox, options, *args2,
+                                     PP.MAX_BOUNCES_CAP)
+    out = fn()
+    saved['2^18 K2 active outputs'] = [
+        tuple(x[:, act].T for x in out[:4]) + (out[4][act], out[6][act])]
     res['2^18_k2_device_ms'] = device_runs(torch, fn, 10, 'advance_kernel',
                                            args.runs)
     res['2^18_k2_cuda_event_ms'] = cuda_ms(torch, fn, 10)
     print(f"K2 at 2^18 random lanes (Cornell box): device ms "
           f"{res['2^18_k2_device_ms']}, CUDA events "
           f"{res['2^18_k2_cuda_event_ms']:.4f} ms; {card}", flush=True)
-
     res['between_trees'] = ab_outputs(saved, args.films, args.against)
-    print(f"K3 / K2 registers and spills: {res['registers']}; between "
-          f"trees: {brief(res['between_trees'])}", flush=True)
+    print(f"K2 / K1 registers and spills: {res['registers']}; G "
+          f"{res.get('group')}; between trees: "
+          f"{brief(res['between_trees'])}", flush=True)
     return res
 
 
@@ -330,10 +536,13 @@ def main():
         REPO, 'chiprun_out', 'profile_torch_general.json'))
     ap.add_argument('--k3', action='store_true',
                     help='measure K3 and K2 alone')
+    ap.add_argument('--k2', action='store_true',
+                    help='measure K2 and the per-bounce driver alone')
     ap.add_argument('--label', default='')
-    ap.add_argument('--films', help='with --k3: save the outputs here')
-    ap.add_argument('--against',
-                    help='with --k3: compare with the outputs saved here')
+    ap.add_argument('--films', help='with --k3 or --k2: save the outputs '
+                    'here')
+    ap.add_argument('--against', help='with --k3 or --k2: compare with '
+                    'the outputs saved here')
     args = ap.parse_args()
 
     import torch
@@ -359,10 +568,13 @@ def main():
     kernels.build()
     out = {'card': card, 'label': args.label, 'repo': REPO,
            'build_s': time.perf_counter() - t0}
-    if args.k3:
+    if args.k3 or args.k2:
         print(f"tree {REPO} ({args.label}); {card}; build + load "
               f"{out['build_s']:.1f} s", flush=True)
-        out['k3'] = k3_ab(args, torch, dev, card)
+        if args.k3:
+            out['k3'] = k3_ab(args, torch, dev, card)
+        else:
+            out['k2'] = k2_ab(args, torch, dev, card)
         os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
         with open(args.out, 'w') as f:
             json.dump(out, f, indent=1)
