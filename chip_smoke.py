@@ -146,6 +146,28 @@ exits non-zero and prints no final line:
     every cast, K7's device time a launch over the render's casts (closest
     and any hit), the plain form's time and the bound of the work it
     counted.
+16. the aux integrators (depth, shadingNormal, meanCurvature,
+    rayDifferential, mipmapLevel) through the CLI, launch counters reset
+    before each run and read after: the Cornell box XML at 512x512
+    (`aux-512`, K3 alone) and the mesh Cornell box at 683x512
+    (bigmesh-683's ~56k triangles, depth and shadingNormal: K5 + K4
+    alone); finite EXRs of the film's shape; the CLI's and render()'s
+    seconds; each film's scene against the port's own film on the CPU
+    (plain casts) at 129x128 (AUX_CHECK_FILM): >= 99.9% of the values
+    within 2e-3 of the film's largest magnitude (2e-2 for meanCurvature);
+17. `disney-512`: the Disney Cornell box XML (six Disney BSDFs,
+    testing.CBOX_DISNEY_SHAPES) at 512x512 x 8 spp through the CLI, the
+    general engine with K3 alone (launch counters reset before and read
+    after): a finite EXR with mean luminance in
+    testing.CBOX_DISNEY_LUMINANCE; Mpaths/s of the CLI run and of render()
+    alone, loop iterations; one traced render() of the film at 1 spp:
+    loop iterations, wall, device busy time,
+    idle share, device activities an iteration, K3's device time and its
+    share; the general engine with K3 against it with the plain casts at
+    128x128 x 4 spp (median per-pixel relative difference < 1e-4, means
+    within 1%); the card's film against the CPU's at 64x64 x 4 spp (means
+    within 1%, 8x8-block RMS over the film mean < 0.12: last bits across
+    devices decorrelate some paths).
 Then one JSON line of per-kernel results (each kernel's launches on the
 main path of [6] or, for K4-K7, of [15], its largest difference from its plain form, its time,
 its plain form's time, its bound and what bounds it, and the time of a
@@ -157,11 +179,14 @@ their render-shape numbers as `render_*` (K5-K7 also
 with `render_spp` and `simt_efficiency`, K2 and K3 their render-shape
 device times as `render_*` (K2 also cbox-1080's as `render_1080_*`) and
 their CUDA-event figures as `host_issue_ms`), and last the device line.
+K3, K4 and K5 also carry their launches in [16] as `aux_launches`, K3 in
+[17] as `disney_512_launches`.
 `python3 chip_smoke.py --sweep-only` runs [1], [2], [14] and [15] and
 prints neither of the two last lines (a shorter run while working on the
 sweeps).
 """
 
+import dataclasses
 import json
 import os
 import subprocess
@@ -201,6 +226,15 @@ SWEEP_REPLACES = dict(
 # under ops/intersect_sweep.RESIDENT_BYTES (K5 + K4) or exceeds it (K6).
 BIGMESH_TRIANGLES = 56000
 HUGEMESH_TRIANGLES = 260000
+# The aux integrators ([16])
+AUX_MODES = ('depth', 'shadingNormal', 'meanCurvature', 'rayDifferential',
+             'mipmapLevel')
+# The film on which [16] holds the card's aux films against the CPU's: on
+# a square film pixel-centre rays run exactly along the Cornell box's
+# diagonal seams, where the two walls' t differ in the last bit and
+# either device may pick the other wall; one more column puts no pixel
+# centre on a diagonal (tests/test_torch_aux.py).
+AUX_CHECK_FILM = (129, 128)
 # The cast of a render whose rays K5 and K6 are timed on at render shape:
 # the closest-hit and the shadow cast of the sixth loop iteration, where
 # the lane pool holds paths at their later bounces.
@@ -326,6 +360,43 @@ def ptxas_summary(log):
             out[name] = (max(regs, r), sp)
     return '; '.join(f"{k}: <= {r} registers, <= {s} B spill stores"
                      for k, (r, s) in sorted(out.items()))
+
+
+def luminance(im):
+    """Mean Rec. 709 luminance of an (h, w, 3) image."""
+    import numpy as np
+    return float((im @ np.array([0.212671, 0.715160, 0.072169])).mean())
+
+
+def counted(PP, fn):
+    """fn() with the general engine's loop iterations counted
+    (integrators/path `PP._render_block_sc`)."""
+    iters = []
+    real = PP._render_block_sc
+
+    def counting(*a, **k):
+        out = real(*a, **k)
+        iters.append(out[2])
+        return out
+    with mock.patch.object(PP, '_render_block_sc', counting):
+        out = fn()
+    return out, sum(iters)
+
+
+def busy_seconds(intervals):
+    """Length of the union of (start, end) intervals in microseconds, in
+    seconds."""
+    busy, cur = 0.0, None
+    for s, e in sorted(intervals):
+        if cur is None or s > cur[1]:
+            if cur is not None:
+                busy += cur[1] - cur[0]
+            cur = [s, e]
+        else:
+            cur[1] = max(cur[1], e)
+    if cur is not None:
+        busy += cur[1] - cur[0]
+    return busy / 1e6
 
 
 def film_agreement(got, want):
@@ -785,22 +856,6 @@ def sweep_phases(torch, np, dev, smi):
                   f" {ms:.3f} ms ({smi})")
 
     # ---- 15. large scenes end to end through the CLI
-    def luminance(im):
-        return float((im @ np.array([0.212671, 0.715160, 0.072169])).mean())
-
-    def counted(fn):
-        """fn() with the queue's loop iterations counted."""
-        iters = []
-        real = PP._render_block_sc
-
-        def counting(*a, **k):
-            out = real(*a, **k)
-            iters.append(out[2])
-            return out
-        with mock.patch.object(PP, '_render_block_sc', counting):
-            out = fn()
-        return out, sum(iters)
-
     def keep(casts, kind, cast):
         """`cast` that keeps the rays of its CAPTURE_CALL-th call in
         casts[kind]."""
@@ -916,7 +971,7 @@ def sweep_phases(torch, np, dev, smi):
                 entries[(name, key)] = render_shape(
                     cell, name, scene, casts[key[7:]], any_hit)
             t0 = time.perf_counter()
-            _, iters = counted(lambda: render(scene, opt, device=dev))
+            _, iters = counted(PP, lambda: render(scene, opt, device=dev))
             render_s = time.perf_counter() - t0
             paths = size[0] * size[1] * spp
             Kc = scene.sw_aabb.shape[0]
@@ -1034,6 +1089,186 @@ def sweep_phases(torch, np, dev, smi):
                          any_hit_cuda_event_ms=k7_events['K7', True])
         lines.append(entry)
     return lines
+
+
+def aux_phase(torch, np, dev, smi):
+    """[16]: the aux integrators through the CLI on the card. Returns the
+    launches of their runs, by kernel."""
+    from lajolla_tpu_torch import cli, kernels, parse_scene, render
+    from lajolla_tpu_torch import testing as PT
+    from lajolla_tpu_torch.io.image import imread3
+    from lajolla_tpu_torch.scene.types import RenderOptions
+
+    t_phase = time.perf_counter()
+    total = dict.fromkeys(kernels.LAUNCHES, 0)
+    cells = (('aux-512', None, (512, 512), AUX_MODES, ('intersect_brute',)),
+             ('bigmesh-683', 'mesh', (683, 512), ('depth', 'shadingNormal'),
+              ('sweep_resident', 'sweep_resolve')))
+    with tempfile.TemporaryDirectory() as tmp:
+        for cell, variant, (w, h), modes, expect in cells:
+            small = PT.make_cornell_box(AUX_CHECK_FILM, 1, variant,
+                                        triangles=BIGMESH_TRIANGLES)
+            small_dev = small.to(dev)
+            for mode in modes:
+                xml = PT.write_cornell_box_xml(
+                    os.path.join(tmp, f'{cell}-{mode}'), (w, h), 1,
+                    variant=variant, triangles=BIGMESH_TRIANGLES,
+                    integrator=mode)
+                exr = os.path.join(tmp, f'{cell}-{mode}.exr')
+                for k in kernels.LAUNCHES:
+                    kernels.LAUNCHES[k] = 0
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                if cli.main([xml, '-o', exr, '--device', 'cuda']) != 0:
+                    raise AssertionError("CLI failed")
+                cli_s = time.perf_counter() - t0
+                ran = {k: v for k, v in kernels.LAUNCHES.items() if v}
+                if not (set(ran) == set(expect)):
+                    raise AssertionError(f"{cell} {mode} launched {ran}: "
+                                         f"expected {expect} alone")
+                for k, v in ran.items():
+                    total[k] += v
+                im = imread3(exr)
+                if not (im.shape == (h, w, 3) and np.isfinite(im).all()):
+                    raise AssertionError(f"{cell} {mode}: bad image")
+                scene, opt = parse_scene(xml, dev)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                render(scene, opt, device=dev)
+                render_s = time.perf_counter() - t0
+                opt = RenderOptions(integrator=mode)
+                got = render(small_dev, opt, device=dev)
+                want = render(small, opt, device='cpu')
+                share = PT.aux_agreement(got, want, mode)
+                print(f"[16] {cell} {mode} {w}x{h}: CLI {cli_s:.3f} s, "
+                      f"render() {render_s:.4f} s; launches {ran}; at "
+                      f"{AUX_CHECK_FILM[0]}x{AUX_CHECK_FILM[1]} against the "
+                      f"CPU's film (plain casts): {share:.6f} of the values "
+                      f"within the gate ({smi})")
+                if share < 0.999 or (mode in ('depth', 'shadingNormal',
+                                              'rayDifferential')
+                                     and not np.abs(want).max() > 0):
+                    raise AssertionError(f"{cell} {mode}: the card's film "
+                                         "disagrees with the CPU's")
+    print(f"[16] phase {time.perf_counter() - t_phase:.1f} s; launches "
+          f"{ {k: v for k, v in total.items() if v} }")
+    return total
+
+
+def disney_phase(torch, np, dev, smi):
+    """[17]: the Disney Cornell box at 512x512 x 8 spp (disney-512)
+    through the CLI on the card, its trace, and its films against the
+    plain casts and the CPU. Returns the launches of the CLI run, by
+    kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lajolla_tpu_torch import cli, kernels, parse_scene, render
+    from lajolla_tpu_torch import testing as PT
+    from lajolla_tpu_torch.integrators import path as PP
+    from lajolla_tpu_torch.io.image import imread3
+    from lajolla_tpu_torch.ops.intersect import (_brute_force_batched,
+                                                 _occluded_batched)
+    from lajolla_tpu_torch.scene.types import RenderOptions
+
+    t_phase = time.perf_counter()
+    res, spp = 512, 8
+    paths = res * res * spp
+    lo, hi = PT.CBOX_DISNEY_LUMINANCE
+    with tempfile.TemporaryDirectory() as tmp:
+        xml = PT.write_cornell_box_xml(os.path.join(tmp, 'disney'), res, spp,
+                                       variant='disney')
+        exr = os.path.join(tmp, 'disney512.exr')
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        if cli.main([xml, '-o', exr, '--device', 'cuda']) != 0:
+            raise AssertionError("CLI failed")
+        cli_s = time.perf_counter() - t0
+        ran = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        if set(ran) != {'intersect_brute', 'occluded_brute'}:
+            raise AssertionError(f"disney-512 launched {ran}: expected K3 "
+                                 "alone")
+        im = imread3(exr)
+        lum = luminance(im)
+        print(f"[17] disney-512 {res}x{res} x {spp} spp: CLI launches {ran}; "
+              f"mean luminance {lum:.5f} (the builder's range {lo}-{hi})")
+        if not (im.shape == (res, res, 3) and np.isfinite(im).all() and
+                lo < lum < hi):
+            raise AssertionError("disney-512: bad image")
+        scene, opt = parse_scene(xml, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, iters = counted(PP, lambda: render(scene, opt, device=dev))
+    render_s = time.perf_counter() - t0
+    print(f"[17] disney-512: {paths / cli_s / 1e6:.4f} Mpaths/s over the "
+          f"whole CLI run ({cli_s:.3f} s), {paths / render_s / 1e6:.4f} "
+          f"Mpaths/s render() alone ({render_s:.3f} s), {iters} loop "
+          f"iterations; {smi}")
+
+    # one traced render of the film at 1 spp (tracing the 8 spp render
+    # and reading its 1.6 million device activities takes ~56 s): the
+    # device's idle share, launches an iteration, K3's share of the device
+    # time
+    opt1 = dataclasses.replace(opt, samples_per_pixel=1)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, iters1 = counted(PP, lambda: render(scene, opt1, device=dev))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    # the profiler's raw events (µs): building prof.events() from a
+    # million of them takes minutes
+    ev = [(e.name(), e.start_ns() / 1e3, e.end_ns() / 1e3)
+          for e in prof.profiler.kineto_results.events()
+          if e.device_type() == DeviceType.CUDA]
+    busy = busy_seconds((a, b) for _, a, b in ev)
+    k3_s = sum(b - a for n, a, b in ev if 'brute_kernel' in n) / 1e6
+    print(f"[17] disney-512 at 1 spp, traced render(): {iters1} loop "
+          f"iterations, wall {wall:.3f} s, device busy "
+          f"{busy:.3f} s, idle share {1.0 - busy / wall:.4f}; "
+          f"{len(ev)} device activities, {len(ev) / iters1:.0f} an "
+          f"iteration; K3 {1e3 * k3_s:.2f} ms, {k3_s / max(busy, 1e-9):.4f} "
+          f"of the busy time (trace read in {time.perf_counter() - t1:.1f} s; "
+          f"{smi})")
+
+    # the general engine with K3 against it with the plain casts ([8])
+    t1 = time.perf_counter()
+    small = PT.make_cornell_box(128, 4, 'disney').to(dev)
+    film_k, _, _ = PP._render_block_sc(small, RenderOptions(), 0, 0, 4)
+    with mock.patch.multiple(kernels, intersect_brute=_brute_force_batched,
+                             occluded_brute=_occluded_batched):
+        film_p, _, _ = PP._render_block_sc(small, RenderOptions(), 0, 0, 4)
+    med, mean_rel, _ = film_agreement(film_k.cpu().numpy() / 4,
+                                      film_p.cpu().numpy() / 4)
+    print(f"[17] general engine, K3 vs plain casts, disney 128x128 x 4 spp: "
+          f"median rel {med:.3g}, mean rel {mean_rel:.3g} "
+          f"({time.perf_counter() - t1:.1f} s)")
+    if not (med < 1e-4 and mean_rel < 0.01):
+        raise AssertionError("disney: the general engine with K3 disagrees "
+                             "with it with the plain casts")
+
+    # the card's film against the CPU's
+    s64 = PT.make_cornell_box(64, 4, 'disney')
+    opt4 = RenderOptions(samples_per_pixel=4)
+    t1 = time.perf_counter()
+    got = render(s64, opt4, device=dev)
+    t2 = time.perf_counter()
+    want = render(s64, opt4, device='cpu')
+    t3 = time.perf_counter()
+    med, mean_rel, _ = film_agreement(got, want)
+    d8 = block_rms(got, want)
+    print(f"[17] disney 64x64 x 4 spp, the card's film against the CPU's: "
+          f"mean rel {mean_rel:.3g}, 8x8-block RMS {d8:.4f}, median rel "
+          f"{med:.3g}, pixels equal {float((got == want).mean()):.4f} "
+          f"(card {t2 - t1:.1f} s, CPU {t3 - t2:.1f} s)")
+    if not (mean_rel < 0.01 and d8 < 0.12):
+        raise AssertionError("disney: the card's film disagrees with the "
+                             "CPU's")
+    print(f"[17] phase {time.perf_counter() - t_phase:.1f} s")
+    return ran
 
 
 def k2_phase(torch, np, dev, smi):
@@ -1825,6 +2060,11 @@ def main():
                              "with the plain casts")
 
     sweep_lines = sweep_phases(torch, np, dev, smi)
+    aux_launches = aux_phase(torch, np, dev, smi)
+    disney_launches = disney_phase(torch, np, dev, smi)
+    for entry in sweep_lines:
+        name_ = entry['name'][:-len('_kernel')]
+        entry['aux_launches'] = aux_launches[name_]
 
     def line(name, source, replaces, launched, err, ms, plain_ms, bnd,
              **more):
@@ -1859,14 +2099,18 @@ def main():
              k3['plain_ms'], k3['bound'], host_issue_ms=k3['issue_ms'],
              render_ms=k3['ms'], render_plain_ms=k3['plain_ms'],
              render_bound_ms=k3['bound'][0],
-             render_bound_by=k3['bound'][1]),
+             render_bound_by=k3['bound'][1],
+             aux_launches=aux_launches['intersect_brute'],
+             disney_512_launches=disney_launches['intersect_brute']),
         line("occluded_brute_kernel", K3_SOURCE, K3_REPLACES,
              launches['occluded_brute'], k3['occ_err'], k3['occ_ms'],
              k3['occ_plain_ms'], k3['occ_bound'],
              host_issue_ms=k3['occ_issue_ms'], render_ms=k3['occ_ms'],
              render_plain_ms=k3['occ_plain_ms'],
              render_bound_ms=k3['occ_bound'][0],
-             render_bound_by=k3['occ_bound'][1]),
+             render_bound_by=k3['occ_bound'][1],
+             aux_launches=aux_launches['occluded_brute'],
+             disney_512_launches=disney_launches['occluded_brute']),
         line("render_fused_vol_kernel", K8_SOURCE, K8_REPLACES,
              launches['render_fused_vol'], k8_err, k8_ms, k8_plain_ms,
              k8_bound, render_spp=PV.VOLK_SPP_BLOCK, render_ms=k8_main_ms,

@@ -38,8 +38,7 @@ from lajolla_tpu_torch.integrators.lights import (LightPoint, emission_area,
                                                   pdf_point_on_light,
                                                   sample_light,
                                                   sample_point_on_light)
-from lajolla_tpu_torch.materials import (check_supported, eval_bsdf,
-                                         pdf_bsdf, sample_bsdf)
+from lajolla_tpu_torch.materials import eval_bsdf, pdf_bsdf, sample_bsdf
 from lajolla_tpu_torch.scene.camera import sample_primary
 from lajolla_tpu_torch.scene.geometry import intersect_scene, occluded
 from lajolla_tpu_torch.scene.types import LIGHT_ENVMAP
@@ -331,7 +330,6 @@ def _render_block_sc(scene, options, seed, s0, nspp, lanes=None):
     the next item, item + lanes. The loop ends when every lane has run
     out of items; `done.all()` is read back to the host every
     iteration."""
-    check_supported(scene.meta)
     w, h = scene.meta.width, scene.meta.height
     n = w * h
     lanes = lanes or n

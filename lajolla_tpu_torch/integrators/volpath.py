@@ -57,8 +57,7 @@ from lajolla_tpu_torch.integrators.path import (_GOLD, _M32, _check_items,
                                                 _primary_hash,
                                                 _ray_diff_reflect,
                                                 _ray_diff_refract)
-from lajolla_tpu_torch.materials import (check_supported, eval_bsdf,
-                                         pdf_bsdf, sample_bsdf)
+from lajolla_tpu_torch.materials import eval_bsdf, pdf_bsdf, sample_bsdf
 from lajolla_tpu_torch.scene.geometry import (cast_scene, hit_from_cast,
                                               intersect_scene)
 from lajolla_tpu_torch.scene.types import (MED_HETEROGENEOUS,
@@ -979,7 +978,6 @@ def _render_volpath_block(scene, options, seed, s0, nspp, lanes=None):
     the next item. `done.all()` is read back to the host every
     iteration."""
     meta = scene.meta
-    check_supported(meta)
     n = meta.width * meta.height
     lanes = lanes or n
     su = stream_root(seed)
@@ -1047,7 +1045,6 @@ def render_volpath(scene, options, seed=0, checkpoint=None, progress=False):
     from lajolla_tpu_torch.utils.progress import ProgressReporter
     if options.vol_path_version in (1, 2):
         raise NotImplementedError(VERSION_TODO)
-    check_supported(scene.meta)
     w, h = scene.meta.width, scene.meta.height
     n = w * h
     spp = options.samples_per_pixel

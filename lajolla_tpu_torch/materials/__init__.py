@@ -16,8 +16,8 @@ API (lanes on the leading axis; hit is a scene.geometry.Hit):
 All take `adjoint` (TransportDirection, material.h:114-117) as a static
 Python bool — radiance transport by default.
 
-Lambertian, RoughPlastic and RoughDielectric are ported; a scene with a
-Disney material raises NotImplementedError.
+All nine material types are ported: Lambertian, RoughPlastic,
+RoughDielectric and the six Disney BSDFs.
 """
 
 from typing import NamedTuple
@@ -44,27 +44,18 @@ def flip_frame_if_needed(frame, dir_in):
 
 # The BSDF modules import SampleRec and flip_frame_if_needed from here.
 from lajolla_tpu_torch.materials import (  # noqa: E402
-    lambertian, roughdielectric, roughplastic)
+    disney_bsdf, disney_clearcoat, disney_diffuse, disney_glass,
+    disney_metal, disney_sheen, lambertian, roughdielectric, roughplastic)
 
 _PORTED = {T.MAT_LAMBERTIAN: lambertian,
            T.MAT_ROUGH_PLASTIC: roughplastic,
-           T.MAT_ROUGH_DIELECTRIC: roughdielectric}
-
-
-def _module(mat_type):
-    module = _PORTED.get(mat_type)
-    if module is None:
-        raise NotImplementedError(
-            f"material type {mat_type} (a Disney BSDF) is not yet ported "
-            "(ROADMAP queue 1 item 3: rest of the surface features)")
-    return module
-
-
-def check_supported(meta):
-    """Raise NotImplementedError for a scene with a material type the port
-    has no BSDF for yet."""
-    for t in meta.mat_types_present:
-        _module(t)
+           T.MAT_ROUGH_DIELECTRIC: roughdielectric,
+           T.MAT_DISNEY_DIFFUSE: disney_diffuse,
+           T.MAT_DISNEY_METAL: disney_metal,
+           T.MAT_DISNEY_GLASS: disney_glass,
+           T.MAT_DISNEY_CLEARCOAT: disney_clearcoat,
+           T.MAT_DISNEY_SHEEN: disney_sheen,
+           T.MAT_DISNEY_BSDF: disney_bsdf}
 
 
 def _select(mask, a, b):
@@ -78,7 +69,7 @@ def _select(mask, a, b):
 def _dispatch(scene, mat_id, method, args, adjoint):
     present = scene.meta.mat_types_present or (T.MAT_LAMBERTIAN,)
     mat_id_c = torch.clamp(mat_id, min=0)
-    results = [getattr(_module(t), method)(scene, mat_id_c, *args, adjoint)
+    results = [getattr(_PORTED[t], method)(scene, mat_id_c, *args, adjoint)
                for t in present]
     if len(present) == 1:
         return results[0]

@@ -1,9 +1,9 @@
 """Render driver: integrator dispatch + film assembly.
 
 The analogue of render() (src/render.cpp:155-167) and of
-lajolla_tpu/render.py. The `path` integrator and the final `volpath`
-integrator (homogeneous and heterogeneous media, versions 3-5) are
-ported.
+lajolla_tpu/render.py. The `path` integrator, the final `volpath`
+integrator (homogeneous and heterogeneous media, versions 3-5) and the
+five aux integrators are ported.
 """
 
 import numpy as np
@@ -31,9 +31,8 @@ def render(scene, options=None, *, device, seed=0, checkpoint=None,
     if options is None:
         options = RenderOptions()
     if options.integrator in _AUX:
-        raise NotImplementedError(
-            f"integrator {options.integrator!r} not yet ported (ROADMAP "
-            "queue 1: rest of the surface features, aux integrators)")
+        from lajolla_tpu_torch.integrators.aux import render_aux
+        return render_aux(scene.to(device), options).cpu().numpy()
     if options.integrator == 'volpath':
         from lajolla_tpu_torch.integrators.volpath import \
             render_volpath as driver

@@ -10,7 +10,9 @@ both packages.
 
 The Cornell box has a "glass" variant for the general engine: the tall
 box RoughDielectric, the short box RoughPlastic and a checkerboard floor
-(three material types and uv lookups, so outside path_kernel.supports).
+(three material types and uv lookups, so outside path_kernel.supports),
+and a "disney" variant with the six Disney BSDFs, one a surface
+(CBOX_DISNEY_SHAPES), a checkerboard base color and a roughness image.
 Its volumetric variants render under the volpath integrator, with one
 homogeneous medium bound to the sensor and to every shape's exterior:
 "vol" (isotropic) and "vol_hg" (Henyey-Greenstein) lie inside
@@ -34,6 +36,7 @@ import numpy as np
 
 from lajolla_tpu_torch.core import transform as xf
 from lajolla_tpu_torch.io.obj import _compute_smooth_normals
+from lajolla_tpu_torch.io.pfm import write_pfm
 from lajolla_tpu_torch.scene import types as T
 from lajolla_tpu_torch.scene.compile import compile_scene
 from lajolla_tpu_torch.scene.parser import (CameraB, LightB, MaterialB,
@@ -46,6 +49,12 @@ MATERIAL_XML_TYPES = {
     'diffuse': T.MAT_LAMBERTIAN,
     'roughplastic': T.MAT_ROUGH_PLASTIC,
     'roughdielectric': T.MAT_ROUGH_DIELECTRIC,
+    'disneydiffuse': T.MAT_DISNEY_DIFFUSE,
+    'disneymetal': T.MAT_DISNEY_METAL,
+    'disneyglass': T.MAT_DISNEY_GLASS,
+    'disneyclearcoat': T.MAT_DISNEY_CLEARCOAT,
+    'disneysheen': T.MAT_DISNEY_SHEEN,
+    'disneybsdf': T.MAT_DISNEY_BSDF,
 }
 
 
@@ -213,7 +222,47 @@ CBOX_GLASS_SHAPES = {'floor': 'checker', 'short_box': 'plastic',
 # The floor's OBJ texture coordinates (`vt` lines); the loader flips v.
 CBOX_FLOOR_VT = ((0.0, 0.0), (0.0, 1.0), (1.0, 1.0), (1.0, 0.0))
 CBOX_VARIANTS = (None, 'glass', 'vol', 'vol_hg', 'vol_glass', 'hetvol',
-                 'hetvol_hg', 'hetvol_smooth', 'mesh')
+                 'hetvol_hg', 'hetvol_smooth', 'mesh', 'disney')
+# The Disney variant: one Disney BSDF a surface, the ceiling and the light
+# Lambertian as in the box. Each material is its XML type and its
+# children in XML order: (name, value), a value being a float, an RGB
+# triple, or the id of a texture (CBOX_DISNEY_TEXTURES) for a <ref>.
+# 'eta' sets the IOR. The all-lobe DisneyBSDF lies on the floor, whose
+# uvs carry its checkerboard base color; the metal's roughness is a
+# checkerboard image (a bitmap: neither parser reads a procedural float
+# texture).
+CBOX_DISNEY_SHAPES = {'floor': 'disneybsdf', 'back': 'disneysheen',
+                      'left': 'disneydiffuse', 'right': 'disneyclearcoat',
+                      'short_box': 'disneyglass', 'tall_box': 'disneymetal'}
+CBOX_DISNEY_MATERIALS = {
+    'disneydiffuse': [('baseColor', (0.63, 0.065, 0.05)),
+                      ('roughness', 0.6), ('subsurface', 0.5)],
+    'disneymetal': [('baseColor', (0.9, 0.75, 0.5)),
+                    ('roughness', 'rough_tex'), ('anisotropic', 0.5)],
+    'disneyglass': [('baseColor', (0.9, 0.95, 1.0)), ('roughness', 0.2),
+                    ('anisotropic', 0.3), ('eta', 1.5)],
+    'disneyclearcoat': [('clearcoatGloss', 0.6)],
+    'disneysheen': [('baseColor', (0.73, 0.73, 0.73)), ('sheenTint', 0.5)],
+    'disneybsdf': [('baseColor', 'checker_tex'),
+                   ('specularTransmission', 0.2), ('metallic', 0.3),
+                   ('subsurface', 0.4), ('specular', 0.5),
+                   ('roughness', 0.35), ('specularTint', 0.3),
+                   ('anisotropic', 0.5), ('sheen', 0.6), ('sheenTint', 0.5),
+                   ('clearcoat', 0.6), ('clearcoatGloss', 0.7),
+                   ('eta', 1.5)],
+}
+# The roughness image: 8x8 pixels of 0.25 and 0.5 in a checkerboard of
+# 2-pixel squares (values whose channel mean is exact, so the image reads
+# back bit-equal), written beside the XML as a PFM file, uv scale 2.
+CBOX_DISNEY_TEXTURES = {'checker_tex': 'checkerboard',
+                        'rough_tex': 'roughness.pfm'}
+CBOX_DISNEY_ROUGH_SCALE = 2.0
+# The Disney box's mean luminance: 0.0935-0.0939 in the port's CPU films at
+# 64x64 x 16 spp (seeds 0, 1) and 96x96 x 8 spp; a finite film of any
+# size and spp whose mean lies outside this range is wrong.
+CBOX_DISNEY_LUMINANCE = (0.075, 0.115)
+# Materials of the floor that carry its texture coordinates
+_FLOOR_UV_MATERIALS = ('checker', 'disneybsdf')
 # The mesh variant: a displaced sphere ('mesh', RoughPlastic) where the
 # short box stands. MESH_TRIANGLES is its default triangle count (the
 # nearest count a latitude-longitude grid gives is used).
@@ -289,6 +338,71 @@ def _glass_materials(b, mat_ids):
     m.tex[T.P_ROUGHNESS] = _const_tex(b, CBOX_GLASS_ROUGHNESS)
     mat_ids['glass'] = len(b.materials)
     b.materials.append(m)
+
+
+# The parser's parameter slots and defaults of each Disney type
+# (scene/parser.py parse_bsdf), in the order it emits the defaults.
+_DISNEY_SLOTS = {
+    'baseColor': T.P_BASE_COLOR, 'specularTransmission': T.P_SPEC_TRANS,
+    'metallic': T.P_METALLIC, 'subsurface': T.P_SUBSURFACE,
+    'specular': T.P_SPECULAR, 'roughness': T.P_ROUGHNESS,
+    'specularTint': T.P_SPECULAR_TINT, 'anisotropic': T.P_ANISOTROPIC,
+    'sheen': T.P_SHEEN, 'sheenTint': T.P_SHEEN_TINT,
+    'clearcoat': T.P_CLEARCOAT, 'clearcoatGloss': T.P_CLEARCOAT_GLOSS}
+_GRAY = (0.5, 0.5, 0.5)
+_DISNEY_DEFAULTS = {
+    'disneydiffuse': [('baseColor', _GRAY), ('roughness', 0.5),
+                      ('subsurface', 0.0)],
+    'disneymetal': [('baseColor', _GRAY), ('roughness', 0.5),
+                    ('anisotropic', 0.0)],
+    'disneyglass': [('baseColor', _GRAY), ('roughness', 0.5),
+                    ('anisotropic', 0.0)],
+    'disneyclearcoat': [('clearcoatGloss', 1.0)],
+    'disneysheen': [('baseColor', _GRAY), ('sheenTint', 0.5)],
+    'disneybsdf': [('baseColor', _GRAY), ('specularTransmission', 0.0),
+                   ('metallic', 0.0), ('subsurface', 0.0),
+                   ('specular', 0.5), ('roughness', 0.5),
+                   ('specularTint', 0.0), ('anisotropic', 0.0),
+                   ('sheen', 0.0), ('sheenTint', 0.5), ('clearcoat', 0.0),
+                   ('clearcoatGloss', 1.0)],
+}
+
+
+def disney_roughness_image():
+    """The Disney variant's roughness image, (8, 8) float32."""
+    y, x = np.mgrid[0:8, 0:8]
+    return np.where((x // 2 + y // 2) % 2 == 0, 0.25, 0.5).astype(
+        np.float32)
+
+
+def _disney_texture(b, ref):
+    """The texture descriptor the parser makes for a <ref> to `ref`."""
+    if CBOX_DISNEY_TEXTURES[ref] == 'checkerboard':
+        uv = CBOX_CHECKER['uvscale']
+        b.texdescs.append(TexDesc(
+            kind=T.TEX_CHECKERBOARD, const=CBOX_CHECKER['color0'],
+            color1=CBOX_CHECKER['color1'], uscale=uv, vscale=uv))
+    else:
+        img_id = b.texture_pool.insert(ref, disney_roughness_image())
+        b.texdescs.append(TexDesc(
+            kind=T.TEX_IMAGE, image_id=img_id,
+            uscale=CBOX_DISNEY_ROUGH_SCALE, vscale=CBOX_DISNEY_ROUGH_SCALE))
+    return len(b.texdescs) - 1
+
+
+def _disney_materials(b, mat_ids):
+    """Append the Disney variant's materials, each keyed by its type."""
+    for typ, children in CBOX_DISNEY_MATERIALS.items():
+        m = MaterialB(type=MATERIAL_XML_TYPES[typ])
+        for name, v in _DISNEY_DEFAULTS[typ] + children:
+            if name == 'eta':
+                m.eta = v
+            elif isinstance(v, str):
+                m.tex[_DISNEY_SLOTS[name]] = _disney_texture(b, v)
+            else:
+                m.tex[_DISNEY_SLOTS[name]] = _const_tex(b, v)
+        mat_ids[typ] = len(b.materials)
+        b.materials.append(m)
 
 
 def _check_variant(variant):
@@ -372,6 +486,8 @@ def _shape_material(variant, name, mat):
         return CBOX_VOL_GLASS_SHAPES.get(name, mat)
     if variant in HETVOL_VARIANTS:
         return HETVOL_SHAPES.get(name, mat)
+    if variant == 'disney':
+        return CBOX_DISNEY_SHAPES.get(name, mat)
     return mat
 
 
@@ -494,7 +610,8 @@ def cornell_box_builder(res, spp=4, variant=None, grid_res=HETVOL_GRID_RES,
     volumetric variants (CBOX_MEDIUM, CBOX_VOL_GLASS_SHAPES); 'hetvol',
     'hetvol_hg' and 'hetvol_smooth' the heterogeneous ones (HETVOL_*),
     with a density grid of grid_res = (X, Y, Z) nodes; 'mesh' the
-    displaced sphere of about `triangles` triangles (MESH_SPHERE)."""
+    displaced sphere of about `triangles` triangles (MESH_SPHERE);
+    'disney' the six Disney BSDFs (CBOX_DISNEY_SHAPES)."""
     _check_variant(variant)
     vol = _is_vol(variant)
     het = variant in HETVOL_VARIANTS
@@ -527,6 +644,8 @@ def cornell_box_builder(res, spp=4, variant=None, grid_res=HETVOL_GRID_RES,
         _glass_materials(b, mat_ids)
     elif het or variant == 'mesh':
         _plastic_material(b, mat_ids)
+    elif variant == 'disney':
+        _disney_materials(b, mat_ids)
     for name, mat, quads, emitter in _variant_shapes(variant):
         if quads is None:
             pos, idx, uvs = displaced_sphere(triangles)
@@ -537,7 +656,7 @@ def cornell_box_builder(res, spp=4, variant=None, grid_res=HETVOL_GRID_RES,
         if uvs is not None:     # as load_obj reads write_obj's `vt` lines
             mesh.uvs = np.stack([uvs[:, 0], 1.0 - uvs[:, 1]], axis=1)
         mat = _shape_material(variant, name, mat)
-        if mat == 'checker':
+        if mat in _FLOOR_UV_MATERIALS:
             mesh.uvs = np.array([(u, 1.0 - v) for u, v in CBOX_FLOOR_VT])
         shape = ShapeB(type=T.SHAPE_MESH, mesh=mesh,
                        material_id=-1 if mat is None else mat_ids[mat])
@@ -600,6 +719,36 @@ def _glass_xml(fmt):
     ]
 
 
+def _disney_xml(directory, fmt):
+    """The Disney variant's <texture> and <bsdf> elements; writes its
+    roughness image into `directory`."""
+    write_pfm(os.path.join(directory, CBOX_DISNEY_TEXTURES['rough_tex']),
+              disney_roughness_image())
+    rgb = lambda v: fmt(repr(float(c)) for c in v)
+    lines = [
+        '  <texture type="checkerboard" id="checker_tex">',
+        f'    <rgb name="color0" value="{rgb(CBOX_CHECKER["color0"])}"/>',
+        f'    <rgb name="color1" value="{rgb(CBOX_CHECKER["color1"])}"/>',
+        f'    <float name="uvscale" value="{CBOX_CHECKER["uvscale"]!r}"/>',
+        '  </texture>',
+        '  <texture type="bitmap" id="rough_tex">',
+        f'    <string name="filename" '
+        f'value="{CBOX_DISNEY_TEXTURES["rough_tex"]}"/>',
+        f'    <float name="uvscale" value="{CBOX_DISNEY_ROUGH_SCALE!r}"/>',
+        '  </texture>']
+    for typ, children in CBOX_DISNEY_MATERIALS.items():
+        lines.append(f'  <bsdf type="{typ}" id="{typ}">')
+        for name, v in children:
+            if isinstance(v, str):
+                lines.append(f'    <ref name="{name}" id="{v}"/>')
+            elif np.isscalar(v):
+                lines.append(f'    <float name="{name}" value="{v!r}"/>')
+            else:
+                lines.append(f'    <rgb name="{name}" value="{rgb(v)}"/>')
+        lines.append('  </bsdf>')
+    return lines
+
+
 def _hetvol_xml(directory, variant, grid_res, fmt):
     """The heterogeneous variants' <medium> element; writes its density
     grid as density.vol into `directory`."""
@@ -639,15 +788,19 @@ def _media_xml(variant, fmt):
 
 
 def write_cornell_box_xml(directory, res, spp, variant=None,
-                          grid_res=HETVOL_GRID_RES, triangles=MESH_TRIANGLES):
+                          grid_res=HETVOL_GRID_RES, triangles=MESH_TRIANGLES,
+                          integrator=None):
     """Write the Cornell box as Mitsuba XML (cbox.xml) plus one OBJ file
     per shape into `directory` (and, for the heterogeneous variants, the
-    density grid as density.vol); returns the XML path. res, variant,
-    grid_res and triangles as cornell_box_builder takes them."""
+    density grid as density.vol; for 'disney' its roughness image);
+    returns the XML path. res, variant, grid_res and triangles as
+    cornell_box_builder takes them; `integrator` names another
+    <integrator> type than the variant's path or volpath (e.g. 'depth')."""
     _check_variant(variant)
     vol = _is_vol(variant)
     het = variant in HETVOL_VARIANTS
     w, h = _film(res)
+    integrator = integrator or ('volpath' if vol else 'path')
     os.makedirs(directory, exist_ok=True)
     fmt = ', '.join
     o, t, u = (fmt(repr(float(x)) for x in CBOX_CAMERA[k])
@@ -655,7 +808,7 @@ def write_cornell_box_xml(directory, res, spp, variant=None,
     lines = [
         '<?xml version="1.0" encoding="utf-8"?>',
         '<scene version="0.5.0">',
-        f'  <integrator type="{"volpath" if vol else "path"}"/>',
+        f'  <integrator type="{integrator}"/>',
         *(_hetvol_xml(directory, variant, grid_res, fmt) if het else
           _media_xml(variant, fmt)),
         '  <sensor type="perspective">',
@@ -683,9 +836,11 @@ def write_cornell_box_xml(directory, res, spp, variant=None,
         lines += _glass_xml(fmt)
     elif het or variant == 'mesh':
         lines += _plastic_xml(fmt)
+    elif variant == 'disney':
+        lines += _disney_xml(directory, fmt)
     for name, mat, quads, emitter in _variant_shapes(variant):
         mat = _shape_material(variant, name, mat)
-        uv = mat == 'checker'
+        uv = mat in _FLOOR_UV_MATERIALS
         obj_path = os.path.join(directory, f'{name}.obj')
         if quads is None:
             write_obj(obj_path, *displaced_sphere(triangles))
@@ -1336,6 +1491,16 @@ def advance_agreement(got, got_alive, want, want_alive):
         if g.size:
             max_abs = max(max_abs, float(np.abs(g - w).max()))
     return float((got_alive == want_alive).mean()), shares, max_abs
+
+
+def aux_agreement(got, want, mode):
+    """Share of an aux film's values within lajolla_tpu's aux gate of
+    `want` (tests/test_aux_parity.py): 2e-3 of the film's largest
+    magnitude, 2e-2 for meanCurvature, whose dn/du chain amplifies fp32
+    rounding. The gate asks >= 99.9%."""
+    tol = 2e-2 if mode == 'meanCurvature' else 2e-3
+    scale = np.abs(want).max() + 1e-9
+    return float((np.abs(got - want) / scale <= tol).mean())
 
 
 def assert_advance_agrees(got, got_alive, want, want_alive):

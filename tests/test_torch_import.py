@@ -16,6 +16,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     'lajolla_tpu_torch.testing',
     'lajolla_tpu_torch.bridge',
     'lajolla_tpu_torch.kernels',
+    'lajolla_tpu_torch.materials',
+    'lajolla_tpu_torch.tools',
+    'lajolla_tpu_torch.utils.profiling',
+    'lajolla_tpu_torch.integrators.aux',
     'lajolla_tpu_torch.integrators.path',
     'lajolla_tpu_torch.integrators.media',
     'lajolla_tpu_torch.integrators.volpath',

@@ -10,8 +10,14 @@ rel_tol 0.08 of the larger plus four standard errors of the share. A
 sampler and a pdf that drift together from lajolla_tpu's can pass the
 against-JAX tests (tests/test_torch_materials.py) within their
 tolerance; they cannot pass this one unless they agree with each other.
-The uniforms come from numpy; no JAX is needed. The Disney BSDFs come
-with their port.
+The uniforms come from numpy; no JAX is needed. The eleven material
+cases are lajolla_tpu's `CASES` (tests/test_materials.py:99-112), the
+eight Disney ones among them.
+
+`test_eval_pdf_positivity_coupling` mirrors lajolla_tpu's
+(tests/test_materials.py:148): wherever a sampled direction has a
+positive BSDF value, its pdf must be positive (else the estimator would
+be biased).
 """
 
 import numpy as np
@@ -21,7 +27,25 @@ import torch
 import lajolla_tpu_torch.materials as PM
 from lajolla_tpu_torch.core.math import make_frame
 from lajolla_tpu_torch.scene.geometry import Hit
+from lajolla_tpu_torch.scene import types as T
 from lajolla_tpu_torch.testing import make_single_material_scene
+
+CASES = [
+    ('diffuse', None),
+    ('roughplastic', None),
+    ('roughdielectric', None),
+    ('disneydiffuse', None),
+    ('disneymetal', None),
+    ('disneymetal', {T.P_ANISOTROPIC: 0.8}),
+    ('disneyglass', None),
+    ('disneyclearcoat', None),
+    ('disneysheen', None),
+    ('disneybsdf', None),
+    ('disneybsdf', {T.P_SPEC_TRANS: 0.7, T.P_METALLIC: 0.2,
+                    T.P_CLEARCOAT: 0.8, T.P_SHEEN: 0.5}),
+]
+IDS = [m + ('-aniso' if p and T.P_ANISOTROPIC in p else
+            '-lobes' if p else '') for m, p in CASES]
 
 
 def make_hit(n):
@@ -96,13 +120,34 @@ def check_sample_pdf_statistical(scene, dir_in, n=200_000, seed=0,
     assert tested > 0
 
 
-@pytest.mark.parametrize('mat', ['diffuse', 'roughplastic',
-                                 'roughdielectric'])
-def test_material_sample_pdf(mat):
-    scene = make_single_material_scene(mat)
+@pytest.mark.parametrize('mat,params', CASES, ids=IDS)
+def test_material_sample_pdf(mat, params):
+    scene = make_single_material_scene(mat, params=params)
     check_sample_pdf_statistical(scene, (0.3, -0.2, 0.9))
 
 
-def test_transmissive_from_inside():
-    scene = make_single_material_scene('roughdielectric')
+@pytest.mark.parametrize('mat', ['roughdielectric', 'disneyglass'])
+def test_transmissive_from_inside(mat):
+    scene = make_single_material_scene(mat)
     check_sample_pdf_statistical(scene, (0.2, 0.1, -0.95))
+
+
+@pytest.mark.parametrize('mat,params', CASES, ids=IDS)
+def test_eval_pdf_positivity_coupling(mat, params):
+    scene = make_single_material_scene(mat, params=params)
+    n = 2000
+    rng = np.random.default_rng(1)
+    u2 = torch.from_numpy(rng.random((n, 2)).astype(np.float32))
+    w = torch.from_numpy(rng.random(n).astype(np.float32))
+    din = torch.tensor((0.3, -0.2, 0.9))
+    din = (din / din.norm()).expand(n, 3)
+    mat_id = torch.zeros(n, dtype=torch.int32)
+    hit = make_hit(n)
+    rec = PM.sample_bsdf(scene, mat_id, din, hit, u2, w)
+    pdf = PM.pdf_bsdf(scene, mat_id, din, rec.dir_out, hit).numpy()
+    f = PM.eval_bsdf(scene, mat_id, din, rec.dir_out, hit).numpy()
+    # samplers may produce directions with f = pdf = 0 (e.g. microfacet
+    # reflections below the horizon); the integrator rejects them
+    nonzero_f = rec.valid.numpy() & (f.max(axis=1) > 1e-9)
+    assert nonzero_f.any()
+    assert (pdf[nonzero_f] > 0).all()

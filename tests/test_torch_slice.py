@@ -17,6 +17,7 @@ import lajolla_tpu.integrators.path_megakernel as JMK
 import lajolla_tpu.scene.compile as JC
 from lajolla_tpu.scene.types import RenderOptions as JOptions
 import lajolla_tpu_torch.integrators.path as PPATH
+import lajolla_tpu_torch.integrators.path_kernel as PK
 import lajolla_tpu_torch.integrators.path_megakernel as PMK
 import lajolla_tpu_torch.testing as PT
 from lajolla_tpu_torch import cli, render
@@ -109,11 +110,14 @@ def test_cuda_device_without_gpu_raises():
                device='cuda')
 
 
-def test_scene_outside_kernel_support_raises():
-    """Scenes outside the kernels' support take the general engine, which
-    has no Disney BSDF yet."""
+def test_scene_outside_kernel_support_renders():
+    """A scene outside the kernels' support (the Cornell box with a
+    Disney-diffuse material) takes the general engine and renders,
+    finite, with its mean in range."""
     b = PT.cornell_box_builder(8)
     b.materials[0].type = T.MAT_DISNEY_DIFFUSE
-    with pytest.raises(NotImplementedError, match="queue 1 item 3"):
-        render(PT.compile_scene(b), RenderOptions(samples_per_pixel=1),
-               device='cpu')
+    scene = PT.compile_scene(b)
+    assert not PK.supports(scene.meta)
+    img = render(scene, RenderOptions(samples_per_pixel=2), device='cpu')
+    assert img.shape == (8, 8, 3) and np.isfinite(img).all()
+    assert 0.05 < img.mean() < 5.0
