@@ -145,7 +145,11 @@ exits non-zero and prints no final line:
     kept: the rays a cast, every output bit-equal to the plain form on
     every cast, K7's device time a launch over the render's casts (closest
     and any hit), the plain form's time and the bound of the work it
-    counted.
+    counted. The seam rays (testing.SEAM_PIXELS: the 8 pixel-centre rays
+    of the 64x64 mesh box at 2,000 triangles that run along a wall seam
+    and that lajolla_tpu's sweep misses): the depth film through K5 + K4
+    alone against the plain sweep on the CPU, the seam rays each hits
+    (they must agree) and the pixels whose hit differs.
 16. the aux integrators (depth, shadingNormal, meanCurvature,
     rayDifferential, mipmapLevel) through the CLI, launch counters reset
     before each run and read after: the Cornell box XML at 512x512
@@ -168,6 +172,29 @@ exits non-zero and prints no final line:
     within 1%); the card's film against the CPU's at 64x64 x 4 spp (means
     within 1%, 8x8-block RMS over the film mean < 0.12: last bits across
     devices decorrelate some paths).
+18. volpath versions 1 and 2: the threefry (core/random.py) fold_in,
+    split and uniform on 2^20 keys on the card, bit-equal to the CPU's;
+    `vol1-512` and `vol2-512`, the 'vol' Cornell box XML with <integer
+    name="version"> 1 and 2 at 512x512 x 16 spp through the CLI (launch
+    counters reset before each run and read after: K3 alone, closest hit
+    for version 1, closest and any hit for version 2): finite EXRs with
+    mean luminance in (0.005, 0.5) / (0.001, 0.5); Mpaths/s of the CLI
+    run and of render() alone, K3's launches; one traced render() of
+    vol2-512 (wall, device busy, idle share, device activities a sample);
+    the card's film against the CPU's at 64x64 x 4 spp for both versions:
+    median < 1e-4, means within 1%;
+19. the gradients (integrators/diffpath.py): `diff-256`, render_diff of
+    the Cornell box at 256x256 x 4 spp, depth 4, forward and backward()
+    of the film mean with respect to a scale on the red wall's albedo
+    (launch counters reset before and read after: K3 alone), the second
+    of two runs: forward and backward seconds, max_memory_allocated; the
+    card's albedo gradient at 32x32 x 2 spp against the CPU's (rel 1e-3),
+    central differences on the card (rel 5e-3) and grad_fwd on the card
+    (rel 1e-4); render_volpath_diff's sigma gradients, version 1 at 32x32
+    x 4 spp and version 2 at x 16 spp on the 'vol' box, against the
+    CPU's (rel 1e-3); the example's albedo recovery
+    (examples/inverse_rendering.recover_albedo, 40 Adam steps at 24x24 x
+    4 spp): the loss below 1e-2 of its start, kd within 0.02 of the truth.
 Then one JSON line of per-kernel results (each kernel's launches on the
 main path of [6] or, for K4-K7, of [15], its largest difference from its plain form, its time,
 its plain form's time, its bound and what bounds it, and the time of a
@@ -180,7 +207,8 @@ with `render_spp` and `simt_efficiency`, K2 and K3 their render-shape
 device times as `render_*` (K2 also cbox-1080's as `render_1080_*`) and
 their CUDA-event figures as `host_issue_ms`), and last the device line.
 K3, K4 and K5 also carry their launches in [16] as `aux_launches`, K3 in
-[17] as `disney_512_launches`.
+[17] as `disney_512_launches`, in [18] as `vol12_512_launches` and in [19]
+as `diff_256_launches`.
 `python3 chip_smoke.py --sweep-only` runs [1], [2], [14] and [15] and
 prints neither of the two last lines (a shorter run while working on the
 sweeps).
@@ -1066,6 +1094,30 @@ def sweep_phases(torch, np, dev, smi):
             raise AssertionError("K7 differs from its plain form at render "
                                  "shape")
 
+    # the seam rays (testing.SEAM_PIXELS): pixel-centre rays of the 64x64
+    # mesh box that run along a wall seam, which lajolla_tpu's sweep
+    # misses; K5 + K4 against the plain sweep on the CPU
+    seam = PT.make_cornell_box(64, 1, 'mesh', triangles=PT.SEAM_TRIANGLES)
+    depth = RenderOptions(integrator='depth')
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    got = render(seam, depth, device=dev)[..., 0]
+    ran = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    want = render(seam, depth, device='cpu')[..., 0]
+    ys, xs = np.array(PT.SEAM_PIXELS).T
+    card_hits = int((got[ys, xs] > 0).sum())
+    plain_hits = int((want[ys, xs] > 0).sum())
+    print(f"[15] seam rays of the mesh box at 64x64 "
+          f"({seam.meta.num_triangles} triangles; launches {ran}): K5 + K4 "
+          f"hit {card_hits} of {len(ys)}, the plain sweep {plain_hits}; "
+          f"pixels whose hit differs over the film "
+          f"{int(((got > 0) != (want > 0)).sum())} of {got.size}")
+    if set(ran) != {'sweep_resident', 'sweep_resolve'}:
+        raise AssertionError("the seam film did not cast through K5 + K4")
+    if card_hits != plain_hits:
+        raise AssertionError("K5 + K4 differ from the plain sweep on the "
+                             "seam rays")
+
     lines = []
     for name in ('sweep_resolve', 'sweep_resident', 'sweep_list',
                  'sweep_streaming'):
@@ -1268,6 +1320,265 @@ def disney_phase(torch, np, dev, smi):
         raise AssertionError("disney: the card's film disagrees with the "
                              "CPU's")
     print(f"[17] phase {time.perf_counter() - t_phase:.1f} s")
+    return ran
+
+
+def traced_render(torch, fn):
+    """fn() under torch.profiler: (wall seconds, device busy seconds,
+    device activities)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    ev = [(e.start_ns() / 1e3, e.end_ns() / 1e3)
+          for e in prof.profiler.kineto_results.events()
+          if e.device_type() == DeviceType.CUDA]
+    return wall, busy_seconds(ev), len(ev)
+
+
+def vol12_phase(torch, np, dev, smi):
+    """[18]: volpath versions 1 and 2 — the threefry on the card, the
+    cells vol1-512 and vol2-512 through the CLI, a trace of vol2-512, and
+    the card's films against the CPU's. Returns the launches of the CLI
+    runs, by kernel."""
+    from lajolla_tpu_torch import cli, kernels, parse_scene, render
+    from lajolla_tpu_torch import testing as PT
+    from lajolla_tpu_torch.core import random as R
+    from lajolla_tpu_torch.io.image import imread3
+    from lajolla_tpu_torch.scene.types import RenderOptions
+
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(18)
+    n = 1 << 20
+    keys = torch.from_numpy(rng.integers(0, 1 << 32, (n, 2),
+                                         dtype=np.uint64).astype(np.int64))
+    data = torch.from_numpy(rng.integers(0, 1 << 32, n,
+                                         dtype=np.uint64).astype(np.int64))
+    kd, dd = keys.to(dev), data.to(dev)
+    same = {
+        'fold_in': torch.equal(R.fold_in(kd, dd).cpu(), R.fold_in(keys, data)),
+        'split': all(torch.equal(a.cpu(), b) for a, b in
+                     zip(R.split(kd), R.split(keys))),
+        'uniform': torch.equal(R.uniform(kd, 5).cpu().view(torch.int32),
+                               R.uniform(keys, 5).view(torch.int32))}
+    print(f"[18] threefry on {n} keys, the card's words against the CPU's: "
+          f"{same}")
+    if not all(same.values()):
+        raise AssertionError("the threefry differs on the card")
+
+    res, spp = 512, 16
+    paths = res * res * spp
+    total = dict.fromkeys(kernels.LAUNCHES, 0)
+    expect = {1: {'intersect_brute'},
+              2: {'intersect_brute', 'occluded_brute'}}
+    lum_range = {1: (0.005, 0.5), 2: (0.001, 0.5)}
+    with tempfile.TemporaryDirectory() as tmp:
+        for version in (1, 2):
+            cell = f'vol{version}-512'
+            xml = PT.write_cornell_box_xml(os.path.join(tmp, cell), res, spp,
+                                           variant='vol',
+                                           vol_path_version=version)
+            exr = os.path.join(tmp, cell + '.exr')
+            for k in kernels.LAUNCHES:
+                kernels.LAUNCHES[k] = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if cli.main([xml, '-o', exr, '--device', 'cuda']) != 0:
+                raise AssertionError("CLI failed")
+            cli_s = time.perf_counter() - t0
+            ran = {k: v for k, v in kernels.LAUNCHES.items() if v}
+            for k, v in ran.items():
+                total[k] += v
+            im = imread3(exr)
+            lum = luminance(im)
+            lo, hi = lum_range[version]
+            if set(ran) != expect[version]:
+                raise AssertionError(f"{cell} launched {ran}: expected "
+                                     f"{expect[version]}")
+            if not (im.shape == (res, res, 3) and np.isfinite(im).all() and
+                    lo < lum < hi):
+                raise AssertionError(f"{cell}: bad image (luminance {lum})")
+            scene, opt = parse_scene(xml, dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            render(scene, opt, device=dev)
+            render_s = time.perf_counter() - t0
+            print(f"[18] {cell} {res}x{res} x {spp} spp: mean luminance "
+                  f"{lum:.5f}; {paths / cli_s / 1e6:.3f} Mpaths/s over the "
+                  f"whole CLI run ({cli_s:.3f} s), {paths / render_s / 1e6:.3f}"
+                  f" Mpaths/s render() alone ({render_s:.3f} s); K3 launches "
+                  f"closest {ran.get('intersect_brute', 0)}, any "
+                  f"{ran.get('occluded_brute', 0)}; {smi}")
+            if version == 2:
+                wall, busy, acts = traced_render(
+                    torch, lambda: render(scene, opt, device=dev))
+                print(f"[18] {cell}, traced render(): wall {wall:.3f} s, "
+                      f"device busy {busy:.3f} s, idle share "
+                      f"{1.0 - busy / wall:.4f}; {acts} device activities, "
+                      f"{acts / spp:.0f} a sample")
+
+    # the card's films against the CPU's
+    s64 = PT.make_cornell_box(64, variant='vol')
+    for version in (1, 2):
+        opt = RenderOptions(integrator='volpath', vol_path_version=version,
+                            samples_per_pixel=4)
+        got = render(s64, opt, device=dev)
+        want = render(s64, opt, device='cpu')
+        med, mean_rel, err = film_agreement(got, want)
+        print(f"[18] version {version} 64x64 x 4 spp, the card's film against "
+              f"the CPU's: median rel {med:.3g}, mean rel {mean_rel:.3g}, "
+              f"largest |diff| {err:.3g}, pixels equal "
+              f"{float((got == want).mean()):.4f}")
+        if not (med < 1e-4 and mean_rel < 0.01):
+            raise AssertionError(f"version {version}: the card's film "
+                                 "disagrees with the CPU's")
+    print(f"[18] phase {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
+def grad_phase(torch, np, dev, smi):
+    """[19]: the gradients on the card — cell diff-256 (render_diff's
+    forward and backward), the albedo gradient against the CPU's and
+    central differences, grad_fwd against reverse mode, the volumetric
+    gradients against the CPU's, and the example's albedo recovery.
+    Returns the launches of diff-256, by kernel."""
+    from lajolla_tpu_torch import kernels
+    from lajolla_tpu_torch import testing as PT
+    from lajolla_tpu_torch.examples import inverse_rendering as EX
+    from lajolla_tpu_torch.integrators import diffpath as PD
+    from lajolla_tpu_torch.integrators.media import MT_SA
+    from lajolla_tpu_torch.scene.types import RenderOptions
+
+    t_phase = time.perf_counter()
+    opts = RenderOptions(max_depth=4)
+
+    def albedo_loss(scene, spp, seed=1):
+        tid = EX.red_wall_texture(scene)
+
+        def loss(s):
+            tab = scene.tex_tab.clone()
+            tab[tid, 2:5] = scene.tex_tab[tid, 2:5] * s
+            return PD.render_diff(dataclasses.replace(scene, tex_tab=tab),
+                                  opts, seed=seed, spp=spp, depth=4).mean()
+        return loss
+
+    def reverse(loss, device):
+        x = torch.tensor(1.0, device=device, requires_grad=True)
+        loss(x).backward()
+        return float(x.grad)
+
+    def peak_above(base):
+        """max_memory_allocated since the last reset, and that less the
+        `base` bytes held before the render (earlier phases' tensors)."""
+        peak = torch.cuda.max_memory_allocated(dev)
+        return (f"max_memory_allocated {peak / 2**20:.1f} MiB, "
+                f"{(peak - base) / 2**20:.1f} MiB above the "
+                f"{base / 2**20:.1f} MiB held before it")
+
+    # diff-256: forward and backward of the film mean, twice (the first
+    # warms the allocator); the second is the cell's
+    res, spp = 256, 4
+    big = PT.make_cornell_box(res).to(dev)
+    loss = albedo_loss(big, spp)
+    for run in range(2):
+        x = torch.tensor(1.0, device=dev, requires_grad=True)
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        y = loss(x)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        y.backward()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+    ran = {k: v for k, v in kernels.LAUNCHES.items() if v}
+    print(f"[19] diff-256 {res}x{res} x {spp} spp, depth 4 (Cornell box, "
+          f"{res * res * spp} lanes): forward {t1 - t0:.3f} s, backward "
+          f"{t2 - t1:.3f} s, {peak_above(base)}; "
+          f"d(mean)/d(red-wall scale) {float(x.grad):.6g}; launches {ran}; "
+          f"{smi}")
+    if set(ran) != {'intersect_brute', 'occluded_brute'}:
+        raise AssertionError(f"diff-256 launched {ran}: expected K3 alone")
+    if not np.isfinite(float(x.grad)) or not float(x.grad) > 0:
+        raise AssertionError("diff-256: bad gradient")
+
+    # the albedo gradient on the card against the CPU's, central
+    # differences and forward mode
+    small = PT.make_cornell_box(32)
+    card = albedo_loss(small.to(dev), 2)
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    g_card = reverse(card, dev)
+    mem32 = peak_above(base)
+    g_cpu = reverse(albedo_loss(small, 2), 'cpu')
+    eps = 1e-2
+    with torch.no_grad():
+        fd = float(card(torch.tensor(1.0 + eps, device=dev)) -
+                   card(torch.tensor(1.0 - eps, device=dev))) / (2 * eps)
+    gf = float(PD.grad_fwd(card, torch.tensor(1.0, device=dev)))
+    rel = dict(cpu=abs(g_card / g_cpu - 1), fd=abs(g_card / fd - 1),
+               fwd=abs(gf / g_card - 1))
+    print(f"[19] albedo gradient, Cornell box 32x32 x 2 spp: card "
+          f"{g_card:.7g}, CPU {g_cpu:.7g} (rel {rel['cpu']:.3g}), central "
+          f"differences on the card {fd:.7g} (rel {rel['fd']:.3g}), grad_fwd "
+          f"on the card {gf:.7g} (rel {rel['fwd']:.3g}); reverse mode's "
+          f"{mem32}")
+    if not (rel['cpu'] < 1e-3 and rel['fd'] < 5e-3 and rel['fwd'] < 1e-4):
+        raise AssertionError("the card's albedo gradient is off")
+
+    # the volumetric gradients against the CPU's
+    vol = PT.make_cornell_box(32, variant='vol')
+    for version, cols, vspp in ((1, 3, 4), (2, 6, 16)):
+        vo = RenderOptions(integrator='volpath', vol_path_version=version)
+
+        def vloss(scene):
+            def loss(s):
+                med = scene.med_tab.clone()
+                med[:, MT_SA:MT_SA + cols] = \
+                    scene.med_tab[:, MT_SA:MT_SA + cols] * s
+                return PD.render_volpath_diff(
+                    dataclasses.replace(scene, med_tab=med), vo, seed=1,
+                    spp=vspp).mean()
+            return loss
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        vol_dev = vol.to(dev)
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        t0 = time.perf_counter()
+        g_card = reverse(vloss(vol_dev), dev)
+        torch.cuda.synchronize()
+        card_s = time.perf_counter() - t0
+        vran = {k: v for k, v in kernels.LAUNCHES.items() if v}
+        vmem = peak_above(base)
+        g_cpu = reverse(vloss(vol), 'cpu')
+        r = abs(g_card / g_cpu - 1)
+        print(f"[19] render_volpath_diff version {version}, vol 32x32 x "
+              f"{vspp} spp, d(mean)/d(sigma scale): card {g_card:.7g}, CPU "
+              f"{g_cpu:.7g} (rel {r:.3g}); card {card_s:.3f} s, {vmem}; "
+              f"launches {vran}")
+        if not r < 1e-3:
+            raise AssertionError(f"version {version}: the card's gradient "
+                                 "disagrees with the CPU's")
+
+    # the example's albedo recovery on the card
+    t0 = time.perf_counter()
+    l0, lN, kd, kd_true = EX.recover_albedo(dev)
+    dkd = float((kd - kd_true).abs().max())
+    print(f"[19] albedo recovery (the example: 40 Adam steps at 24x24 x 4 "
+          f"spp, depth 4): loss {l0:.4g} -> {lN:.4g} (ratio {lN / l0:.3g}), "
+          f"kd {kd.cpu().numpy().round(4)} vs {kd_true.cpu().numpy()} (largest "
+          f"|diff| {dkd:.4f}); {time.perf_counter() - t0:.1f} s")
+    if not (lN < 1e-2 * l0 and dkd < 0.02):
+        raise AssertionError("the albedo recovery failed on the card")
+    print(f"[19] phase {time.perf_counter() - t_phase:.1f} s")
     return ran
 
 
@@ -2062,6 +2373,8 @@ def main():
     sweep_lines = sweep_phases(torch, np, dev, smi)
     aux_launches = aux_phase(torch, np, dev, smi)
     disney_launches = disney_phase(torch, np, dev, smi)
+    vol12_launches = vol12_phase(torch, np, dev, smi)
+    diff_launches = grad_phase(torch, np, dev, smi)
     for entry in sweep_lines:
         name_ = entry['name'][:-len('_kernel')]
         entry['aux_launches'] = aux_launches[name_]
@@ -2101,7 +2414,9 @@ def main():
              render_bound_ms=k3['bound'][0],
              render_bound_by=k3['bound'][1],
              aux_launches=aux_launches['intersect_brute'],
-             disney_512_launches=disney_launches['intersect_brute']),
+             disney_512_launches=disney_launches['intersect_brute'],
+             vol12_512_launches=vol12_launches['intersect_brute'],
+             diff_256_launches=diff_launches['intersect_brute']),
         line("occluded_brute_kernel", K3_SOURCE, K3_REPLACES,
              launches['occluded_brute'], k3['occ_err'], k3['occ_ms'],
              k3['occ_plain_ms'], k3['occ_bound'],
@@ -2110,7 +2425,9 @@ def main():
              render_bound_ms=k3['occ_bound'][0],
              render_bound_by=k3['occ_bound'][1],
              aux_launches=aux_launches['occluded_brute'],
-             disney_512_launches=disney_launches['occluded_brute']),
+             disney_512_launches=disney_launches['occluded_brute'],
+             vol12_512_launches=vol12_launches['occluded_brute'],
+             diff_256_launches=diff_launches['occluded_brute']),
         line("render_fused_vol_kernel", K8_SOURCE, K8_REPLACES,
              launches['render_fused_vol'], k8_err, k8_ms, k8_plain_ms,
              k8_bound, render_spp=PV.VOLK_SPP_BLOCK, render_ms=k8_main_ms,

@@ -40,10 +40,41 @@ def normalize(v, eps=0.0):
     return v * torch.rsqrt(torch.clamp(l2, min=eps * eps + 1e-38))
 
 
+class _SafeSqrt(torch.autograd.Function):
+    """sqrt(max(x, 0)) whose derivative, in reverse and in forward mode,
+    is 0.5 / sqrt(max(x, 1e-12))."""
+
+    @staticmethod
+    def forward(x):
+        return torch.sqrt(torch.clamp(x, min=0.0))
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.save_for_backward(inputs[0])
+        ctx.save_for_forward(inputs[0])
+
+    @staticmethod
+    def _slope(x, t):
+        return t * 0.5 / torch.sqrt(torch.clamp(x, min=1e-12))
+
+    @staticmethod
+    def backward(ctx, g):
+        return _SafeSqrt._slope(ctx.saved_tensors[0], g)
+
+    @staticmethod
+    def jvp(ctx, t):
+        return _SafeSqrt._slope(ctx.saved_tensors[0], t)
+
+
 def safe_sqrt(x):
-    """sqrt(max(x, 0)). lajolla_tpu clamps its derivative for the
-    gradient integrators; the port has no gradient path yet."""
-    return torch.sqrt(torch.clamp(x, min=0.0))
+    """sqrt(max(x, 0)) with a CLAMPED derivative 1/(2 sqrt(max(x,
+    1e-12))), as lajolla_tpu's custom_jvp gives it. The value is
+    torch.sqrt(torch.clamp(x, min=0)) bit for bit. At clip-to-zero sites
+    (the VNDF disk rim, Fresnel and refraction cosines) the true
+    derivative is inf, and reverse mode turns the zero gradient of a
+    masked lane into 0·inf = NaN, which the film gradient's sum then
+    spreads to every parameter (integrators/diffpath.py)."""
+    return _SafeSqrt.apply(x)
 
 
 def distance(a, b):

@@ -180,7 +180,11 @@ def _mis(p_this, p_other):
                                            p_other * p_other, min=1e-30)
 
 
-def _advance_lane(scene, options, st, u):
+def _finite_or_zero(x):
+    return torch.where(torch.isfinite(x), x, 0.0)
+
+
+def _advance_lane(scene, options, st, u, detach=False):
     """One path-vertex step for a batch of lanes (lajolla_tpu vmaps a
     per-lane form; here every field has a leading lane axis N).
 
@@ -189,10 +193,25 @@ def _advance_lane(scene, options, st, u):
     spread, radius, eta_scale, dir_pdf (N,) float; done (N,) bool.
     u: (N, 8) uniforms for this vertex (the driver draws them from the
     counter hash). Returns (new state tuple, died), died marking the
-    paths that complete THIS step (radiance ready to splat). lajolla_tpu's
-    detached-gradient mode (detach=True, for diffpath) is not ported."""
+    paths that complete THIS step (radiance ready to splat).
+
+    detach=True is the DETACHED-sampling gradient mode of
+    integrators/diffpath.py (reverse- and forward-mode autograd through
+    the estimator): geometry (rays, hit records), sampled directions,
+    sampling pdfs, MIS weights and the RR probability are detached, while
+    BSDF *evaluations* and emission stay attached. Detaching the pdfs in
+    denominators is what makes the gradient estimator unbiased for
+    eval-side parameters: E[∂θ f(x;θ)/p_detached(x)] = ∂θ ∫f (attaching p
+    would add the spurious -∫ f ∂θ p / p term); detaching the sample x
+    itself drops only the reparameterization term that moves
+    discontinuities (Mitsuba's 'detached' estimator). It rewrites only
+    values that no live lane reads, so the film does not change."""
+    sg = (lambda x: x.detach()) if detach else (lambda x: x)
     (item, nv, org, d, spread, radius, T, L, eta_scale,
      dir_pdf, prev_pos, done) = st
+    org, d, prev_pos = sg(org), sg(d), sg(prev_pos)
+    spread, radius = sg(spread), sg(radius)
+    dir_pdf = sg(dir_pdf)
     meta = scene.meta
     eps_shadow = shadow_eps(meta.scene_radius)
     eps_isect = intersection_eps(meta.scene_radius)
@@ -200,6 +219,15 @@ def _advance_lane(scene, options, st, u):
     n = item.shape[0]
 
     hit = intersect_scene(scene, org, d, eps_isect, INF, radius, spread)
+    if detach:
+        # Detached + SANITIZED: miss records carry t = inf and position =
+        # o + inf·d. Forward, every use is masked out; in reverse mode
+        # the masked branch's inf/NaN partials multiply the zero gradient
+        # into NaN (0·inf), which the film gradient's sum then spreads to
+        # every parameter. Zeroing non-finite fields leaves the film as
+        # it is and keeps the backward pass finite.
+        hit = type(hit)(*(_finite_or_zero(x.detach())
+                          if x.is_floating_point() else x for x in hit))
     radius = radius + spread * torch.where(hit.valid, hit.t, 0.0)
     from_camera = nv == 2
 
@@ -210,8 +238,16 @@ def _advance_lane(scene, options, st, u):
         torch.clamp(distance_squared(hit.position, prev_pos), min=1e-20)
     p2 = dir_pdf * G2
     lp2 = LightPoint(position=hit.position, normal=hit.geometry_normal)
-    p1 = light_pmf(scene, hit.light_id) * \
-        pdf_point_on_light(scene, hit.light_id, lp2, prev_pos)
+    p1 = sg(light_pmf(scene, hit.light_id) *
+            pdf_point_on_light(scene, hit.light_id, lp2, prev_pos))
+    if detach:
+        # f32 overflow hygiene for autograd: pdf·geometry products can
+        # pass 3.4e38 on near-degenerate lanes; forward, w = inf/inf =
+        # NaN samples are dropped by the film's isfinite filter, but the
+        # NaN poisons every gradient of the backward pass. Clamping at
+        # 1e18 keeps those (discarded) values finite and is exact on
+        # every other lane.
+        p1, p2 = torch.clamp(p1, max=1e18), torch.clamp(p2, max=1e18)
     w2 = torch.where(from_camera, 1.0, _mis(p2, p1))
     L = L + torch.where(hit_light[:, None], T * Le * w2[:, None], 0.0)
 
@@ -220,9 +256,11 @@ def _advance_lane(scene, options, st, u):
         env_id = torch.full((n,), meta.envmap_light_id, dtype=torch.int32,
                             device=d.device)
         lpe = LightPoint(position=torch.zeros_like(d), normal=-d)
-        p1e = light_pmf(scene, env_id) * \
-            pdf_point_on_light(scene, env_id, lpe, prev_pos)
+        p1e = sg(light_pmf(scene, env_id) *
+                 pdf_point_on_light(scene, env_id, lpe, prev_pos))
         p2e = dir_pdf  # solid-angle measure; G = 1 for envmaps
+        if detach:
+            p1e, p2e = torch.clamp(p1e, max=1e18), torch.clamp(p2e, max=1e18)
         w2e = torch.where(from_camera, 1.0, _mis(p2e, p1e))
         L = L + torch.where(~hit.valid[:, None], T * Lenv * w2e[:, None],
                             0.0)
@@ -239,27 +277,42 @@ def _advance_lane(scene, options, st, u):
     light_id = sample_light(scene, u[:, 2])
     lp = sample_point_on_light(scene, light_id, hit.position, u[:, 0:2],
                                u[:, 3])
+    if detach:
+        lp = LightPoint(*(x.detach() for x in lp))
     if meta.has_envmap:
         is_env = scene.light_type[light_id.long()] == LIGHT_ENVMAP
     else:
         is_env = torch.zeros_like(done)
     dir_light_area = normalize(lp.position - hit.position)
     dir_light = torch.where(is_env[:, None], -lp.normal, dir_light_area)
+    if detach:
+        # degenerate shadow directions (coincident points: normalize
+        # returns 0) are masked by nee_ok, but a microfacet BSDF
+        # evaluated at wo = 0 has inf partials that NaN the backward
+        # pass even under a zero gradient; substitute a benign direction
+        dl_ok = dot(dir_light, dir_light) > 0.5
+        dir_light = torch.where(dl_ok[:, None], dir_light, hit.frame[:, 2])
     dist2 = distance_squared(lp.position, hit.position)
     tfar = torch.where(is_env, INF, (1.0 - eps_shadow) * torch.sqrt(dist2))
     occ = occluded(scene, hit.position, dir_light, eps_shadow, tfar)
     G_area = torch.clamp(-dot(dir_light, lp.normal), min=0.0) / \
         torch.clamp(dist2, min=1e-20)
     G = torch.where(occ, 0.0, torch.where(is_env, 1.0, G_area))
-    p1n = light_pmf(scene, light_id) * \
-        pdf_point_on_light(scene, light_id, lp, hit.position)
+    if detach:
+        # a substituted (originally degenerate) shadow direction must
+        # stay masked: the original G was exactly 0 there
+        G = torch.where(dl_ok, G, 0.0)
+    p1n = sg(light_pmf(scene, light_id) *
+             pdf_point_on_light(scene, light_id, lp, hit.position))
     nee_ok = alive & (G > 0) & (p1n > 0)
     f_nee = eval_bsdf(scene, mat_id, dir_view, dir_light, hit)
     L_nee = emission_area(scene, light_id, lp.normal, -dir_light)
     if meta.has_envmap:
         L_nee = torch.where(is_env[:, None],
                             emission_envmap(scene, dir_light, 0.0), L_nee)
-    p2n = pdf_bsdf(scene, mat_id, dir_view, dir_light, hit) * G
+    p2n = sg(pdf_bsdf(scene, mat_id, dir_view, dir_light, hit)) * G
+    if detach:
+        p1n, p2n = torch.clamp(p1n, max=1e18), torch.clamp(p2n, max=1e18)
     w1 = _mis(p1n, p2n)
     # nee_ok-gated denominator: identical where the term is used; masked
     # lanes divide by 1 so their (discarded) values stay finite
@@ -269,14 +322,23 @@ def _advance_lane(scene, options, st, u):
 
     # ---- BSDF sampling + RR (path_tracing.h:210-322) ----------------------
     rec = sample_bsdf(scene, mat_id, dir_view, hit, u[:, 4:6], u[:, 6])
+    if detach:
+        rec = type(rec)(*(x.detach() for x in rec))
+        # invalid samples can return a zero or non-finite dir_out; the
+        # lane is masked (alive &= rec.valid) but the eval / pdf at a
+        # degenerate wo has inf partials: NaN through the backward pass
+        do = _finite_or_zero(rec.dir_out)
+        d_ok = dot(do, do) > 0.5
+        rec = rec._replace(dir_out=torch.where(d_ok[:, None], do,
+                                               hit.frame[:, 2]))
     f2 = eval_bsdf(scene, mat_id, dir_view, rec.dir_out, hit)
-    p2s = pdf_bsdf(scene, mat_id, dir_view, rec.dir_out, hit)
+    p2s = sg(pdf_bsdf(scene, mat_id, dir_view, rec.dir_out, hit))
     alive = alive & rec.valid & (p2s > 0)
 
     do_rr = (nv - 1) >= options.rr_depth
-    rr_prob = torch.where(
+    rr_prob = sg(torch.where(
         do_rr, torch.clamp((T / eta_scale[:, None]).amax(dim=-1), max=0.95),
-        1.0)
+        1.0))
     alive = alive & (u[:, 7] <= rr_prob)
 
     is_refract = rec.eta != 0.0
@@ -292,6 +354,10 @@ def _advance_lane(scene, options, st, u):
     # was latched at death)
     new_T = torch.where(alive[:, None], T * f2 / torch.clamp(
         p2s * rr_prob, min=1e-30)[:, None], 0.0)
+    if detach:
+        # overflow hygiene (see the p1 / p2 clamp above): a fireball
+        # lane's T must not reach inf — inf·0 NaNs the backward pass
+        new_T = torch.clamp(new_T, max=1e18)
 
     died = ~done & ~alive
 

@@ -24,8 +24,11 @@ Engines, dispatched as lajolla_tpu's `render_volpath` does:
   whose free flight runs the tracking loop for heterogeneous media of
   constant volumes. Their casts are kernel K3 (scene/geometry.py).
 
-Not ported (raises NotImplementedError): the pedagogical versions 1 and
-2, which draw threefry keys rather than the counter hash.
+The pedagogical versions 1 and 2 (vol_path_tracing.h:6-147) take none of
+these: `_render_volpath_simple_block` traces one single-bounce path a
+pixel and sample with `volpath1_trace_one` / `volpath2_trace_one`, whose
+random numbers come from threefry keys (core/random.py) folded in per
+(pixel, sample), as lajolla_tpu draws them from `jax.random`.
 
 Fork quirks replicated on purpose, as lajolla_tpu does
 (vol_path_tracing.h): a bounce-0 emissive hit ends the path; escaping
@@ -36,6 +39,7 @@ refresh dir_pdf / multi_trans_pdf (:785-848).
 import numpy as np
 import torch
 
+from lajolla_tpu_torch.core import random as rnd
 from lajolla_tpu_torch.core.math import (distance, distance_squared, dot,
                                          normalize)
 from lajolla_tpu_torch.dtypes import intersection_eps, shadow_eps
@@ -48,7 +52,8 @@ from lajolla_tpu_torch.integrators.media import (MT_DLOOK, MT_SA, MT_SOFF,
                                                  MT_SRES, MT_SS, MT_TYPE,
                                                  VL_PMAX, VL_PMIN,
                                                  density_albedo,
-                                                 get_majorant, get_sigma_s,
+                                                 get_majorant, get_sigma_a,
+                                                 get_sigma_s,
                                                  has_heterogeneous, med_row,
                                                  phase_eval, phase_pdf,
                                                  phase_sample, update_medium)
@@ -58,8 +63,9 @@ from lajolla_tpu_torch.integrators.path import (_GOLD, _M32, _check_items,
                                                 _ray_diff_reflect,
                                                 _ray_diff_refract)
 from lajolla_tpu_torch.materials import eval_bsdf, pdf_bsdf, sample_bsdf
+from lajolla_tpu_torch.scene.camera import sample_primary
 from lajolla_tpu_torch.scene.geometry import (cast_scene, hit_from_cast,
-                                              intersect_scene)
+                                              intersect_scene, occluded)
 from lajolla_tpu_torch.scene.types import (MED_HETEROGENEOUS,
                                            MED_HOMOGENEOUS)
 
@@ -85,10 +91,6 @@ VOL_LANES = 131072
 VOLK_SPP_BLOCK = 64      # samples per pixel in one K8 launch
 GRID_LANES = 16384       # the event machine's lane pool (grid scenes)
 GRIDK_SPP_BLOCK = 32     # samples per pixel in one K9 launch
-
-VERSION_TODO = ("volpath versions 1 and 2 draw threefry keys, not the "
-                "counter hash, and are not yet ported (ROADMAP queue 1: "
-                "volpath versions 1/2, a bit-exact threefry in torch)")
 
 
 def _avg(s):
@@ -921,6 +923,116 @@ def _advance_event(scene, options, st, su):
 
 
 # ---------------------------------------------------------------------------
+# Pedagogical versions 1 and 2 (vol_path_tracing.h:6-147)
+# ---------------------------------------------------------------------------
+
+def _uniforms(keys, n):
+    """(keys, (N, n) uniforms): split each key, draw n uniforms from the
+    second half, keep the first."""
+    keys, sub = rnd.split(keys)
+    return keys, rnd.uniform(sub, n)
+
+
+def _primary(scene, options, px, py, keys):
+    """(keys, org, d): the camera ray through each pixel from the key's
+    first two uniforms."""
+    keys, u_pix = _uniforms(keys, 2)
+    org, d = sample_primary(scene, options, px.to(torch.float32),
+                            py.to(torch.float32), u_pix)
+    return keys, org, d
+
+
+def volpath1_trace_one(scene, options, px, py, keys):
+    """Absorption only, a single homogeneous exterior volume (:6-41), for
+    lanes of pixels (px, py) ((N,) int64) with threefry keys (N, 2).
+    Returns (N, 3) radiance. Le counts only where the hit's exterior
+    medium exists."""
+    _, org, d = _primary(scene, options, px, py, keys)
+    hit = intersect_scene(scene, org, d, 0.0, INF)
+    has_med = hit.valid & (hit.exterior_med >= 0)
+    sigma_a = get_sigma_a(scene, hit.exterior_med, hit.position)
+    # miss lanes carry position = inf; the result is masked by has_med,
+    # but exp(-σ·inf) would NaN the σ gradient of diffpath's
+    # render_volpath_diff — 0 gives the same film
+    t_hit = torch.where(hit.valid, distance(hit.position, org), 0.0)
+    transmittance = torch.exp(-sigma_a * t_hit[:, None])
+    Le = torch.where((hit.light_id >= 0)[:, None],
+                     emission_area(scene, hit.light_id, hit.geometry_normal,
+                                   -d), 0.0)
+    return torch.where(has_med[:, None], transmittance * Le, 0.0)
+
+
+def volpath2_trace_one(scene, options, px, py, keys, detach=False):
+    """A single monochromatic homogeneous volume, single scattering
+    (:46-147), batched as volpath1_trace_one. The free flight samples
+    channel 0's sigma_t; one shadow ray a lane.
+
+    detach=True is the volumetric detached-gradient mode (see
+    path._advance_lane): the sampled free-flight distance, the sampling
+    pdfs and all geometry are detached while the transmittance,
+    scattering, phase and emission factors stay attached — unbiased
+    gradients with respect to the medium (σ_a, σ_s), phase and emission
+    parameters, since the pdfs carry no parameter once detached. The
+    film does not change; integrators/diffpath.render_volpath_diff uses
+    it."""
+    sg = (lambda x: x.detach()) if detach else (lambda x: x)
+    eps_shadow = shadow_eps(scene.meta.scene_radius)
+    keys, org, d = _primary(scene, options, px, py, keys)
+    hit = intersect_scene(scene, org, d, 0.0, INF)
+    medium = torch.where(hit.valid, hit.exterior_med,
+                         scene.meta.camera_medium_id)
+    t_hit = torch.where(hit.valid, sg(distance(hit.position, org)), INF)
+
+    sigma_s = get_sigma_s(scene, medium, sg(hit.position))
+    sigma_a = get_sigma_a(scene, medium, sg(hit.position))
+    sigma_t = sigma_s + sigma_a
+
+    keys, u = _uniforms(keys, 5)
+    t = sg(-torch.log(torch.clamp(1.0 - u[:, 0], min=1e-20)) /
+           torch.clamp(sigma_t[:, 0], min=1e-20))
+
+    # scatter before the surface
+    trans_pdf_s = sg(torch.exp(-sigma_t * t[:, None]) * sigma_t)
+    transmittance_s = torch.exp(-sigma_t * t[:, None])
+    p = sg(org + t[:, None] * d)
+    light_id = sample_light(scene, u[:, 3])
+    lp = sample_point_on_light(scene, light_id, p, u[:, 1:3], u[:, 4])
+    if detach:
+        lp = LightPoint(*(x.detach() for x in lp))
+    dir_light = normalize(lp.position - p)
+    rho = phase_eval(scene, medium, -d, dir_light)
+    Le = emission_area(scene, light_id, lp.normal, -dir_light)
+    dist_l = distance(p, lp.position)
+    exp_term = torch.exp(-sigma_t * dist_l[:, None])
+    occ = occluded(scene, p, dir_light, eps_shadow,
+                   (1.0 - eps_shadow) * dist_l)
+    jac = torch.abs(dot(dir_light, lp.normal)) / torch.clamp(
+        distance_squared(p, lp.position), min=1e-20) * \
+        torch.where(occ, 0.0, 1.0)
+    L_s1 = rho * Le * exp_term * jac[:, None]
+    L_s1_pdf = sg(light_pmf(scene, light_id) *
+                  pdf_point_on_light(scene, light_id, lp, p))
+    scatter_contrib = (transmittance_s / trans_pdf_s) * sigma_s * \
+        (L_s1 / torch.clamp(L_s1_pdf, min=1e-30)[:, None])
+
+    # reach the surface. In detach mode a miss (t_hit = inf) must not
+    # reach exp(-σ·inf): it is the branch not taken, but the σ gradient
+    # would be -inf·exp(-inf) = NaN (see _advance_lane's sanitizing
+    # note); the branch taken is the same.
+    t_hit_e = torch.where(torch.isfinite(t_hit), t_hit, 0.0) \
+        if detach else t_hit
+    trans_pdf_h = sg(torch.exp(-sigma_t * t_hit_e[:, None]))
+    transmittance_h = torch.exp(-sigma_t * t_hit_e[:, None])
+    Le_h = torch.where((hit.valid & (hit.light_id >= 0))[:, None],
+                       emission_area(scene, hit.light_id,
+                                     hit.geometry_normal, -d), 0.0)
+    surf_contrib = transmittance_h / torch.clamp(trans_pdf_h, min=1e-30) * \
+        Le_h
+
+    return torch.where((t < t_hit)[:, None], scatter_contrib, surf_contrib)
+
+
+# ---------------------------------------------------------------------------
 # Drivers
 # ---------------------------------------------------------------------------
 
@@ -1011,6 +1123,37 @@ def _render_volpath_block(scene, options, seed, s0, nspp, lanes=None):
     return film, st, iters
 
 
+_TRACERS = {1: volpath1_trace_one, 2: volpath2_trace_one}
+
+
+def _simple_pixels(scene, p0, tile):
+    """(pixel words, px, py) of pixels p0 .. p0 + tile, the pixel index a
+    32-bit word as lajolla_tpu's uint32 index."""
+    w = scene.meta.width
+    pix = (torch.arange(tile, device=scene.med_tab.device) + p0) & _M32
+    return pix, pix % w, pix // w
+
+
+def _render_volpath_simple_block(scene, options, seed, s0, nspp, p0=0,
+                                 tile=None):
+    """The per-pixel driver of the single-bounce versions 1 and 2: the
+    (tile, 3) film sum of samples s0 .. s0 + nspp of pixels p0 .. p0 +
+    tile (default: the whole film). A pixel's keys are
+    fold_in(prng_key(seed), pixel), a sample's fold_in(pixel keys,
+    sample); a non-finite channel of a sample adds 0 (per channel, as
+    lajolla_tpu's jnp.where(isfinite(L), L, 0))."""
+    tile = tile or scene.meta.width * scene.meta.height
+    pix, px, py = _simple_pixels(scene, p0, tile)
+    pixel_keys = rnd.fold_in(rnd.prng_key(seed, pix.device), pix)
+    tracer = _TRACERS[options.vol_path_version]
+    img = torch.zeros((tile, 3), device=pix.device)
+    for i in range(nspp):
+        keys = rnd.fold_in(pixel_keys, s0 + i)
+        L = tracer(scene, options, px, py, keys)
+        img = img + torch.where(torch.isfinite(L), L, 0.0)
+    return img
+
+
 def _use_vol_kernel(scene):
     """lajolla_tpu's dispatch without its TPU-backend test: the scene is
     inside volpath_kernel.supports and the film is whole 4096-pixel
@@ -1031,7 +1174,10 @@ def _use_grid_kernel(scene):
 
 def render_volpath(scene, options, seed=0, checkpoint=None, progress=False):
     """Block-accumulating driver of the final integrator on the scene's
-    device → (h, w, 3) numpy image. Scenes of _use_grid_kernel take K9 in
+    device → (h, w, 3) numpy image. Versions 1 and 2 take
+    _render_volpath_simple_block in blocks of VOL_SPP_BLOCK samples per
+    pixel (1 in a scene with grid volumes, as lajolla_tpu sets them);
+    the final integrator's scenes of _use_grid_kernel take K9 in
     blocks of GRIDK_SPP_BLOCK samples per pixel, scenes of _use_vol_kernel
     K8 in blocks of VOLK_SPP_BLOCK; the rest take the general engines:
     grid scenes the event machine on min(GRID_LANES, n) lanes one sample
@@ -1043,15 +1189,14 @@ def render_volpath(scene, options, seed=0, checkpoint=None, progress=False):
                                                volpath_kernel)
     from lajolla_tpu_torch.utils.checkpoint import load_film, save_film
     from lajolla_tpu_torch.utils.progress import ProgressReporter
-    if options.vol_path_version in (1, 2):
-        raise NotImplementedError(VERSION_TODO)
     w, h = scene.meta.width, scene.meta.height
     n = w * h
     spp = options.samples_per_pixel
+    simple = options.vol_path_version in (1, 2)
     grid = scene.meta.has_grid_volumes
     lanes = min(GRID_LANES if grid else VOL_LANES, n)
-    use_gridk = _use_grid_kernel(scene)
-    use_kernel = not use_gridk and _use_vol_kernel(scene)
+    use_gridk = not simple and _use_grid_kernel(scene)
+    use_kernel = not simple and not use_gridk and _use_vol_kernel(scene)
     spp_block = (GRIDK_SPP_BLOCK if use_gridk else
                  VOLK_SPP_BLOCK if use_kernel else
                  1 if grid else VOL_SPP_BLOCK)
@@ -1065,7 +1210,10 @@ def render_volpath(scene, options, seed=0, checkpoint=None, progress=False):
     rep.done = s0
     while s0 < spp:
         ns = min(spp_block, spp - s0)
-        if use_gridk:
+        if simple:
+            block = _render_volpath_simple_block(scene, options, seed, s0,
+                                                 ns)
+        elif use_gridk:
             block = volpath_grid_kernel.render_fused_grid(scene, options,
                                                           seed, s0, ns)
         elif use_kernel:

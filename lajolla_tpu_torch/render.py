@@ -1,9 +1,10 @@
 """Render driver: integrator dispatch + film assembly.
 
 The analogue of render() (src/render.cpp:155-167) and of
-lajolla_tpu/render.py. The `path` integrator, the final `volpath`
-integrator (homogeneous and heterogeneous media, versions 3-5) and the
-five aux integrators are ported.
+lajolla_tpu/render.py. The `path` integrator, `volpath` (the
+single-scattering versions 1 and 2, and the final integrator for
+homogeneous and heterogeneous media, versions 3-5) and the five aux
+integrators are ported.
 """
 
 import numpy as np

@@ -267,6 +267,14 @@ _FLOOR_UV_MATERIALS = ('checker', 'disneybsdf')
 # short box stands. MESH_TRIANGLES is its default triangle count (the
 # nearest count a latitude-longitude grid gives is used).
 MESH_TRIANGLES = 440
+# The mesh Cornell box at SEAM_TRIANGLES triangles on a 64x64 film: the
+# (row, column) pixels whose pixel-centre rays run exactly along a wall
+# seam (on the film's diagonals) and that lajolla_tpu's cluster sweep
+# misses in Pallas interpret mode, where the port's plain sweep hits
+# them (a fault of the reference).
+SEAM_TRIANGLES = 2000
+SEAM_PIXELS = ((3, 3), (6, 6), (7, 7), (7, 56), (56, 7), (56, 56), (57, 6),
+               (60, 3))
 MESH_SPHERE = dict(center=(0.35, -0.66, 0.3), radius=0.3, amplitude=0.1,
                    waves=6, seed=77)
 
@@ -789,13 +797,15 @@ def _media_xml(variant, fmt):
 
 def write_cornell_box_xml(directory, res, spp, variant=None,
                           grid_res=HETVOL_GRID_RES, triangles=MESH_TRIANGLES,
-                          integrator=None):
+                          integrator=None, vol_path_version=None):
     """Write the Cornell box as Mitsuba XML (cbox.xml) plus one OBJ file
     per shape into `directory` (and, for the heterogeneous variants, the
     density grid as density.vol; for 'disney' its roughness image);
     returns the XML path. res, variant, grid_res and triangles as
     cornell_box_builder takes them; `integrator` names another
-    <integrator> type than the variant's path or volpath (e.g. 'depth')."""
+    <integrator> type than the variant's path or volpath (e.g. 'depth');
+    `vol_path_version` writes <integer name="version"/> into it (volpath
+    versions 1 and 2, the single-scattering estimators)."""
     _check_variant(variant)
     vol = _is_vol(variant)
     het = variant in HETVOL_VARIANTS
@@ -808,7 +818,10 @@ def write_cornell_box_xml(directory, res, spp, variant=None,
     lines = [
         '<?xml version="1.0" encoding="utf-8"?>',
         '<scene version="0.5.0">',
-        f'  <integrator type="{integrator}"/>',
+        *([f'  <integrator type="{integrator}"/>'] if vol_path_version is None
+          else [f'  <integrator type="{integrator}">',
+                f'    <integer name="version" value="{vol_path_version}"/>',
+                '  </integrator>']),
         *(_hetvol_xml(directory, variant, grid_res, fmt) if het else
           _media_xml(variant, fmt)),
         '  <sensor type="perspective">',

@@ -120,3 +120,17 @@ def test_cli_renders_an_aux_integrator(tmp_path):
         js, JOptions(integrator='shadingNormal')))
     assert img.shape == want.shape
     assert PT.aux_agreement(img, want, 'shadingNormal') >= 0.999
+
+
+def test_seam_rays_hit_in_the_plain_sweep():
+    """The mesh box's seam rays (testing.SEAM_PIXELS, on the 64x64 film's
+    diagonals, which lajolla_tpu's interpret-mode sweep misses) hit in the
+    port's plain sweep, as in brute force; chip_smoke.py [15] holds K5 +
+    K4 on the card to the same count."""
+    scene = PT.make_cornell_box(64, 1, 'mesh', triangles=PT.SEAM_TRIANGLES)
+    assert scene.meta.use_binned
+    depth = render(scene, RenderOptions(integrator='depth'),
+                   device='cpu')[..., 0]
+    ys, xs = np.array(PT.SEAM_PIXELS).T
+    assert ((xs == ys) | (xs == 63 - ys)).all()
+    assert (depth[ys, xs] > 0).all(), depth[ys, xs]

@@ -19,8 +19,11 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     'lajolla_tpu_torch.materials',
     'lajolla_tpu_torch.tools',
     'lajolla_tpu_torch.utils.profiling',
+    'lajolla_tpu_torch.core.random',
+    'lajolla_tpu_torch.examples.inverse_rendering',
     'lajolla_tpu_torch.integrators.aux',
     'lajolla_tpu_torch.integrators.path',
+    'lajolla_tpu_torch.integrators.diffpath',
     'lajolla_tpu_torch.integrators.media',
     'lajolla_tpu_torch.integrators.volpath',
     'lajolla_tpu_torch.integrators.volpath_kernel',

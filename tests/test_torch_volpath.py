@@ -20,9 +20,9 @@ random numbers.
   median < 1e-4 and means within 1e-3; 'vol_hg' and the submerged sphere
   scene at lajolla_tpu's own statistical gates (median < 1e-4, 8x8-block
   RMS difference over the mean < 0.12, means within 1%).
-- `supports` on every fixture; render() and the CLI on the CPU; the
-  unported versions 1 and 2 raise NotImplementedError, a heterogeneous
-  medium of constant volumes renders.
+- `supports` on every fixture; render() and the CLI on the CPU;
+  versions 1 and 2 render through render(), a heterogeneous medium of
+  constant volumes renders.
 """
 
 
@@ -323,10 +323,16 @@ def test_cli_renders_vol_xml(tmp_path):
 
 
 @pytest.mark.parametrize('version', [1, 2])
-def test_versions_1_and_2_raise(version):
+def test_versions_1_and_2_render(version):
+    """Versions 1 and 2 render through render() (the simple block;
+    tests/test_torch_volpath_simple.py holds them against lajolla_tpu):
+    finite, with the foggy room's mean luminance in range (single
+    scattering lights it less than the final integrator does)."""
     opts = RenderOptions(integrator='volpath', vol_path_version=version)
-    with pytest.raises(NotImplementedError, match="threefry"):
-        render(PT.make_cornell_box(8, variant='vol'), opts, device='cpu')
+    img = render(PT.make_cornell_box(16, variant='vol'), opts, device='cpu')
+    assert img.shape == (16, 16, 3) and np.isfinite(img).all()
+    lum = (img @ np.array([0.212671, 0.715160, 0.072169])).mean()
+    assert 0.001 < lum < 0.5, lum
 
 
 def test_heterogeneous_medium_raises():
