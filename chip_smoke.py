@@ -195,6 +195,19 @@ exits non-zero and prints no final line:
     CPU's (rel 1e-3); the example's albedo recovery
     (examples/inverse_rendering.recover_albedo, 40 Adam steps at 24x24 x
     4 spp): the loss below 1e-2 of its start, kd within 0.02 of the truth.
+20. the sharded renders (parallel/mesh.py render_sharded and
+    render_diff_sharded, through parallel.spawn and testing.sharded_cases)
+    on one rank over NCCL and on two ranks sharing the card over gloo:
+    cbox-512 x 256 spp (K1), vol-512 x 256 spp (K8), hetvol-768 x 32 spp
+    (K9), glass-512 x 16 spp (the general engine, K3), aux-512's depth
+    film (K3) and diff-256's film mean and its gradient with respect to a
+    scale on the texture table; every rank against the one-process render
+    on the card (median per-pixel relative difference < 1e-4, film means
+    within 1%; aux at [16]'s gate; gradient rel 1e-3 and grad_fwd against
+    reverse mode rel 1e-4), each rank launching the kernels the
+    one-process render launches (counters reset before each cell's first
+    run and read after it); the wall time of each sharded render and of
+    one collective of its film's size beside the one-process render's.
 Then one JSON line of per-kernel results (each kernel's launches on the
 main path of [6] or, for K4-K7, of [15], its largest difference from its plain form, its time,
 its plain form's time, its bound and what bounds it, and the time of a
@@ -208,7 +221,9 @@ device times as `render_*` (K2 also cbox-1080's as `render_1080_*`) and
 their CUDA-event figures as `host_issue_ms`), and last the device line.
 K3, K4 and K5 also carry their launches in [16] as `aux_launches`, K3 in
 [17] as `disney_512_launches`, in [18] as `vol12_512_launches` and in [19]
-as `diff_256_launches`.
+as `diff_256_launches`; every kernel carries its launches in [20]'s
+two-rank run, summed over the cells, as `sharded_launches` (rank 0's,
+rank 1's).
 `python3 chip_smoke.py --sweep-only` runs [1], [2], [14] and [15] and
 prints neither of the two last lines (a shorter run while working on the
 sweeps).
@@ -1582,6 +1597,113 @@ def grad_phase(torch, np, dev, smi):
     return ran
 
 
+def sharded_phase(torch, np, dev, smi):
+    """[20]: render_sharded (parallel/mesh.py) on one rank over NCCL and on
+    two ranks sharing the card over gloo (parallel.spawn), each cell
+    against the one-process render on the card. Returns the two-rank
+    run's launches, by kernel: [rank 0's, rank 1's], summed over the
+    cells."""
+    from lajolla_tpu_torch import kernels, render
+    from lajolla_tpu_torch import testing as PT
+    from lajolla_tpu_torch.integrators.diffpath import render_diff
+    from lajolla_tpu_torch.parallel.spawn import spawn
+    from lajolla_tpu_torch.scene.types import RenderOptions
+
+    t_phase = time.perf_counter()
+    cbox = PT.make_cornell_box(512)
+    cells = [  # (name, scene, options, kind, runs)
+        ('cbox-512', cbox, RenderOptions(samples_per_pixel=256), 'render',
+         2),
+        ('vol-512', PT.make_cornell_box(512, 256, 'vol'),
+         RenderOptions(integrator='volpath', samples_per_pixel=256),
+         'render', 2),
+        ('hetvol-768', PT.make_cornell_box((768, 576), 32, 'hetvol'),
+         RenderOptions(integrator='volpath', samples_per_pixel=32),
+         'render', 2),
+        ('glass-512', PT.make_cornell_box(512, 16, 'glass'),
+         RenderOptions(samples_per_pixel=16), 'render', 1),
+        ('aux-512', cbox, RenderOptions(integrator='depth'), 'render', 2),
+        ('diff-256', PT.make_cornell_box(256),
+         RenderOptions(max_depth=4, samples_per_pixel=4), 'diff', 2)]
+    cases = [dict(kind=kind, scene=scene, options=opts, seed=0, depth=4,
+                  repeats=runs) for _, scene, opts, kind, runs in cells]
+
+    # the one-process renders on the card, as many runs as the sharded
+    # ones (the last run's time), launch counters reset before the first
+    # and read after it
+    want = {}
+    for name, scene, opts, kind, runs in cells:
+        scene = scene.to(dev)
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        launches = None
+        for _ in range(runs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            if kind == 'diff':
+                s = torch.tensor(1.0, device=dev, requires_grad=True)
+                img = render_diff(dataclasses.replace(
+                    scene, tex_tab=scene.tex_tab * s), opts, 0,
+                    spp=opts.samples_per_pixel, depth=4)
+                img.mean().backward()
+                film, grad = img.detach().cpu().numpy(), float(s.grad)
+            else:
+                film, grad = render(scene, opts, device=dev), None
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = launches or {k: v for k, v in kernels.LAUNCHES.items()
+                                    if v}
+        want[name] = dict(film=film, grad=grad, seconds=seconds,
+                          launches=launches)
+
+    runs = {}
+    for ranks, backend in ((1, 'nccl'), (2, 'gloo')):
+        t0 = time.perf_counter()
+        out = spawn(PT.sharded_cases, ranks, cases, dev, backend=backend,
+                    timeout=600)
+        label = f"{ranks} rank{'s' if ranks > 1 else ''} ({backend})"
+        print(f"[20] {label}: spawn and every cell "
+              f"{time.perf_counter() - t0:.1f} s")
+        for i, (name, _scene, opts, kind, _) in enumerate(cells):
+            ref = want[name]
+            for r, res in enumerate(o[i] for o in out):
+                ran = {k: v for k, v in res['launches'].items() if v}
+                if opts.integrator in AUX_MODES:
+                    share = PT.aux_agreement(res['film'], ref['film'],
+                                             opts.integrator)
+                    ok = share >= 0.999
+                    gate = f"{share:.6f} of the values within the aux gate"
+                else:
+                    med, mean_rel, _ = film_agreement(res['film'],
+                                                      ref['film'])
+                    ok = med < 1e-4 and mean_rel < 0.01
+                    gate = f"median rel {med:.3g}, mean rel {mean_rel:.3g}"
+                if kind == 'diff':
+                    rel = abs(res['grad'] / ref['grad'] - 1)
+                    fwd = abs(res['grad_fwd'] / res['grad'] - 1)
+                    ok = ok and rel < 1e-3 and fwd < 1e-4
+                    gate += (f"; gradient {res['grad']:.7g} against "
+                             f"{ref['grad']:.7g} (rel {rel:.3g}), grad_fwd "
+                             f"rel {fwd:.3g}")
+                print(f"[20] {label} rank {r}, {name}: {gate}; render "
+                      f"{', '.join(f'{t:.4f}' for t in res['seconds'])} s, "
+                      f"its collective {res['collective_seconds']:.6f} s, "
+                      f"one process {ref['seconds']:.4f} s; launches {ran} "
+                      f"(one process {ref['launches']}) ({smi})")
+                if not ok:
+                    raise AssertionError(f"[20] {label} rank {r}: {name} "
+                                         "disagrees with the one-process "
+                                         "render")
+                if set(ran) != set(ref['launches']):
+                    raise AssertionError(
+                        f"[20] {label} rank {r}: {name} launched {ran}, the "
+                        f"one-process render {ref['launches']}")
+        runs[ranks] = out
+    print(f"[20] phase {time.perf_counter() - t_phase:.1f} s")
+    return {k: [sum(c['launches'][k] for c in rank) for rank in runs[2]]
+            for k in kernels.LAUNCHES}
+
+
 def k2_phase(torch, np, dev, smi):
     """[3]: K2 at each group size against its plain form, the lanes it
     passes through, launches of a cbox-1080 render, and its device time at
@@ -2375,9 +2497,11 @@ def main():
     disney_launches = disney_phase(torch, np, dev, smi)
     vol12_launches = vol12_phase(torch, np, dev, smi)
     diff_launches = grad_phase(torch, np, dev, smi)
+    sharded_launches = sharded_phase(torch, np, dev, smi)
     for entry in sweep_lines:
         name_ = entry['name'][:-len('_kernel')]
         entry['aux_launches'] = aux_launches[name_]
+        entry['sharded_launches'] = sharded_launches[name_]
 
     def line(name, source, replaces, launched, err, ms, plain_ms, bnd,
              **more):
@@ -2385,7 +2509,8 @@ def main():
                 "replaces": replaces, "launches": launched,
                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
                 "bound_ms": bnd[0], "bound_by": bnd[1], "library_ms": None,
-                **more}
+                "sharded_launches": sharded_launches[
+                    name[:-len('_kernel')]], **more}
 
     print(json.dumps({"kernels": [
         line("render_fused_kernel", KERNEL_SOURCE,

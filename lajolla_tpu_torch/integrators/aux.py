@@ -78,13 +78,22 @@ def _pixels(scene, options, px, py, mode):
     return torch.where(hit.valid[:, None], color, 0.0)
 
 
-def render_aux(scene, options):
-    """The film of integrator options.integrator → (H, W, 3) float32
-    tensor on the scene's device."""
-    w, h = scene.meta.width, scene.meta.height
+def render_aux_rows(scene, options, y0, rows):
+    """Pixel rows y0 .. y0 + rows of the film of integrator
+    options.integrator → (rows, W, 3) float32 tensor on the scene's
+    device. Rows past the film's last are computed like any other (their
+    camera rays leave the film's frustum); parallel/mesh.py splits a film
+    into equal row blocks and drops them."""
+    w = scene.meta.width
     dev = scene.cam_to_world.device
-    ys, xs = torch.meshgrid(torch.arange(h, device=dev),
+    ys, xs = torch.meshgrid(torch.arange(y0, y0 + rows, device=dev),
                             torch.arange(w, device=dev), indexing='ij')
     img = _pixels(scene, options, xs.reshape(-1), ys.reshape(-1),
                   options.integrator)
-    return img.reshape(h, w, 3)
+    return img.reshape(rows, w, 3)
+
+
+def render_aux(scene, options):
+    """The film of integrator options.integrator → (H, W, 3) float32
+    tensor on the scene's device."""
+    return render_aux_rows(scene, options, 0, scene.meta.height)

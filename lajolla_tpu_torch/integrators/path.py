@@ -482,30 +482,55 @@ def _render_block(scene, options, seed, s0, nspp, lanes=None):
     return _render_block_kernel(scene, options, seed, s0, nspp)
 
 
+def render_path_samples(scene, options, seed, s_begin, s_end, film=None,
+                        on_block=None):
+    """The film sum (h, w, 3), on the scene's device, of samples s_begin ..
+    s_end of every pixel: blocks of _schedule's size from s_begin, each
+    added onto `film` (default: the first block) in sample order, and
+    `on_block(film, samples done)` called after each. Work items are keyed
+    on (sample, pixel) with a stride that depends only on the film and the
+    lane pool, so ranges that split [0, spp) draw the random numbers of one
+    render of spp samples, and their sum is its film up to the order of the
+    float sums (parallel/mesh.py)."""
+    spp_block, lanes = _schedule(scene)
+    s0 = s_begin
+    while s0 < s_end:
+        ns = min(spp_block, s_end - s0)
+        block = _render_block(scene, options, seed, s0, ns, lanes)
+        film = block if film is None else film + block
+        s0 += ns
+        if on_block is not None:
+            on_block(film, s0)
+    if film is None:
+        h, w = scene.meta.height, scene.meta.width
+        film = torch.zeros((h, w, 3), device=scene.tri_shade.device)
+    return film
+
+
 def render_path(scene, options, seed=0, checkpoint=None, progress=False):
-    """Block-accumulating driver on the scene's device. `checkpoint`
-    (optional path) persists (film sum, samples done, seed) after every
-    block so an interrupted render resumes exactly — possible because
-    the RNG is counter-based per (pixel, sample) work item."""
+    """Block-accumulating driver on the scene's device → (h, w, 3) numpy
+    image. `checkpoint` (optional path) persists (film sum, samples done,
+    seed) after every block so an interrupted render resumes exactly —
+    possible because the RNG is counter-based per (pixel, sample) work
+    item."""
     from lajolla_tpu_torch.utils.checkpoint import load_film, save_film
     from lajolla_tpu_torch.utils.progress import ProgressReporter
 
     spp = options.samples_per_pixel
-    spp_block, lanes = _schedule(scene)
     h, w = scene.meta.height, scene.meta.width
     img, s0 = None, 0
     if checkpoint:
         img, s0 = load_film(checkpoint, seed, (h, w, 3))
     rep = ProgressReporter(spp, enabled=progress)
     rep.done = s0
-    while s0 < spp:
-        ns = min(spp_block, spp - s0)
-        block = _render_block(scene, options, seed, s0, ns,
-                              lanes).cpu().numpy()
-        img = block if img is None else img + block
-        s0 += ns
-        rep.update(ns)
+
+    def on_block(film, done):
+        rep.update(done - rep.done)
         if checkpoint:
-            save_film(checkpoint, seed, img, s0)
+            save_film(checkpoint, seed, film.cpu().numpy(), done)
+
+    film = None if img is None else torch.from_numpy(img).to(
+        scene.tri_shade.device)
+    film = render_path_samples(scene, options, seed, s0, spp, film, on_block)
     rep.finish()
-    return img / spp
+    return film.cpu().numpy() / spp

@@ -36,7 +36,6 @@ into vacuum discards all radiance (:634-641); surface bounces do not
 refresh dir_pdf / multi_trans_pdf (:785-848).
 """
 
-import numpy as np
 import torch
 
 from lajolla_tpu_torch.core import random as rnd
@@ -1172,26 +1171,27 @@ def _use_grid_kernel(scene):
     return volpath_grid_kernel.supports(scene.meta)
 
 
-def render_volpath(scene, options, seed=0, checkpoint=None, progress=False):
-    """Block-accumulating driver of the final integrator on the scene's
-    device → (h, w, 3) numpy image. Versions 1 and 2 take
+def render_volpath_samples(scene, options, seed, s_begin, s_end, film=None,
+                           on_block=None):
+    """The film sum (h, w, 3), on the scene's device, of samples s_begin ..
+    s_end of every pixel. Versions 1 and 2 take
     _render_volpath_simple_block in blocks of VOL_SPP_BLOCK samples per
-    pixel (1 in a scene with grid volumes, as lajolla_tpu sets them);
-    the final integrator's scenes of _use_grid_kernel take K9 in
-    blocks of GRIDK_SPP_BLOCK samples per pixel, scenes of _use_vol_kernel
-    K8 in blocks of VOLK_SPP_BLOCK; the rest take the general engines:
-    grid scenes the event machine on min(GRID_LANES, n) lanes one sample
-    per pixel at a time, the others min(VOL_LANES, n) lanes in blocks of
+    pixel (1 in a scene with grid volumes, as lajolla_tpu sets them); the
+    final integrator's scenes of _use_grid_kernel take K9 in blocks of
+    GRIDK_SPP_BLOCK samples per pixel, scenes of _use_vol_kernel K8 in
+    blocks of VOLK_SPP_BLOCK; the rest take the general engines: grid
+    scenes the event machine on min(GRID_LANES, n) lanes one sample per
+    pixel at a time, the others min(VOL_LANES, n) lanes in blocks of
     VOL_SPP_BLOCK. A failing K8 or K9 raises: there is no fallback to the
-    general engines. `checkpoint` persists (film sum, samples done, seed)
-    after every block, as render_path does."""
+    general engines. Blocks start at s_begin and are added onto `film`
+    (default: the first block) in sample order, `on_block(film, samples
+    done)` called after each. Every engine keys its random numbers on the
+    sample index, so ranges that split [0, spp) draw one render's numbers
+    (parallel/mesh.py)."""
     from lajolla_tpu_torch.integrators import (volpath_grid_kernel,
                                                volpath_kernel)
-    from lajolla_tpu_torch.utils.checkpoint import load_film, save_film
-    from lajolla_tpu_torch.utils.progress import ProgressReporter
     w, h = scene.meta.width, scene.meta.height
     n = w * h
-    spp = options.samples_per_pixel
     simple = options.vol_path_version in (1, 2)
     grid = scene.meta.has_grid_volumes
     lanes = min(GRID_LANES if grid else VOL_LANES, n)
@@ -1200,16 +1200,9 @@ def render_volpath(scene, options, seed=0, checkpoint=None, progress=False):
     spp_block = (GRIDK_SPP_BLOCK if use_gridk else
                  VOLK_SPP_BLOCK if use_kernel else
                  1 if grid else VOL_SPP_BLOCK)
-
-    img, s0 = None, 0
-    if checkpoint:
-        img, s0 = load_film(checkpoint, seed, (n, 3))
-    if img is None:
-        img = np.zeros((n, 3), np.float32)
-    rep = ProgressReporter(spp, label="volpath", enabled=progress)
-    rep.done = s0
-    while s0 < spp:
-        ns = min(spp_block, spp - s0)
+    s0 = s_begin
+    while s0 < s_end:
+        ns = min(spp_block, s_end - s0)
         if simple:
             block = _render_volpath_simple_block(scene, options, seed, s0,
                                                  ns)
@@ -1222,10 +1215,40 @@ def render_volpath(scene, options, seed=0, checkpoint=None, progress=False):
         else:
             block, _, _ = _render_volpath_block(scene, options, seed, s0, ns,
                                                 lanes)
-        img += block.reshape(n, 3).cpu().numpy()
+        block = block.reshape(h, w, 3)
+        film = block if film is None else film + block
         s0 += ns
-        rep.update(ns)
+        if on_block is not None:
+            on_block(film, s0)
+    if film is None:
+        film = torch.zeros((h, w, 3), device=scene.med_tab.device)
+    return film
+
+
+def render_volpath(scene, options, seed=0, checkpoint=None, progress=False):
+    """Block-accumulating driver of render_volpath_samples on the scene's
+    device → (h, w, 3) numpy image. `checkpoint` persists (film sum,
+    samples done, seed) after every block, as render_path does."""
+    from lajolla_tpu_torch.utils.checkpoint import load_film, save_film
+    from lajolla_tpu_torch.utils.progress import ProgressReporter
+    w, h = scene.meta.width, scene.meta.height
+    n = w * h
+    spp = options.samples_per_pixel
+    img, s0 = None, 0
+    if checkpoint:
+        img, s0 = load_film(checkpoint, seed, (n, 3))
+    rep = ProgressReporter(spp, label="volpath", enabled=progress)
+    rep.done = s0
+
+    def on_block(film, done):
+        rep.update(done - rep.done)
         if checkpoint:
-            save_film(checkpoint, seed, img, s0)
+            save_film(checkpoint, seed, film.reshape(n, 3).cpu().numpy(),
+                      done)
+
+    film = None if img is None else torch.from_numpy(img).reshape(
+        h, w, 3).to(scene.med_tab.device)
+    film = render_volpath_samples(scene, options, seed, s0, spp, film,
+                                  on_block)
     rep.finish()
-    return (img / spp).reshape(h, w, 3)
+    return film.cpu().numpy() / spp

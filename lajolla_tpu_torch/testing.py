@@ -31,6 +31,7 @@ to the cluster sweeps, kernels K4-K7.
 """
 
 import os
+import time
 
 import numpy as np
 
@@ -1527,3 +1528,106 @@ def assert_advance_agrees(got, got_alive, want, want_alive):
     assert alive_share >= 0.999, alive_share
     for k, share in shares.items():
         assert share >= 0.999, (k, share)
+
+
+# ---------------------------------------------------------------------------
+# Sharded renders (parallel/mesh.py), one rank of parallel.spawn
+# ---------------------------------------------------------------------------
+
+def _sync(device):
+    import torch
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+
+
+def _timed_collective(group, film, aux, device):
+    """Seconds of one all_reduce (aux: all_gather of the rank's rows) of
+    a tensor of the film's size on `device`, the ranks started together."""
+    import torch
+    import torch.distributed as dist
+    ranks = dist.get_world_size(group)
+    if aux:
+        block = torch.zeros((-(-film.shape[0] // ranks),) + film.shape[1:],
+                            device=device)
+        parts = [torch.empty_like(block) for _ in range(ranks)]
+        call = lambda: dist.all_gather(parts, block, group=group)  # noqa
+    else:
+        buf = torch.zeros(film.shape, device=device)
+        call = lambda: dist.all_reduce(buf, group=group)  # noqa
+    dist.barrier(group=group)
+    _sync(device)
+    t0 = time.perf_counter()
+    call()
+    _sync(device)
+    return time.perf_counter() - t0
+
+
+def sharded_cases(group, cases, device='cpu'):
+    """One rank of tests/test_torch_parallel.py and chip_smoke.py [20]
+    (run by parallel.spawn.spawn): each case through parallel.mesh on
+    `device`. A case is a dict of 'scene' (compiled, on any device),
+    'options', 'seed', 'kind' and 'repeats' (runs, default 1):
+    - 'render': render_sharded;
+    - 'diff': render_diff_sharded (depth 'depth') of the film mean with
+      respect to a scale s on the scene's texture table at s = 1: its
+      reverse-mode gradient after allreduce_grads, and grad_fwd's.
+    Returns a dict a case: 'film' (numpy, the last run's), 'launches'
+    (kernels.LAUNCHES of the first run, counted from 0), 'seconds' (each
+    run's wall, the ranks started together and the device synchronised),
+    'collective_seconds' (_timed_collective), and for 'diff' also 'loss',
+    'grad' and 'grad_fwd' (floats)."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from lajolla_tpu_torch import kernels
+    from lajolla_tpu_torch.integrators.diffpath import grad_fwd
+    from lajolla_tpu_torch.parallel import mesh
+    device = torch.device(device)
+    if device.type == 'cuda':
+        torch.cuda.set_device(device)
+    out = []
+    for case in cases:
+        scene, options, seed = case['scene'].to(device), case['options'], \
+            case['seed']
+        diff = case['kind'] == 'diff'
+
+        def scaled(s):
+            return dataclasses.replace(scene, tex_tab=scene.tex_tab * s)
+
+        def run():
+            if not diff:
+                return mesh.render_sharded(scene, options, seed, group), {}
+            s = torch.tensor(1.0, device=device, requires_grad=True)
+            img = mesh.render_diff_sharded(scaled(s), options, seed, group,
+                                           depth=case['depth'])
+            loss = img.mean()
+            loss.backward()
+            mesh.allreduce_grads([s], group)
+            return img.detach(), dict(loss=float(loss.detach()),
+                                        grad=float(s.grad))
+
+        seconds, launches = [], None
+        for _ in range(case.get('repeats', 1)):
+            for k in kernels.LAUNCHES:
+                kernels.LAUNCHES[k] = 0
+            dist.barrier(group=group)
+            _sync(device)
+            t0 = time.perf_counter()
+            film, more = run()
+            _sync(device)
+            seconds.append(time.perf_counter() - t0)
+            launches = launches or dict(kernels.LAUNCHES)
+        if diff:
+            more['grad_fwd'] = float(grad_fwd(
+                lambda s: mesh.render_diff_sharded(
+                    scaled(s), options, seed, group,
+                    depth=case['depth']).mean(),
+                torch.tensor(1.0, device=device)))
+        out.append(dict(
+            film=film.cpu().numpy(), launches=launches, seconds=seconds,
+            collective_seconds=_timed_collective(
+                group, film, options.integrator in mesh._AUX, device),
+            **more))
+    return out

@@ -165,3 +165,16 @@ def test_exits_nonzero_without_a_gpu(tmp_path):
                        timeout=120)
     assert r.returncode != 0
     assert '"ok"' not in r.stdout
+
+
+def test_kernel_lines_name_launch_counters():
+    """Every entry of the `kernels` line is booked by its kernel's name
+    less `_kernel`: that name keys kernels.LAUNCHES, from which the
+    entry takes its `sharded_launches` ([20])."""
+    import re
+    from lajolla_tpu_torch import kernels
+    with open(os.path.join(REPO, 'chip_smoke.py')) as f:
+        names = re.findall(r'line\("(\w+)_kernel"', f.read())
+    assert len(names) == 7
+    names += list(_chip_smoke().SWEEP_REPLACES)
+    assert set(names) == set(kernels.LAUNCHES)

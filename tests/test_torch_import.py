@@ -19,6 +19,7 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     'lajolla_tpu_torch.materials',
     'lajolla_tpu_torch.tools',
     'lajolla_tpu_torch.utils.profiling',
+    'lajolla_tpu_torch.utils.time_renders',
     'lajolla_tpu_torch.core.random',
     'lajolla_tpu_torch.examples.inverse_rendering',
     'lajolla_tpu_torch.integrators.aux',
@@ -29,6 +30,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     'lajolla_tpu_torch.integrators.volpath_kernel',
     'lajolla_tpu_torch.integrators.volpath_grid_kernel',
     'lajolla_tpu_torch.ops.bvh',
+    'lajolla_tpu_torch.parallel.mesh',
+    'lajolla_tpu_torch.parallel.spawn',
     'lajolla_tpu_torch.ops.intersect_binned',
     'lajolla_tpu_torch.ops.intersect_sweep',
     'lajolla_tpu_torch.scene.compile',
