@@ -580,9 +580,9 @@ def sweep_phases(torch, np, dev, smi):
     from lajolla_tpu_torch.ops import intersect_binned as IB
     from lajolla_tpu_torch.ops import intersect_sweep as SW
     from lajolla_tpu_torch.ops.intersect import ray_bounds
-    from lajolla_tpu_torch.scene import compile as PC
     from lajolla_tpu_torch.scene import geometry as PG
     from lajolla_tpu_torch.scene.types import RenderOptions
+    from lajolla_tpu_torch.utils import profiling
 
     plain = dict(sweep_resident=SW.sweep_resident_plain,
                  sweep_resolve=SW.sweep_resolve_plain,
@@ -993,9 +993,10 @@ def sweep_phases(torch, np, dev, smi):
                     np.isfinite(im).all() and 0.05 < lum < 5.0):
                 raise AssertionError(f"{cell}: bad image, luminance {lum}")
             t0 = time.perf_counter()
-            scene_cpu, opt = parse_scene(xml, 'cpu')
+            with profiling.recording() as spans:
+                scene_cpu, opt = parse_scene(xml, 'cpu')
             parse_s = time.perf_counter() - t0
-            build = dict(PC.BUILD_SECONDS)
+            build = profiling.seconds_by_name(spans)
             t0 = time.perf_counter()
             scene = scene_cpu.to(dev)
             torch.cuda.synchronize()
@@ -1023,9 +1024,10 @@ def sweep_phases(torch, np, dev, smi):
                   f"sweep table {scene.sw_lane.numel() * 4} B: mean "
                   f"luminance {lum:.5f}; scene files written in "
                   f"{write_s:.2f} s; parse + compile {parse_s:.2f} s, of it "
-                  f"BVH {build['bvh']:.2f} s, clusters "
-                  f"{build['clusters']:.2f} s, packing {build['pack']:.2f} "
-                  f"s; upload {upload_s:.3f} s; render() {render_s:.3f} s, "
+                  f"BVH {build.get('compile.bvh', 0.0):.2f} s, clusters "
+                  f"{build.get('compile.clusters', 0.0):.2f} s, packing "
+                  f"{build.get('compile.pack', 0.0):.2f} s; upload "
+                  f"{upload_s:.3f} s; render() {render_s:.3f} s, "
                   f"{iters} loop iterations, "
                   f"{paths / render_s / 1e6:.4f} Mpaths/s; whole CLI run "
                   f"{cli_s:.2f} s, {paths / cli_s / 1e6:.4f} Mpaths/s; {smi}")

@@ -23,8 +23,10 @@ __version__ = "0.1.0"
 
 def parse_scene(path, device):
     from lajolla_tpu_torch.scene.parser import parse_scene as _p
+    from lajolla_tpu_torch.utils import profiling
     scene, options = _p(path)
-    return scene.to(device), options
+    with profiling.span('scene.upload'):
+        return scene.to(device), options
 
 
 def imwrite(path, img):

@@ -37,6 +37,8 @@ from pathlib import Path
 
 import torch
 
+from lajolla_tpu_torch.utils import profiling
+
 _CSRC = Path(__file__).resolve().parent / 'csrc'
 _UNITS = ('path_kernels', 'intersect_kernels', 'volpath_kernels',
           'volpath_grid_kernels', 'sweep_kernels')  # one library per .cu
@@ -196,9 +198,14 @@ def build():
     """Compile (the libraries whose tag has not been built yet, all nvcc
     processes at once) and load the kernels. Returns {unit: ctypes
     library}; raises if a build fails."""
-    global _libs
     if _libs is not None:
         return _libs
+    with profiling.span('kernels.build'):
+        return _build()
+
+
+def _build():
+    global _libs
     tags = {u: unit_tag(u) for u in _UNITS}
     sos = {u: BUILD_DIR / f'liblj_{u}_{tags[u]}.so' for u in _UNITS}
     jobs = {}
@@ -309,28 +316,33 @@ def render_fused(scene, cam, seed_u32, s0, nspp, *, w, h, filter_type,
     radiance summed by `film_sum`, one launch for each of `sample_chunks`
     (each chunk's sums added onto the last's, so the film is the same bit
     for bit). counters: a dict that receives the launches' SIMT counters
-    (PATH_COUNTERS), summed, or None."""
+    (PATH_COUNTERS), summed, or None. Spans: `k1.args` (the tables'
+    checks and the camera's copy to the host), `k1.launch` (a chunk's
+    launch and its film sum)."""
     lib = build()['path_kernels']
-    device, tb, mats, quads, sph = _scene_args(
-        scene, eps_isect, eps_shadow, max_depth, rr_depth, max_cap)
+    with profiling.span('k1.args'):
+        device, tb, mats, quads, sph = _scene_args(
+            scene, eps_isect, eps_shadow, max_depth, rr_depth, max_cap)
+        camera = _camera(cam, w, h, filter_type, filter_param)
     n = w * h
-    camera = _camera(cam, w, h, filter_type, filter_param)
     chunks = sample_chunks(nspp, n)
     out, counter = _queue(chunks[0][1] * n, device)
     cnt, cnt_ptr = _counters(counters, PATH_COUNTERS, device)
     film = None
     for k, m in chunks:
-        counter.zero_()
-        with torch.cuda.device(device):
-            stream = torch.cuda.current_stream(device).cuda_stream
-            rc = lib.lj_render_fused(ctypes.byref(tb), ctypes.byref(camera),
-                                     mats, quads, sph, n, w, seed_u32,
-                                     s0 + k, m, counter.data_ptr(),
-                                     out.data_ptr(), cnt_ptr, stream)
-        if rc != 0:
-            raise RuntimeError(f"render_fused_kernel launch: CUDA error {rc}")
-        LAUNCHES['render_fused'] += 1
-        film = film_sum(out, n, n, m, film)
+        with profiling.span('k1.launch'):
+            counter.zero_()
+            with torch.cuda.device(device):
+                stream = torch.cuda.current_stream(device).cuda_stream
+                rc = lib.lj_render_fused(
+                    ctypes.byref(tb), ctypes.byref(camera), mats, quads, sph,
+                    n, w, seed_u32, s0 + k, m, counter.data_ptr(),
+                    out.data_ptr(), cnt_ptr, stream)
+            if rc != 0:
+                raise RuntimeError(
+                    f"render_fused_kernel launch: CUDA error {rc}")
+            LAUNCHES['render_fused'] += 1
+            film = film_sum(out, n, n, m, film)
     _read_counters(counters, cnt, PATH_COUNTERS)
     return film
 

@@ -16,11 +16,10 @@ Scenes of BVH_MIN_TRIS triangles or more get a SAH BVH (ops/bvh.py), cut
 into clusters of at most SWEEP_CLUSTER_TRIS triangles
 (ops/intersect_binned.build_clusters) and packed into the sweep casters'
 tables (ops/intersect_sweep.pack_sweep); their casts go to kernels K4-K7.
-Smaller scenes carry one-row placeholders of those tables. The host time
-of the three steps of the last compile is in BUILD_SECONDS.
+Smaller scenes carry one-row placeholders of those tables. The three
+steps are the spans `compile.bvh`, `compile.clusters` and `compile.pack`
+(utils/profiling.py).
 """
-
-import time
 
 import numpy as np
 import torch
@@ -31,6 +30,7 @@ from lajolla_tpu_torch.core.distribution import (build_alias, build_cdf_1d,
                                                   build_cdf_2d)
 from lajolla_tpu_torch.scene import types as T
 from lajolla_tpu_torch.scene.types import Scene, SceneMeta
+from lajolla_tpu_torch.utils import profiling
 
 # At this many triangles the casts switch from brute force (kernel K3) to
 # the BVH's clusters and the sweep casters (kernels K4-K7).
@@ -38,9 +38,6 @@ BVH_MIN_TRIS = 192
 # Triangles per cluster: a multiple of 128, which the resident and list
 # sweep kernels' tables need (pack_sweep asserts it).
 SWEEP_CLUSTER_TRIS = 128
-# Host seconds of the last compile_scene: BVH build, cluster build, sweep
-# packing (zeros for a scene without a BVH).
-BUILD_SECONDS = dict(bvh=0.0, clusters=0.0, pack=0.0)
 
 # Parallelogram cast-merge (lajolla_tpu/scene/compile.py). False = cast
 # tables carry raw triangles; the kernels' has_quads=False branch.
@@ -161,14 +158,12 @@ def bvh_tables(bvh, p0, e1, e2, num_tris, use_binned):
     from lajolla_tpu_torch.ops.intersect_binned import build_clusters
     from lajolla_tpu_torch.ops.intersect_sweep import pack_sweep
     if use_binned:
-        t0 = time.perf_counter()
-        cl = build_clusters(bvh, p0.astype(np.float32),
-                            e1.astype(np.float32), e2.astype(np.float32),
-                            max_tris=SWEEP_CLUSTER_TRIS)
-        t1 = time.perf_counter()
-        sw = pack_sweep(cl)
-        BUILD_SECONDS.update(clusters=t1 - t0,
-                             pack=time.perf_counter() - t1)
+        with profiling.span('compile.clusters'):
+            cl = build_clusters(bvh, p0.astype(np.float32),
+                                e1.astype(np.float32), e2.astype(np.float32),
+                                max_tris=SWEEP_CLUSTER_TRIS)
+        with profiling.span('compile.pack'):
+            sw = pack_sweep(cl)
     else:
         cl = dict(cl_lo=np.zeros((1, 3), np.float32),
                   cl_hi=np.zeros((1, 3), np.float32),
@@ -178,7 +173,6 @@ def bvh_tables(bvh, p0, e1, e2, num_tris, use_binned):
         sw = dict(sw_lane=np.zeros((1, 16, 1), np.float32),
                   sw_aabb=np.zeros((1, 8), np.float32),
                   sw_saabb=np.zeros((1, 8), np.float32))
-        BUILD_SECONDS.update(clusters=0.0, pack=0.0)
 
     # merged BVH tables: ONE wide gather per node visit / leaf triangle
     nb = bvh['lo'].shape[0]
@@ -209,6 +203,13 @@ def bvh_tables(bvh, p0, e1, e2, num_tris, use_binned):
 
 
 def compile_scene(b):
+    """The Scene (CPU tensors) of a parsed SceneBuilder: the span
+    `scene.compile`."""
+    with profiling.span('scene.compile'):
+        return _compile_scene(b)
+
+
+def _compile_scene(b):
     # ------------------------------------------------------------------ geometry
     verts, norms, uvs, tris, tri_shape = [], [], [], [], []
     shape_rows = []
@@ -397,20 +398,19 @@ def compile_scene(b):
     # ------------------------------------------------------------------ BVH
     use_bvh = num_tris >= BVH_MIN_TRIS
     from lajolla_tpu_torch.ops.bvh import build_bvh, empty_bvh
-    t_bvh = time.perf_counter()
     if use_bvh:
-        tri_lo = np.minimum(np.minimum(p0, p0 + e1), p0 + e2)
-        tri_hi = np.maximum(np.maximum(p0, p0 + e1), p0 + e2)
-        bvh = build_bvh(tri_lo.astype(np.float32), tri_hi.astype(np.float32))
+        with profiling.span('compile.bvh'):
+            tri_lo = np.minimum(np.minimum(p0, p0 + e1), p0 + e2)
+            tri_hi = np.maximum(np.maximum(p0, p0 + e1), p0 + e2)
+            bvh = build_bvh(tri_lo.astype(np.float32),
+                            tri_hi.astype(np.float32))
     else:
         bvh = empty_bvh(max(num_tris, 1))
-    t_bvh = time.perf_counter() - t_bvh
 
     # The cluster casters serve every scene with a BVH. They cast the
     # ORIGINAL triangles: no quad merge, no occluder subset.
     use_binned = use_bvh
     tables = bvh_tables(bvh, p0, e1, e2, num_tris, use_binned)
-    BUILD_SECONDS.update(bvh=t_bvh if use_bvh else 0.0)
 
     # ------------------------------------------------------------------ materials
     nm = max(len(b.materials), 1)

@@ -26,6 +26,7 @@ from lajolla_tpu_torch.io.vol import load_vol
 from lajolla_tpu_torch.scene import types as T
 from lajolla_tpu_torch.scene.texture import TexturePool
 from lajolla_tpu_torch.scene.types import RenderOptions
+from lajolla_tpu_torch.utils import profiling
 
 
 # ---------------------------------------------------------------------------
@@ -896,7 +897,9 @@ def parse_scene_to_builder(path):
 
 
 def parse_scene(path):
-    """Parse + compile to the device Scene. Returns (scene, options)."""
+    """Parse (the span `scene.parse`) + compile (`scene.compile`) to the
+    Scene on the CPU. Returns (scene, options)."""
     from lajolla_tpu_torch.scene.compile import compile_scene
-    b = parse_scene_to_builder(path)
+    with profiling.span('scene.parse'):
+        b = parse_scene_to_builder(path)
     return compile_scene(b), b.options

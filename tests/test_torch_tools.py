@@ -1,6 +1,6 @@
 """The port's small host utilities: tools.rmse / rel_rmse against
-lajolla_tpu's on seeded images, the rmse and topng commands, the Timer,
-and device_trace over torch.profiler on the CPU."""
+lajolla_tpu's on seeded images, the rmse and topng commands, and
+device_trace over torch.profiler on the CPU."""
 
 import json
 import os
@@ -12,7 +12,7 @@ import torch
 import lajolla_tpu.tools as JTOOLS
 from lajolla_tpu_torch import tools
 from lajolla_tpu_torch.io.image import imwrite
-from lajolla_tpu_torch.utils.profiling import Timer, device_trace
+from lajolla_tpu_torch.utils.profiling import device_trace
 
 
 def _images(seed=0, shape=(24, 32, 3)):
@@ -55,14 +55,6 @@ def test_topng_command(tmp_path):
     assert im.shape == (24, 32, 3) and im.dtype == np.uint8
     want = (np.clip(a * 2.0, 0, 1) ** (1 / 2.2) * 255).astype(np.uint8)
     assert np.array_equal(im, want)
-
-
-def test_timer_reports():
-    lines = []
-    with Timer('phase', report=lines.append) as t:
-        sum(range(1000))
-    assert t.elapsed >= 0.0
-    assert lines == [f'phase: {t.elapsed:.3f}s']
 
 
 def test_device_trace_writes_a_trace(tmp_path):

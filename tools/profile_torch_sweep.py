@@ -115,9 +115,9 @@ def main():
     from lajolla_tpu_torch.integrators import path as PP
     from lajolla_tpu_torch.ops import intersect_sweep as SW
     from lajolla_tpu_torch.ops.intersect import ray_bounds
-    from lajolla_tpu_torch.scene import compile as PC
     from lajolla_tpu_torch.scene import geometry as PG
     from lajolla_tpu_torch.scene.types import RenderOptions
+    from lajolla_tpu_torch.utils import profiling
     from tools.profile_torch_general import busy_seconds
 
     dev = torch.device('cuda', 0)
@@ -191,10 +191,13 @@ def main():
 
     for cell, triangles, size, spp in CELLS:
         t0 = time.perf_counter()
-        cpu_scene = PT.make_cornell_box(size, spp, 'mesh',
-                                        triangles=triangles)
+        with profiling.recording() as spans:
+            cpu_scene = PT.make_cornell_box(size, spp, 'mesh',
+                                            triangles=triangles)
         compile_s = time.perf_counter() - t0
-        build = dict(PC.BUILD_SECONDS)
+        build = {k[len('compile.'):]: v for k, v in
+                 profiling.seconds_by_name(spans).items()
+                 if k.startswith('compile.')}
         t0 = time.perf_counter()
         scene = cpu_scene.to(dev)
         torch.cuda.synchronize()
