@@ -15,30 +15,42 @@ exits non-zero and prints no final line:
     (testing.assert_advance_agrees), and the 5% inactive lanes of each
     returned exactly as they went in, alive false; both timed at 2^18
     lanes, the kernel by device time (device_ms) beside its CUDA-event
-    figure, the host's issue rate; K2 at cbox-96's shape (the per-bounce
-    driver's launches of 9,216 lanes on the Cornell box at 96x96 x 16
-    spp, each kept and replayed) and at cbox-1080's (a traced 1 spp render
-    of a 1920x1080 film, not a whole number of K1's blocks): device time a
-    launch, the G it takes there, and the bound of the lanes each launch
-    advances;
+    figure, the host's issue rate; K2 at cbox-64's shape (the per-bounce
+    driver's launches of 4,096 lanes on the Cornell box at 64x64 x 16
+    spp, the largest film render() sends to the driver, each kept and
+    replayed): device time a launch, the G it takes there, the bound of
+    the lanes each launch advances, and its launches with the full pool,
+    the first below half, a tenth and a hundredth of the lanes active
+    held against the plain form as above;
  4. kernel K1 (render_fused_kernel, with film_sum_kernel summing its
     per-item buffer) against its plain form on the Cornell
     box at 512x512 and the sphere-light scene at 256x256, and the
     per-bounce driver with K2 against it with the plain advance on the
-    Cornell box at 96x96, 4 spp each: median per-pixel relative
+    Cornell box at 64x64, 4 spp each: median per-pixel relative
     difference < 1e-4 and film means within 1%; K1 and its plain form
     timed on the Cornell box, K1's SIMT counters at 4 spp counting the
     plain form's vertices (within 1e-3); K1 at the main path's launch,
     512x512 x 256 spp: timed, with its SIMT counters (the share of warp
     lanes that advance a vertex in the loop's iterations, beside the
     plain form's lockstep proxies), the bound of the vertices they count,
-    and two launches bit-equal;
+    and two launches bit-equal; then K1 against the per-bounce driver
+    with K2 on the ragged film RAGGED_FILM (1920x1080: 506 whole
+    4096-pixel blocks and a partial one of 1,024 pixels, which render()
+    sends to K1) at 1 and 4 spp: median per-pixel relative difference
+    <= 1e-6 and at most 0.5% of pixels off by more than 1e-3
+    relatively, over the film and in its partial block, max |diff|; each
+    route's device busy time in a traced render() and render()'s wall,
+    warm, in turns (render() with its engines patched to the route);
+    render() of the film launches K1 once and K2 never; then the same on
+    the Cornell box at 64x64 (one whole block, the largest film render()
+    sends to the driver, which it launches K2 for and K1 never) at 1 and
+    16 spp, so the walls say which route is the faster at that size;
  5. the white box with K1 at 128x128 x 64 spp: mean within 3% of the
     analytic Le / (1 - rho) = 3.0;
  6. the main path through the CLI, with the launch counters reset before
     and read after: the Cornell box XML at 512x512 x 256 spp (K1) and at
-    96x96 x 16 spp (a film that is not a whole number of 4096-pixel
-    blocks: the per-bounce driver and K2), the glass Cornell box XML at
+    64x64 x 16 spp (one 4096-pixel block: the per-bounce driver and
+    K2), the glass Cornell box XML at
     512x512 x 16 spp (the general engine and K3), and the volumetric
     Cornell box XML ('vol') at 512x512 x 256 spp (volpath, K8); the EXRs
     must be finite with mean luminance in (0.05, 5), (0.005, 0.5) for the
@@ -217,7 +229,7 @@ their render-shape numbers as `render_*` (K5-K7 also
 `render_any_hit_*`; K7 its CUDA-event times at 2^18 as
 `cuda_event_ms` and `any_hit_cuda_event_ms`), K1, K8 and K9 their main-path numbers as `render_*`
 with `render_spp` and `simt_efficiency`, K2 and K3 their render-shape
-device times as `render_*` (K2 also cbox-1080's as `render_1080_*`) and
+device times as `render_*` (K2 cbox-64's) and
 their CUDA-event figures as `host_issue_ms`), and last the device line.
 K3, K4 and K5 also carry their launches in [16] as `aux_launches`, K3 in
 [17] as `disney_512_launches`, in [18] as `vol12_512_launches` and in [19]
@@ -226,7 +238,9 @@ two-rank run, summed over the cells, as `sharded_launches` (rank 0's,
 rank 1's).
 `python3 chip_smoke.py --sweep-only` runs [1], [2], [14] and [15] and
 prints neither of the two last lines (a shorter run while working on the
-sweeps).
+sweeps); `python3 chip_smoke.py --ragged-only` runs [1], [2] and [4]'s
+check of K1 against the driver on the ragged film and at 64x64 alone
+(~2 min) and prints neither either.
 """
 
 import dataclasses
@@ -278,6 +292,9 @@ AUX_MODES = ('depth', 'shadingNormal', 'meanCurvature', 'rayDifferential',
 # either device may pick the other wall; one more column puts no pixel
 # centre on a diagonal (tests/test_torch_aux.py).
 AUX_CHECK_FILM = (129, 128)
+# [4]'s ragged film: more than one of K1's 4096-pixel blocks and not a
+# whole number of them (506 blocks and 1,024 pixels).
+RAGGED_FILM = (1920, 1080)
 # The cast of a render whose rays K5 and K6 are timed on at render shape:
 # the closest-hit and the shadow cast of the sixth loop iteration, where
 # the lane pool holds paths at their later bounces.
@@ -1708,9 +1725,9 @@ def sharded_phase(torch, np, dev, smi):
 
 def k2_phase(torch, np, dev, smi):
     """[3]: K2 at each group size against its plain form, the lanes it
-    passes through, launches of a cbox-1080 render, and its device time at
-    2^18 lanes, cbox-96's shape and cbox-1080's. Returns the numbers of its
-    line in the kernels JSON."""
+    passes through, launches of a cbox-64 render, and its device time at
+    2^18 lanes and cbox-64's shape. Returns the numbers of its line in the
+    kernels JSON."""
     from lajolla_tpu_torch import kernels
     from lajolla_tpu_torch import testing as PT
     from lajolla_tpu_torch.integrators import path_kernel as PK
@@ -1795,67 +1812,136 @@ def k2_phase(torch, np, dev, smi):
           f"device time (CUDA events, the host's issue rate: "
           f"{res['issue_ms']:.4f} ms), plain {res['plain_ms']:.3f} ms, bound "
           f"{res['bound'][0]:.5f} ms ({res['bound'][1]}) ({smi})")
-    # the per-bounce driver's launches on the Cornell box at cbox-96's
-    # shape (96x96 x 16 spp, one lane a pixel), kept and replayed, and at
-    # cbox-1080's (1920x1080, one traced render of 1 spp)
-    cbox96 = PT.make_cornell_box(96).to(dev)
+    # the per-bounce driver's launches on the Cornell box at 64x64 x 16
+    # spp (one lane a pixel: 4,096 lanes, the largest film render() sends
+    # to the driver), kept and replayed; those with the full pool, the
+    # first below half, a tenth and a hundredth of the lanes active held
+    # against the plain form
+    cbox64 = PT.make_cornell_box(64).to(dev)
+    n = 64 * 64
     calls = []
 
     def keep(scene_, options_, *a):
         calls.append((scene_, options_, *(
             x.clone() if torch.is_tensor(x) else x for x in a)))
         return PK.advance_kernel_t(scene_, options_, *a)
-    _render_block_kernel(cbox96, options, 0, 0, 16, advance=keep)
+    _render_block_kernel(cbox64, options, 0, 0, 16, advance=keep)
+    active = [int(c[10].sum()) for c in calls]     # c[10]: the act lanes
+    marks = [n + 1, n / 2, n / 10, n / 100]
+    for k, a in enumerate(active):
+        if marks and a < marks[0]:
+            while marks and a < marks[0]:
+                marks.pop(0)
+            err = max(err, held(cbox64, list(calls[k][2:11]), k2_at(
+                cbox64, list(calls[k][2:11]), 0),
+                f"G = {kernels.advance_group(n)}, cbox-64 16 spp launch {k} "
+                f"({a} of {n} lanes active)"))
+    res['err'] = err
     res['render_ms'] = device_ms(torch, lambda: [PK.advance_kernel_t(*c)
                                                  for c in calls], 2,
                                  'advance_kernel')
     res['render_plain_ms'] = cuda_ms(torch, lambda: [
         PK.advance_plain_t(*c) for c in calls], 1) / len(calls)
-    active = [int(c[10].sum()) for c in calls]     # c[10]: the act lanes
     res['render_bound'] = bound(
-        sum(vertex_ops(cbox96, a) for a in active) / len(calls),
-        k2_bytes(cbox96, 96 * 96))
-    print(f"[3] K2 at cbox-96's shape ({len(calls)} launches of {96 * 96} "
-          f"lanes, {sum(active) / len(active):.0f} active on average, G = "
-          f"{kernels.advance_group(96 * 96)}): kernel {res['render_ms']:.4f} "
-          f"ms a launch of device time, plain {res['render_plain_ms']:.3f} "
-          f"ms, bound {res['render_bound'][0]:.5f} ms "
+        sum(vertex_ops(cbox64, a) for a in active) / len(calls),
+        k2_bytes(cbox64, n))
+    print(f"[3] K2 at cbox-64's shape ({len(calls)} launches of {n} lanes, "
+          f"{sum(active) / len(active):.0f} active on average, G = "
+          f"{kernels.advance_group(n)}): kernel {res['render_ms']:.4f} ms a "
+          f"launch of device time, plain {res['render_plain_ms']:.3f} ms, "
+          f"bound {res['render_bound'][0]:.5f} ms "
           f"({res['render_bound'][1]}) ({smi})")
-    del calls
-    cbox1080 = PT.make_cornell_box((1920, 1080)).to(dev)
-    n = 1920 * 1080
-    active = []
-    # launches held against the plain form: the full pool, the first
-    # below half, a tenth and a hundredth of the lanes active
-    marks, kept = [n + 1, n / 2, n / 10, n / 100], []
+    return res
 
-    def count(scene_, options_, *a):
-        active.append(int(a[8].sum()))
-        if marks and active[-1] < marks[0]:
-            while marks and active[-1] < marks[0]:
-                marks.pop(0)
-            kept.append((len(active) - 1, [x.clone() for x in a[:9]]))
-        return PK.advance_kernel_t(scene_, options_, *a)
-    _render_block_kernel(cbox1080, options, 0, 0, 1, advance=count)
-    for k, a in kept:
-        err = max(err, held(cbox1080, a, k2_at(cbox1080, a, 0),
-                            f"G = {kernels.advance_group(n)}, cbox-1080 1 "
-                            f"spp launch {k} "
-                            f"({active[k]} of {n} lanes active)"))
-    res['err'] = err
-    del kept
-    res['render_1080_ms'] = device_ms(
-        torch, lambda: _render_block_kernel(cbox1080, options, 0, 0, 1), 1,
-        'advance_kernel')
-    res['render_1080_bound'] = bound(
-        sum(vertex_ops(cbox1080, a) for a in active) / len(active),
-        k2_bytes(cbox1080, n))
-    print(f"[3] K2 at cbox-1080's shape (a 1 spp render: {len(active)} "
-          f"launches of {n} lanes, {sum(active) / len(active):.0f} active "
-          f"on average, G = {kernels.advance_group(n)}): kernel "
-          f"{res['render_1080_ms']:.4f} ms a launch of device time, bound "
-          f"{res['render_1080_bound'][0]:.5f} ms "
-          f"({res['render_1080_bound'][1]}) ({smi})")
+
+def ragged_phase(torch, np, dev, smi):
+    """[4]'s last check: K1 against the per-bounce driver with K2 on the
+    Cornell box at RAGGED_FILM, 1 and 4 spp, and at 64x64, 1 and 16 spp
+    (see the module docstring). Returns {(film, spp): numbers}."""
+    from lajolla_tpu_torch import kernels, render
+    from lajolla_tpu_torch import testing as PT
+    from lajolla_tpu_torch.integrators import path as PP
+    from lajolla_tpu_torch.integrators import path_megakernel as PMK
+    from lajolla_tpu_torch.integrators.path import _render_block_kernel
+    from lajolla_tpu_torch.scene.types import RenderOptions
+    seed = (1 << 31) + 7
+    res, failed = {}, []
+
+    def route_render(scene, options, route):
+        # render() with the film sent to `route` whatever its size
+        engine = PMK.render_fused if route == 'K1' else _render_block_kernel
+        with mock.patch.object(PMK, 'render_fused', engine), \
+                mock.patch.object(PP, '_render_block_kernel', engine):
+            return render(scene, options, device=dev, seed=seed)
+
+    for film, spp in ((RAGGED_FILM, 1), (RAGGED_FILM, 4), ((64, 64), 1),
+                      ((64, 64), 16)):
+        w, h = film
+        n = w * h
+        tail = n - n % PMK.BLOCK           # the partial block's first pixel
+        own = 'K1' if n > PMK.BLOCK else 'driver'     # render()'s route
+        scene = PT.make_cornell_box(film).to(dev)
+        options = RenderOptions(samples_per_pixel=spp)
+        k1 = PMK.render_fused(scene, options, seed, 0, spp).cpu().numpy()
+        drv = _render_block_kernel(scene, options, seed, 0,
+                                   spp).cpu().numpy()
+        k1, drv = k1 / spp, drv / spp
+        if not (np.isfinite(k1).all() and np.isfinite(drv).all()):
+            raise AssertionError("K1 or the driver: non-finite pixels")
+        rel = (np.abs(k1 - drv) / (drv + 1e-3)).reshape(n, 3)
+        off = rel.max(axis=1) > 1e-3
+        r = dict(median_rel=float(np.median(rel)),
+                 off_share=float(off.mean()),
+                 max_abs=float(np.abs(k1 - drv).max()))
+        if tail < n:
+            r.update(tail_off_share=float(off[tail:].mean()),
+                     tail_median_rel=float(np.median(rel[tail:])))
+        before = dict(kernels.LAUNCHES)
+        render(scene, options, device=dev, seed=seed)
+        launched = {k: kernels.LAUNCHES[k] - before[k]
+                    for k in ('render_fused', 'advance')}
+        walls = {'K1': [], 'driver': []}
+        for route in ('K1', 'driver', 'driver', 'K1') * 2:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            route_render(scene, options, route)
+            torch.cuda.synchronize()
+            walls[route].append(1e3 * (time.perf_counter() - t0))
+        traced = {route: traced_render(torch, lambda: route_render(
+            scene, options, route)) for route in ('K1', 'driver')}
+        r.update(route=own, launches=launched,
+                 wall_ms={k: sorted(v) for k, v in walls.items()},
+                 traced={k: dict(wall_ms=1e3 * t[0], busy_ms=1e3 * t[1],
+                                 activities=t[2])
+                         for k, t in traced.items()})
+        res[film, spp] = r
+        part = (f" (partial block {r['tail_median_rel']:.3g})"
+                if tail < n else '')
+        print(f"[4] K1 vs the per-bounce driver + K2, Cornell box {w}x{h} "
+              f"x {spp} spp ({n - tail} pixels in a partial block): median "
+              f"rel {r['median_rel']:.3g}{part}, pixels rel > 1e-3 "
+              f"{r['off_share']:.6f}"
+              + (f" (partial block {r['tail_off_share']:.6f})"
+                 if tail < n else '')
+              + f", max |diff| {r['max_abs']:.3g}; render() takes {own}, "
+              f"launched {launched}")
+        for route in ('K1', 'driver'):
+            t = r['traced'][route]
+            print(f"[4]   {route} route, {w}x{h} x {spp} spp: render() "
+                  f"wall ms {[round(x, 3) for x in r['wall_ms'][route]]}; "
+                  f"traced render() wall {t['wall_ms']:.3f} ms, device "
+                  f"busy {t['busy_ms']:.3f} ms, {t['activities']} device "
+                  f"activities ({smi})")
+        if not (r['median_rel'] <= 1e-6 and r['off_share'] <= 0.005 and
+                r.get('tail_off_share', 0.0) <= 0.005):
+            failed.append(f"{w}x{h} x {spp} spp")
+        if not (launched == {'render_fused': 1, 'advance': 0}
+                if own == 'K1' else
+                launched['render_fused'] == 0 and launched['advance'] > 0):
+            failed.append(f"{w}x{h} x {spp} spp launches {launched}")
+    if failed:
+        raise AssertionError(f"K1 and the per-bounce driver disagree, or "
+                             f"render() took another route: {failed}")
     return res
 
 
@@ -1904,6 +1990,9 @@ def main():
     if sys.argv[1:] == ['--sweep-only']:
         sweep_phases(torch, np, dev, smi)
         return
+    if sys.argv[1:] == ['--ragged-only']:
+        ragged_phase(torch, np, dev, smi)
+        return
 
     # ---- 3. K2 against plain
     k2 = k2_phase(torch, np, dev, smi)
@@ -1915,8 +2004,8 @@ def main():
             ('Cornell box 512x512', cbox, PMK.render_fused),
             ('sphere lights 256x256',
              PT.make_sphere_light_scene(256).to(dev), PMK.render_fused),
-            ('per-bounce driver + K2, Cornell box 96x96',
-             PT.make_cornell_box(96).to(dev), _render_block_kernel)):
+            ('per-bounce driver + K2, Cornell box 64x64',
+             PT.make_cornell_box(64).to(dev), _render_block_kernel)):
         film_k = render_k(scene, options, 0, 0, spp)
         vertices = []
 
@@ -2030,6 +2119,7 @@ def main():
     if not (same and split == main_spp // chunk_spp):
         raise AssertionError("K1's chunked launches differ from its one "
                              "launch")
+    ragged_phase(torch, np, dev, smi)
 
     # ---- 5. analytic white box through K1
     before = kernels.LAUNCHES['render_fused']
@@ -2066,8 +2156,8 @@ def main():
         runs = [  # (xml, exr, (w, h, spp) to time or None, luminance)
             (PT.write_cornell_box_xml(os.path.join(tmp, 'big'), 512, 256),
              'cbox512.exr', (512, 512, 256), (0.05, 5.0)),
-            (PT.write_cornell_box_xml(os.path.join(tmp, 'small'), 96, 16),
-             'cbox96.exr', None, (0.05, 5.0)),
+            (PT.write_cornell_box_xml(os.path.join(tmp, 'small'), 64, 16),
+             'cbox64.exr', None, (0.05, 5.0)),
             (PT.write_cornell_box_xml(os.path.join(tmp, 'glass'), 512, 16,
                                       variant='glass'),
              'glass512.exr', (512, 512, 16), (0.05, 5.0)),
@@ -2530,10 +2620,7 @@ def main():
              render_ms=k2['render_ms'],
              render_plain_ms=k2['render_plain_ms'],
              render_bound_ms=k2['render_bound'][0],
-             render_bound_by=k2['render_bound'][1],
-             render_1080_ms=k2['render_1080_ms'],
-             render_1080_bound_ms=k2['render_1080_bound'][0],
-             render_1080_bound_by=k2['render_1080_bound'][1]),
+             render_bound_by=k2['render_bound'][1]),
         line("intersect_brute_kernel", K3_SOURCE, K3_REPLACES,
              launches['intersect_brute'], k3['closest_err'], k3['ms'],
              k3['plain_ms'], k3['bound'], host_issue_ms=k3['issue_ms'],

@@ -7,10 +7,15 @@ importance sampling, and a persistent wavefront: a pool of lanes works
 through a queue of (pixel, sample) items, and a lane whose path ends
 adds its radiance to the film and takes the next item at once.
 
-Two engines, dispatched as lajolla_tpu's `_render_block` does:
+Two engines, dispatched as lajolla_tpu's `_render_block` does, but for
+one difference:
 - scenes inside path_kernel.supports take the fused kernels: K1
-  (path_megakernel.render_fused) for films of whole 4096-pixel blocks,
-  otherwise the per-bounce driver `_render_block_kernel` with K2;
+  (path_megakernel.render_fused) for films of more than one 4096-pixel
+  block, whole blocks or not, otherwise the per-bounce driver
+  `_render_block_kernel` with K2. lajolla_tpu's Pallas kernel tiles its
+  lanes in (row, 4096) blocks and so takes whole blocks only; K1 takes
+  work item pixel + k·n for any n, so a ragged film renders the same
+  items, random numbers and sample-ordered sums in one launch;
 - every other scene takes the general engine: `_advance_lane` (one path
   vertex for a batch of lanes: hit records, textures, any ported BSDF,
   area and environment lights, ray differentials) inside the queue
@@ -480,16 +485,17 @@ def _render_block(scene, options, seed, s0, nspp, lanes=None):
     """Film sum (h, w, 3) of samples s0..s0+nspp, dispatched as
     lajolla_tpu's `_render_block` (without its TPU-only test): scenes
     inside path_kernel.supports take the fused kernels — K1 for films of
-    more than one 4096-pixel block, a whole number of them, else the
-    per-bounce driver with K2 — and every other scene the general
-    engine, with a pool of `lanes` lanes (default: one per pixel)."""
+    more than one 4096-pixel block (lajolla_tpu's kernel also asks for a
+    whole number of them; K1 does not), else the per-bounce driver with
+    K2 — and every other scene the general engine, with a pool of
+    `lanes` lanes (default: one per pixel)."""
     from lajolla_tpu_torch.integrators import path_megakernel
     w, h = scene.meta.width, scene.meta.height
     n = w * h
     if not _use_kernel(scene):
         film, _, _ = _render_block_sc(scene, options, seed, s0, nspp, lanes)
         return film[:n].reshape(h, w, 3)
-    if n % path_megakernel.BLOCK == 0 and n > path_megakernel.BLOCK:
+    if n > path_megakernel.BLOCK:
         return path_megakernel.render_fused(scene, options, seed, s0, nspp)
     return _render_block_kernel(scene, options, seed, s0, nspp)
 

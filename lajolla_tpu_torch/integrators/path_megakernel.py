@@ -32,8 +32,8 @@ from lajolla_tpu_torch.integrators.path_kernel import (_norm3,
 from lajolla_tpu_torch.scene.types import (FILTER_BOX, FILTER_GAUSSIAN,
                                            FILTER_TENT)
 
-# Films of more than one BLOCK of pixels, and a whole number of them, take
-# this kernel (path._render_block); the rest take the per-bounce driver.
+# Films of more than one BLOCK of pixels take this kernel, whole blocks or
+# not (path._render_block); the rest take the per-bounce driver.
 BLOCK = 4096
 TWO_PI = 6.283185307179586
 

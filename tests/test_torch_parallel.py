@@ -7,12 +7,13 @@ shard_map renders on a 2-device mesh.
   one-process render() at spp_pc·R samples (spp_pc = ceil(spp / R), the
   sharded render's divisor): median per-pixel relative difference < 1e-4,
   film means within 1%. Cases: the Cornell box at 128x64 (whole
-  4096-pixel blocks: K1's plain form) and at 96x64 (the per-bounce
-  driver), the glass box (the general engine), 'vol' at 64x64 (K8's plain
-  form) and at 32x32 (the general volumetric engine), 'hetvol' at 64x64
-  (K9's plain form), volpath version 2, the mesh Cornell box (cluster
-  tables: the sweeps' plain forms, the single-device lane schedule), and
-  an odd spp (3 on 2 ranks renders 4 samples).
+  4096-pixel blocks: K1's plain form) and at 96x64 (1.5 blocks: K1's
+  plain form too), the glass box (the general engine), 'vol' at 64x64
+  (K8's plain form) and at 32x32 (the general volumetric engine),
+  'hetvol' at 64x64 (K9's plain form), volpath version 2, the mesh
+  Cornell box (cluster tables: the sweeps' plain forms, the
+  single-device lane schedule), and an odd spp (3 on 2 ranks renders 4
+  samples).
 - Aux: depth and shadingNormal on a 32x33 film (33 rows on 2 ranks: a
   padding row) equal to render_aux's (rtol 2e-5).
 - Gradients: render_diff_sharded's film mean and its gradient with

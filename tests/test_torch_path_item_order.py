@@ -10,8 +10,11 @@ exactly this.
 items, in three uneven batches, scattered to the (nspp*n, 3) per-item
 buffer and summed by `film_sum_plain`, equals `render_fused_plain`
 (torch.equal) on the Cornell box, the Cornell box without merged quads,
-and the sphere-light scene (24x24 x 3 spp from sample 2). The tests run
-with one torch thread (`one_thread`).
+and the sphere-light scene (24x24 x 3 spp from sample 2), and on the
+Cornell box at 72x60 (4,320 pixels: more than one 4096-pixel block and
+not a whole number of them, which render() sends to K1 too; its partial
+block's pixels included). The tests run with one torch thread
+(`one_thread`).
 
 K1's wrapper splits a launch whose per-item buffer would pass
 kernels.PATH_BUFFER_BYTES into launches of whole samples
@@ -55,6 +58,7 @@ FIXTURES = {
     'cornell_box': lambda: PT.make_cornell_box(24),
     'cornell_box_no_quads': lambda: no_quads(24),
     'sphere_lights': lambda: PT.make_sphere_light_scene(24),
+    'cornell_box_ragged': lambda: PT.make_cornell_box((72, 60)),
 }
 
 

@@ -19,7 +19,7 @@ from lajolla_tpu_torch.integrators import path_kernel
 from lajolla_tpu_torch.scene.types import RenderOptions
 from lajolla_tpu_torch.utils import profiling
 
-# (20, 10): not whole 4096-pixel blocks, the per-bounce driver; (128, 64):
+# (20, 10): under one 4096-pixel block, the per-bounce driver; (128, 64):
 # two whole blocks, K1's route (its plain form on the CPU).
 FILMS = [(20, 10), (128, 64)]
 

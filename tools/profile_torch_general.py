@@ -36,22 +36,19 @@ that:
   K3's device time a launch in a trace of another;
 - the ptxas registers and spills of K3.
 With --k2 it measures the per-vertex kernel K2 and its driver alone, on
-the Cornell box through the per-bounce driver (one lane a pixel) at
-96x96 (cbox-96) and 1920x1080 (cbox-1080, not a whole number of K1's
-4096-pixel blocks), 16 spp each:
+the Cornell box at 64x64 (cbox-64: one 4096-pixel block, the largest
+film render() sends to the per-bounce driver) and 32x32 (cbox-32, a
+thumbnail), one lane a pixel, 16 spp each:
 - one run with every launch's active lanes counted and its outputs on
-  them kept (digests at 1920x1080), and the film;
+  them kept, and the film;
 - render() walls over --runs warm runs; up to three traced renders (CPU
   and CUDA activity, the driver's uniform hashing and camera rays in
-  ranges of their own): wall, device-busy time, idle share, K2's launches
-  and device time a launch, and the driver's other device time by part
-  (uniforms, camera, aten::where, aten::index_add_, ...);
-- launches replayed by device time: every launch of cbox-96 (--runs
-  traces), and cbox-1080's launches K2_REPLAY one by one;
+  ranges of their own): wall, device-busy time, idle share, K2's
+  launches and device time a launch, and the driver's other device time
+  by part (uniforms, camera, aten::where, aten::index_add_, ...);
+- every launch of the render replayed by device time (--runs traces);
 - K2's bound a launch from each launch's active lanes (chip_smoke.bound,
   vertex_ops; every lane's bytes and the tables);
-- K1 (render_fused) on the 1920x1080 film at 16 spp, by CUDA events and
-  in a trace, and its film's digest (the routing keeps K1 off that film);
 - K2 at chip_smoke.py [3]'s 2^18 random lanes, by device time;
 - the ptxas registers and spills of K2 and K1, and the group size K2
   picks at each shape where the tree has one (kernels.advance_group).
@@ -158,21 +155,6 @@ def trace_events(torch, fn, name):
             by.setdefault(key, []).append(
                 (e.time_range.end - e.time_range.start) / 1e3)
     return by
-
-
-def launch_ms(torch, fn, name):
-    """Device milliseconds of each launch of the kernels whose name holds
-    `name` in a trace of one fn(), in launch order."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    return [(e.time_range.end - e.time_range.start) / 1e3 for e in
-            sorted((e for e in prof.events()
-                    if e.device_type == DeviceType.CUDA and name in e.name),
-                   key=lambda e: e.time_range.start)]
 
 
 def trace_ms(torch, fn, name):
@@ -317,14 +299,10 @@ def k3_ab(args, torch, dev, card):
 # rad, prev 3 each, nv, dir_pdf, un 8: fp32; act: bool), out (4 x 3 + 1
 # fp32, alive: bool).
 K2_LANE_BYTES = 4 * (15 + 2 + 8) + 1 + 4 * 13 + 1
-# The per-bounce driver's films that --k2 renders at 16 spp: cbox-96 (the
-# test-size cell) and a 1920x1080 film (506.25 blocks of 4096 pixels, so
-# not K1's), each one lane a pixel.
-K2_CELLS = (('cbox-96', 96), ('cbox-1080', (1920, 1080)))
+# The per-bounce driver's films that --k2 renders at 16 spp, each one lane
+# a pixel: render() sends films of one 4096-pixel block or less there.
+K2_CELLS = (('cbox-64', 64), ('cbox-32', 32))
 K2_SPP = 16
-# Launches of cbox-1080 kept and replayed (by index in the render, where
-# it has them): the full pool, the middle and the tail of the render.
-K2_REPLAY = (0, 40, 60, 80, 100)
 
 
 def device_time(e):
@@ -405,7 +383,6 @@ def k2_ab(args, torch, dev, card):
     from lajolla_tpu_torch import testing as PT
     from lajolla_tpu_torch.integrators import path as PP
     from lajolla_tpu_torch.integrators import path_kernel as PK
-    from lajolla_tpu_torch.integrators import path_megakernel as PMK
     from lajolla_tpu_torch.scene.types import RenderOptions
 
     res = {'registers': kernel_registers(kernels.build_log(),
@@ -421,26 +398,22 @@ def k2_ab(args, torch, dev, card):
         scene = PT.make_cornell_box(film_res, spp=K2_SPP).to(dev)
         w, h = PT._film(film_res)
         n = w * h
-        small = n <= 96 * 96
         # one capture run: active lanes and the outputs on them, each call
         calls, active, outs = [], [], []
 
         def capture(scene_, options_, *a):
             out = PK.advance_kernel_t(scene_, options_, *a)
             act = a[8]
-            if small or len(active) in K2_REPLAY:
-                calls.append((scene_, options_, *(
-                    x.clone() if torch.is_tensor(x) else x for x in a)))
+            calls.append((scene_, options_, *(
+                x.clone() if torch.is_tensor(x) else x for x in a)))
             active.append(int(act.sum()))
-            on = tuple(x[:, act].T for x in out[:4]) + (out[4][act],
-                                                        out[6][act])
-            outs.append(on if small else (digest(*on),))
+            outs.append(tuple(x[:, act].T for x in out[:4]) +
+                        (out[4][act], out[6][act]))
             return out
         film = PP._render_block_kernel(scene, options, 0, 0, K2_SPP,
                                        advance=capture)
         saved[f'{cell} K2 active outputs'] = outs
-        saved[f'{cell} film'] = [(film.reshape(-1, 3),) if small else
-                                 (digest(film),)]
+        saved[f'{cell} film'] = [(film.reshape(-1, 3),)]
         nbytes = n * K2_LANE_BYTES + table_bytes(scene)
         bounds = [bound(vertex_ops(scene, a), nbytes)[0] for a in active]
 
@@ -455,14 +428,9 @@ def k2_ab(args, torch, dev, card):
         traces = [driver_split(torch, lambda: render(scene, options,
                                                      device=dev))
                   for _ in range(min(args.runs, 3))]
-        if small:
-            replay = device_runs(
-                torch, lambda: [PK.advance_kernel_t(*c) for c in calls],
-                2, 'advance_kernel', args.runs)
-        else:       # each kept launch on its own: their work differs
-            replay = [launch_ms(torch, lambda: [PK.advance_kernel_t(*c)
-                                                for c in calls],
-                                'advance_kernel') for _ in range(args.runs)]
+        replay = device_runs(
+            torch, lambda: [PK.advance_kernel_t(*c) for c in calls],
+            2, 'advance_kernel', args.runs)
         k2_traced = [statistics.median(t['k2_ms']) for t in traces
                      if t['k2_ms']]
         r = dict(lanes=n, launches=len(active),
@@ -472,8 +440,6 @@ def k2_ab(args, torch, dev, card):
                  render_mpaths_per_s=[n * K2_SPP / x / 1e6 for x in walls],
                  k2_traced_median_ms=k2_traced,
                  k2_traced_total_ms=[sum(t['k2_ms']) for t in traces],
-                 replayed_calls=[c for c in range(len(active))
-                                 if small or c in K2_REPLAY],
                  replayed_device_ms=replay,
                  traces=[{k: v for k, v in t.items() if k != 'k2_ms'}
                          for t in traces])
@@ -482,9 +448,9 @@ def k2_ab(args, torch, dev, card):
               f"{len(active)} launches, {r['active_lanes_mean']:.0f} "
               f"active on average): render() walls {walls} s; K2 a launch "
               f"in the traced renders, medians {k2_traced} ms, totals "
-              f"{r['k2_traced_total_ms']} ms; replayed launches "
-              f"{r['replayed_calls'] if not small else 'all'}: {replay}; "
-              f"bound {r['bound_ms_mean']:.5f} ms a launch on average; "
+              f"{r['k2_traced_total_ms']} ms; every launch replayed: "
+              f"{replay}; bound {r['bound_ms_mean']:.5f} ms a launch on "
+              f"average; "
               f"{card}", flush=True)
         for t in r['traces']:
             print(f"  traced render(): wall {t['wall_s']:.4f} s, busy "
@@ -492,16 +458,6 @@ def k2_ab(args, torch, dev, card):
                   f"K2 launches {t['k2_launches']}; device ms by part "
                   f"{ {k: round(v, 3) for k, v in list(t['device_ms_by_part'].items())[:12]} }",
                   flush=True)
-        if not small:
-            # K1 on the same film (the routing keeps it off such films)
-            k1 = lambda: PMK.render_fused(scene, options, 0, 0, K2_SPP)
-            saved[f'{cell} K1 film'] = [(digest(k1()),)]
-            res[f'{cell}_k1'] = dict(
-                cuda_event_ms=cuda_ms(torch, k1, 3),
-                traced_ms={k: launch_ms(torch, k1, k) for k in
-                           ('render_fused_kernel', 'film_sum_kernel')})
-            print(f"K1 on {cell}'s film x {K2_SPP} spp: {res[f'{cell}_k1']}; "
-                  f"{card}", flush=True)
         del calls
         torch.cuda.empty_cache()
 
