@@ -96,13 +96,13 @@ def bf16_round(x):
     return x.to(torch.bfloat16).to(x.dtype)
 
 
-def reference_pixels(ref, frame_seeds, pixels, spp, chunk, rounding=None,
-                     stats=None):
+def reference_pixels(kind, ref, frame_seeds, pixels, spp, chunk,
+                     rounding=None, stats=None):
     """(F, P, 3): each frame's reference film at the given pixels, the sum
-    of its spp samples over spp, as the program divides it."""
-    from benchmark.reference.items import film_pixels, rounded
+    of its spp samples over spp, as the program divides it, traced by the
+    configuration's kind (benchmark/kinds) on its reference scene `ref`."""
     if rounding is not None:
-        ref = rounded(ref, rounding)
-    return np.stack([(film_pixels(ref, s, pixels, spp, chunk, rounding,
-                                  stats) / spp).cpu().numpy()
+        ref = kind.rounded(ref, rounding)
+    return np.stack([(kind.film_pixels(ref, s, pixels, spp, chunk, rounding,
+                                       stats) / spp).cpu().numpy()
                      for s in frame_seeds])

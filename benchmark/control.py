@@ -38,10 +38,9 @@ def main(argv=None):
     import numpy as np
     import torch
 
-    from benchmark import check, harness, scenes
-    from benchmark.reference import tables
+    from benchmark import check, harness
     spec = harness.load_cell(args.workload)
-    traffic, cell = spec['traffic'], spec['cell']
+    traffic, cell, kind = spec['traffic'], spec['cell'], spec['kind']
     dev = torch.device(args.device)
     if dev.type == 'cuda' and not torch.cuda.is_available():
         raise SystemExit("control: no GPU")
@@ -60,8 +59,8 @@ def main(argv=None):
                 for g, r in zip(got, want))
         return nums
     with tempfile.TemporaryDirectory(prefix='bench_control_') as tmp:
-        xml = scenes.write_scene(tmp, spec['config'], w, h, spp)
-        ref = tables.build(spec['config'], w, h, device=dev)
+        xml = kind.write_scene(tmp, spec['config'], w, h, spp)
+        ref = kind.build(spec['config'], w, h, device=dev)
         if seeds:
             import lajolla_tpu_torch
             from lajolla_tpu_torch import kernels
@@ -73,7 +72,7 @@ def main(argv=None):
         fseeds = [check.frame_seed(seed, k)
                   for k in range(cell['check_frames'])]
         t0 = time.perf_counter()
-        want = check.reference_pixels(ref, fseeds, pixels, spp,
+        want = check.reference_pixels(kind, ref, fseeds, pixels, spp,
                                       cell['check_chunk'])
         t_ref = time.perf_counter() - t0
         if seed in seeds:
@@ -86,7 +85,7 @@ def main(argv=None):
                   flush=True)
         if seed in cseeds:
             t0 = time.perf_counter()
-            low = check.reference_pixels(ref, fseeds, pixels, spp,
+            low = check.reference_pixels(kind, ref, fseeds, pixels, spp,
                                          cell['check_chunk'],
                                          rounding=check.bf16_round)
             nums = numbers(low, want, pixels)

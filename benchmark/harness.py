@@ -2,22 +2,32 @@
 the reference, and the result line.
 
 A cell (a workload of BENCHMARK.json) names a configuration
-(configs/<config>.json: the scene), a traffic mix (traffic/<traffic>.json:
-the film and the samples a frame) and has a file of its own
-(cells/<workload>.json: how many frames and pixels the check compares,
-the limits, the frames a trace covers). Per-layer metrics
-are readers in metrics/<name>.py with their data in metrics/<name>.json.
-Everything is found by name: a new cell on existing configurations,
-traffic and metrics is data files alone.
+(configs/<config>.json: the scene as data, with its `kind`), a traffic mix
+(traffic/<traffic>.json: the film and the samples a frame) and has a file
+of its own (cells/<workload>.json: how many frames and pixels the check
+compares, the limits, the frames a trace covers, the seconds of frames
+that warm up before the window, the small film of the CPU tests). The
+configuration's kind (kinds/<kind>.py) writes the scene the program parses
+and traces its reference; the harness knows no kind.
+Per-layer metrics are readers in metrics/<name>.py with their data in
+metrics/<name>.json. Everything is found by name: a new cell on existing
+configurations, traffic and metrics is data files alone, and a
+configuration of a new kind is configs/<name>.json with its `kind`,
+kinds/<kind>.py with its own reference modules, traffic/, cells/ and
+metrics/ files and BENCHMARK.json entries, with no edit to a file that is
+there.
 
 Every cell is a closed loop with one client: frame k renders the whole
 film with the render seed check.frame_seed(seed, k), from the call into
 the program until the film is a numpy array on the host, and the next
-frame starts when it returns.
+frame starts when it returns. A `--trace 1` run also turns the program's
+span recorder on for the whole window and hands its spans to the
+per-layer readers (benchmark/spans.py reads them against the trace).
 """
 
+import contextlib
 import gc
-import importlib
+import importlib.util
 import json
 import os
 import statistics
@@ -27,8 +37,8 @@ import time
 
 import numpy as np
 
-from benchmark import check, scenes, stats
-from benchmark.trace import Stretch
+from benchmark import check, kinds, stats
+from benchmark.spans import SpanStretch, render_frames
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 ROOT = os.path.dirname(HERE)
@@ -48,8 +58,9 @@ def _load(*parts):
 
 
 def load_cell(workload):
-    """The cell `workload` of BENCHMARK.json with its configuration, its
-    traffic, its own file and its metrics' entries."""
+    """The cell `workload` of BENCHMARK.json with its configuration and
+    the configuration's kind module, its traffic, its own file and its
+    metrics' entries."""
     path = os.path.join(ROOT, 'BENCHMARK.json')
     if not os.path.exists(path):
         raise BenchError(f"no BENCHMARK.json at {ROOT}")
@@ -63,12 +74,19 @@ def load_cell(workload):
     with open(os.path.join(ROOT, cfg_entry['file'])) as f:
         config = json.load(f)
 
+    end_to_end = [m for m in bench['end_to_end']
+                  if workload in m.get('workloads', [workload])]
+    reported = {m['name'] for m in end_to_end}
+
     def applies(m):
-        return workload in m.get('workloads', [workload])
-    return dict(workload=w, config=config,
+        """A per-layer metric's `workloads`, or without them every cell
+        that reports the end-to-end metric it moves."""
+        return (workload in m['workloads'] if 'workloads' in m
+                else m['moves'] in reported)
+    return dict(workload=w, config=config, kind=kinds.load(config),
                 traffic=_load('traffic', f"{w['traffic']}.json"),
                 cell=_load('cells', f'{workload}.json'),
-                end_to_end=[m for m in bench['end_to_end'] if applies(m)],
+                end_to_end=end_to_end,
                 per_layer=[m for m in bench['per_layer'] if applies(m)])
 
 
@@ -77,12 +95,22 @@ def forbidden_modules():
     return sorted({m.split('.')[0] for m in sys.modules} & set(FORBIDDEN))
 
 
+def metric_reader(name):
+    """metrics/<name>.py, loaded by its path: a metric's name may hold a
+    dot (`k1_roofline_pct.preview`, the same quantity where it moves
+    another end-to-end metric)."""
+    path = os.path.join(HERE, 'metrics', f'{name}.py')
+    spec = importlib.util.spec_from_file_location(
+        f'benchmark.metrics.{name}', path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
 def read_metric(name, ctx):
     """metrics/<name>.py's read(ctx, data) with metrics/<name>.json, or
     None where the trace holds nothing to read."""
-    mod = importlib.import_module(f'benchmark.metrics.{name}')
-    data = _load('metrics', f'{name}.json')
-    return mod.read(ctx, data)
+    return metric_reader(name).read(ctx, _load('metrics', f'{name}.json'))
 
 
 def _device_kind(torch, device):
@@ -115,12 +143,12 @@ def run_window(torch, device, render_frame, seed, seconds, pixels,
                trace_frames=0, counters=dict):
     """Frames until `seconds` have passed since the window's start; the
     frame running then finishes and counts. With trace_frames, frames 1 ..
-    trace_frames are traced (a Stretch), and the window runs at least
+    trace_frames are traced (a SpanStretch), and the window runs at least
     until they are done. `counters()` gives the program's launch counters,
     read at the stretch's ends. Returns (window, start, stretch, peak
     bytes)."""
     win = Window(pixels)
-    stretch = Stretch(torch, counters) if trace_frames else None
+    stretch = SpanStretch(torch, counters) if trace_frames else None
     if device.type == 'cuda':
         torch.cuda.synchronize(device)
         torch.cuda.reset_peak_memory_stats(device)
@@ -137,6 +165,22 @@ def run_window(torch, device, render_frame, seed, seconds, pixels,
     peak = (torch.cuda.max_memory_allocated(device)
             if device.type == 'cuda' else 0)
     return win, start, stretch, peak
+
+
+def warm_up(render_frame, seed, seconds):
+    """Frames before the window, counted as set-up: one, and more until
+    `seconds` have passed (the cell's `warm_seconds`, 0 where it has
+    none), each with its own seed. A process's first seconds of HD
+    preview frames run two to three times slower on the host (the
+    film's return); they are set-up, not the window. Returns the number
+    of frames."""
+    t0 = time.perf_counter()
+    k = 1
+    render_frame(check.frame_seed(seed, -k))
+    while time.perf_counter() - t0 < seconds:
+        k += 1
+        render_frame(check.frame_seed(seed, -k))
+    return k
 
 
 def warm_profiler(torch):
@@ -160,12 +204,13 @@ def run_single(spec, seed, seconds, trace, t_start, device='cuda',
     faults)."""
     import torch
     config, traffic, cell = spec['config'], spec['traffic'], spec['cell']
+    kind = spec['kind']
     dev = torch.device(device)
     w, h, spp = traffic['width'], traffic['height'], traffic['spp']
     n = w * h
     marks = [('imports', time.perf_counter())]
     with tempfile.TemporaryDirectory(prefix='bench_scene_') as tmp:
-        xml = scenes.write_scene(tmp, config, w, h, spp)
+        xml = kind.write_scene(tmp, config, w, h, spp)
         import lajolla_tpu_torch
         from lajolla_tpu_torch import kernels
         marks.append(('program import', time.perf_counter()))
@@ -180,8 +225,8 @@ def run_single(spec, seed, seconds, trace, t_start, device='cuda',
 
     def render_frame(seed_k):
         return render(scene, options, device=dev, seed=seed_k)
-    render_frame(check.frame_seed(seed, -1))          # warm
-    marks.append(('warm frame', time.perf_counter()))
+    warm = warm_up(render_frame, seed, cell.get('warm_seconds', 0))
+    marks.append((f'warm-up ({warm} frames)', time.perf_counter()))
     if trace and dev.type == 'cuda':
         warm_profiler(torch)
         marks.append(('profiler', time.perf_counter()))
@@ -190,10 +235,15 @@ def run_single(spec, seed, seconds, trace, t_start, device='cuda',
         f'{name} {b - a:.3f} s' for (_, a), (name, b) in
         zip([('start', t_start)] + marks[:-1], marks))]
     pixels = check.sample_pixels(seed, n, cell['check_block_pixels'])
-    win, start, stretch, peak = run_window(
-        torch, dev, render_frame, seed, seconds, pixels,
-        cell['trace_frames'] if trace else 0,
-        counters=lambda: kernels.LAUNCHES)
+    recorder = contextlib.nullcontext([])
+    if trace:
+        from lajolla_tpu_torch.utils import profiling
+        recorder = profiling.recording()
+    with recorder as spans:
+        win, start, stretch, peak = run_window(
+            torch, dev, render_frame, seed, seconds, pixels,
+            cell['trace_frames'] if trace else 0,
+            counters=lambda: kernels.LAUNCHES)
     found = forbidden_modules()
     if found:
         raise BenchError(f"modules loaded by the run: {found}")
@@ -205,8 +255,12 @@ def run_single(spec, seed, seconds, trace, t_start, device='cuda',
     device = dict(**_device_kind(torch, dev), count=1,
                   memory_peak_bytes=int(peak))
     if trace:
+        frames = render_frames(spans)
+        stretch.spans = spans
         values = layer_values(spec, dict(
-            stretch=stretch, work=work, ref=ref, width=w, height=h, spp=spp))
+            stretch=stretch, work=work, ref=ref, width=w, height=h, spp=spp,
+            spans=spans, traced_frames=frames[1:1 + stretch.frames],
+            untraced_frames=frames[1 + stretch.frames:]))
         device.update(busy_s=stretch.busy_s(), window_s=stretch.window_s())
         rest = win.times[1 + stretch.frames:]
         notes.append(
@@ -228,14 +282,13 @@ def _check(dev, spec, seed, win, pixels):
     """(numbers compared, frames compared that fail on their own,
     reference work a path, reference scene) of the window's frames drawn
     from the seed."""
-    from benchmark.reference import tables
-    config, cell = spec['config'], spec['cell']
+    kind, cell = spec['kind'], spec['cell']
     w, h = spec['traffic']['width'], spec['traffic']['height']
-    ref = tables.build(config, w, h, device=dev)
+    ref = kind.build(spec['config'], w, h, device=dev)
     picked = check.sample_frames(seed, len(win.kept), cell['check_frames'])
     work = {}
     want = check.reference_pixels(
-        ref, [check.frame_seed(seed, k) for k in picked], pixels,
+        kind, ref, [check.frame_seed(seed, k) for k in picked], pixels,
         spec['traffic']['spp'], cell['check_chunk'], stats=work)
     got = np.stack([win.kept[k] for k in picked])
     numbers = check.compare(got, want, pixels)

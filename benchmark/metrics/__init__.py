@@ -3,10 +3,17 @@ metrics/<name>.json the data it reads by (the kernels it times). A reader
 returns None where the trace holds nothing to read, never 0.
 
 ctx, from a `--trace 1` run (benchmark/harness.py): 'stretch' (the traced
-frames: benchmark.trace.Stretch, with the program's launch counters over
-them, kernels.LAUNCHES, in its `launches`), 'work' (the reference's
-work a path on the compared pixels), 'ref' (the reference's scene
-tables), 'width', 'height', 'spp'."""
+frames: a benchmark.spans.SpanStretch, the device's activities also on
+the spans' clock, with the program's launch counters over them,
+kernels.LAUNCHES, in its `launches`), 'work' (the reference's
+work a path on the compared pixels, as its kind's film_pixels counts it),
+'ref' (the reference scene its kind built), 'width', 'height', 'spp',
+'spans' (the program's spans over the whole window, its recorder on:
+tuples read by benchmark/spans.py), 'traced_frames' and 'untraced_frames'
+(the span frame ids of the stretch's frames and of the window's frames
+after it).
+A reader that reads one kind's reference (table_bytes: path_diffuse's)
+lists that kind's cells under its `workloads` in BENCHMARK.json."""
 
 import sys
 
@@ -34,7 +41,8 @@ def per_frame_kernel_seconds(ctx, data):
 
 
 def table_bytes(ref):
-    """Bytes of the scene tables a fused kernel reads, each once."""
+    """Bytes of the scene tables a fused kernel reads, each once, of a
+    path_diffuse reference scene."""
     return sum(t.numel() * t.element_size() for t in (
         ref.fp_woop, ref.fp_woop_occ, ref.fp_tri, ref.cast_src, ref.cast_alt,
         ref.cast_quad, ref.cast_occ_quad, ref.fp_light, ref.tri_stair_cdf,

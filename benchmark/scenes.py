@@ -1,5 +1,6 @@
-"""Write a configuration's scene as Mitsuba XML, the files the program
-parses: cbox.xml and one OBJ a shape (its quads, four vertices each, as
+"""The `path_diffuse` kind's writer (kinds/path_diffuse.py): a
+configuration's scene as Mitsuba XML, the files the program parses:
+cbox.xml and one OBJ a shape (its quads, four vertices each, as
 `f a b c d` lines). The writer follows the port's own Cornell-box writer
 line for line, so the program parses what its tests parse; the reference
 (reference/tables.py) reads the configuration itself."""

@@ -24,7 +24,11 @@ NAME, START, END, PARENT, FRAME = range(5)
 class SpanStretch(Stretch):
     """A Stretch that also keeps, on the realtime clock, its own start and
     end (`lo_ns`, `hi_ns`, after the synchronise at each end) and the
-    trace's start (`trace_start_ns`)."""
+    trace's start (`trace_start_ns`). Where the run recorded the program's
+    spans, `spans` holds them, and the breakdown names each idle gap by the
+    span the host was in."""
+
+    spans = None
 
     def start(self):
         super().start()
@@ -42,6 +46,13 @@ class SpanStretch(Stretch):
         t0 = self.trace_start_ns
         return [(n, t0 + round(s * 1e3), t0 + round(e * 1e3))
                 for n, s, e in self.device]
+
+    def breakdown(self, top=10):
+        out = super().breakdown(top)
+        if self.spans:
+            out['idle_gaps'] = gaps(self.spans, self.device_ns(),
+                                    round(self.wall_s * 1e9), top)
+        return out
 
 
 def render_segments(spans):

@@ -72,17 +72,6 @@ def test_k1_roofline_from_counts():
     assert harness.read_metric('k1_roofline_pct', ctx) is None
 
 
-def test_k2_and_driver_split_the_device_time():
-    st = _stretch([('void advance_kernel<8>', 0.0, 100.0),
-                   ('aten::index_add_', 100.0, 400.0),
-                   ('Memcpy DtoH', 400.0, 500.0)])
-    st.launches = {'advance': 1}
-    ctx = dict(stretch=st)
-    assert harness.read_metric('k2_device_ms', ctx) == pytest.approx(0.05)
-    assert harness.read_metric('driver_device_ms', ctx) == \
-        pytest.approx(0.2)
-
-
 def test_breakdown_names_gaps_by_the_next_activity():
     # a stretch of 1 ms by the host's clock; device busy 0-100 and 600-750
     # us of the trace's clock, so 500 us between and 250 us outside

@@ -14,9 +14,11 @@ sys.path.insert(0, {root!r})
 import benchmark.run, benchmark.harness, benchmark.check
 import benchmark.control, benchmark.scenes, benchmark.stats, benchmark.trace
 import benchmark.reference.items, benchmark.reference.tables
-import benchmark.metrics
+import benchmark.kinds, benchmark.metrics
 for name in {metrics!r}:
-    __import__('benchmark.metrics.' + name)
+    benchmark.harness.metric_reader(name)
+for name in {kinds!r}:
+    __import__('benchmark.kinds.' + name)
 import lajolla_tpu_torch
 from lajolla_tpu_torch import kernels, render
 from lajolla_tpu_torch.scene import parser, compile
@@ -29,10 +31,16 @@ def test_no_jax_in_what_a_run_imports():
     import json
     import os
     with open(os.path.join(harness.ROOT, 'BENCHMARK.json')) as f:
-        metrics = [m['name'] for m in json.load(f)['per_layer']]
+        bench = json.load(f)
+    metrics = [m['name'] for m in bench['per_layer']]
+    kinds = []
+    for c in bench['configs']:
+        with open(os.path.join(harness.ROOT, c['file'])) as f:
+            kinds.append(json.load(f)['kind'])
     out = subprocess.run(
         [sys.executable, '-c', IMPORTS.format(root=harness.ROOT,
-                                              metrics=metrics)],
+                                              metrics=metrics,
+                                              kinds=kinds)],
         capture_output=True, text=True, timeout=300, check=True,
         env={k: v for k, v in os.environ.items()
              if k not in ('JAX_PLATFORMS',)})

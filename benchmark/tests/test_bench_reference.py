@@ -12,8 +12,7 @@ import numpy as np
 import pytest
 import torch
 
-from benchmark import check, harness, scenes
-from benchmark.reference import tables
+from benchmark import check, harness, kinds
 
 CASES = {'cbox': dict(spp=4)}
 FILMS = [(16, 12), (128, 64)]
@@ -22,14 +21,15 @@ FILMS = [(16, 12), (128, 64)]
 def _scene(name, tmp_path, w=16, h=12):
     with open(os.path.join(harness.HERE, 'configs', f'{name}.json')) as f:
         cfg = json.load(f)
-    xml = scenes.write_scene(str(tmp_path), cfg, w, h, CASES[name]['spp'])
-    return xml, tables.build(cfg, w, h)
+    kind = kinds.load(cfg)
+    xml = kind.write_scene(str(tmp_path), cfg, w, h, CASES[name]['spp'])
+    return xml, kind, kind.build(cfg, w, h, device='cpu')
 
 
 @pytest.mark.parametrize('name', sorted(CASES))
 def test_tables_equal_the_programs(name, tmp_path):
     from lajolla_tpu_torch.scene.parser import parse_scene
-    xml, ref = _scene(name, tmp_path)
+    xml, _, ref = _scene(name, tmp_path)
     scene, _ = parse_scene(xml)
     for k in ('fp_tri', 'fp_woop', 'tri_stair_cdf', 'fp_light', 'cast_src',
               'cast_alt', 'cast_quad'):
@@ -46,13 +46,13 @@ def test_tables_equal_the_programs(name, tmp_path):
 def test_pixels_equal_the_programs_film(name, film, tmp_path):
     import lajolla_tpu_torch
     w, h = film
-    xml, ref = _scene(name, tmp_path, w, h)
+    xml, kind, ref = _scene(name, tmp_path, w, h)
     scene, options = lajolla_tpu_torch.parse_scene(xml, 'cpu')
     spp = CASES[name]['spp']
     seed = check.frame_seed(2 ** 31 + 5, 3)
     img = lajolla_tpu_torch.render(scene, options, device='cpu', seed=seed)
     pixels = check.sample_pixels(9, w * h, 40)
-    want = check.reference_pixels(ref, [seed], pixels, spp, chunk=spp)
+    want = check.reference_pixels(kind, ref, [seed], pixels, spp, chunk=spp)
     got = img.reshape(-1, 3)[pixels][None]
     assert np.array_equal(got, want)
     assert check.compare(got, want, pixels) == \

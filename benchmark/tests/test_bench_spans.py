@@ -109,6 +109,49 @@ def test_clock_pairs():
     assert S.clock_pairs(spans[:1], device[1:3]) == {}
 
 
+def _span_stretch(device, lo, hi, frames=2):
+    # device intervals given in ns on the realtime clock, kept as the
+    # profiler's microseconds from a trace that starts at 0
+    st = S.SpanStretch(None)
+    st.device = [(n, s / 1e3, e / 1e3) for n, s, e in device]
+    st.trace_start_ns, st.lo_ns, st.hi_ns = 0, lo, hi
+    st.wall_s, st.frames = (hi - lo) / 1e9, frames
+    return st
+
+
+def test_idle_in_render_reader_sums_the_spans_inside_render():
+    device = [('k', 12, 30), ('k', 25, 36), ('copy', 85, 90),
+              ('k', 140, 175)]
+    st = _span_stretch(device, 0, 200)
+    ctx = dict(stretch=st, spans=SPANS, traced_frames=[1, 2])
+    # idle 136 ns of the 200, 20 of them outside render(): 116 over 2 frames
+    assert harness.read_metric('idle_in_render_ms', ctx) == \
+        pytest.approx(116 / 2 / 1e6)
+    ctx['stretch'] = _span_stretch([], 0, 200)
+    assert harness.read_metric('idle_in_render_ms', ctx) is None
+
+
+def test_film_return_reader_is_the_untraced_frames_median():
+    ctx = dict(spans=SPANS, untraced_frames=[1, 2])
+    # film_copy 16 ns in frame 1, none in frame 2
+    assert harness.read_metric('film_return_ms', ctx) == \
+        pytest.approx(8 / 1e6)
+    ctx['untraced_frames'] = [2]
+    assert harness.read_metric('film_return_ms', ctx) is None
+
+
+def test_breakdown_names_gaps_by_span_where_spans_were_recorded():
+    device = [('a', 0, 10), ('b', 32, 40), ('c', 105, 118), ('d', 125, 200)]
+    st = _span_stretch(device, 0, 220)
+    plain = st.breakdown()['idle_gaps']
+    assert plain[0] == ['host, before c', pytest.approx(65e-9)]
+    st.spans = SPANS
+    out = st.breakdown()
+    assert out['idle_gaps'] == S.gaps(SPANS, st.device_ns(), 220)
+    assert out['idle_gaps'][0] == ['host in path.bounce, before c', 65e-9]
+    assert out['device_ops'][0] == ['d', pytest.approx(75e-9)]
+
+
 @pytest.mark.parametrize('trace', [0])
 def test_trace0_run_leaves_the_recorder_off(trace):
     from lajolla_tpu_torch.utils import profiling
@@ -119,3 +162,38 @@ def test_trace0_run_leaves_the_recorder_off(trace):
                                    device='cpu')
     assert result['correct']
     assert not profiling.enabled() and profiling.take() == []
+
+
+class _HostStretch(S.SpanStretch):
+    """A SpanStretch that traces nothing, so that a `--trace 1` run goes
+    through on the CPU."""
+
+    def start(self):
+        self.lo_ns = time.time_ns()
+
+    def stop(self, frames):
+        self.frames, self.wall_s, self.device = frames, 1e-3, []
+        self.hi_ns = self.lo_ns + 10 ** 6
+        self.trace_start_ns = self.lo_ns
+
+
+def test_trace1_run_hands_the_window_spans_to_the_readers(monkeypatch):
+    from lajolla_tpu_torch.utils import profiling
+    monkeypatch.setattr(harness, 'SpanStretch', _HostStretch)
+    seen = {}
+
+    def layer_values(spec, ctx):
+        seen.update(ctx)
+        return {}
+    monkeypatch.setattr(harness, 'layer_values', layer_values)
+    spec = _spec('cbox.preview-1080')
+    spec['cell']['trace_frames'] = 2
+    result, _ = harness.run_single(spec, SEED, 0.3, True,
+                                   time.perf_counter(), device='cpu')
+    assert result['correct'] and not profiling.enabled()
+    frames = S.render_frames(seen['spans'])
+    assert len(frames) == result['attempted'] >= 3
+    assert seen['traced_frames'] == frames[1:3]
+    assert seen['untraced_frames'] == frames[3:]
+    copies = S.per_frame_ns(seen['spans'], frames, 'render.film_copy')
+    assert all(copies.values())
