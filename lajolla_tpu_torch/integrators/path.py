@@ -48,6 +48,7 @@ from lajolla_tpu_torch.scene.camera import sample_primary
 from lajolla_tpu_torch.scene.geometry import intersect_scene, occluded
 from lajolla_tpu_torch.scene.types import LIGHT_ENVMAP
 from lajolla_tpu_torch.utils import profiling
+from lajolla_tpu_torch.utils.film_return import return_film
 
 INF = float('inf')
 MAX_BOUNCES_CAP = 64  # absolute safety cap on path length (RR terminates
@@ -556,4 +557,4 @@ def render_path(scene, options, seed=0, checkpoint=None, progress=False):
     rep.finish()
     profiling.sync('render.film_wait', film.device)
     with profiling.span('render.film_copy'):
-        return film.cpu().numpy() / spp
+        return return_film(film, spp)

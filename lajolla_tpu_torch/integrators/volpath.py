@@ -68,6 +68,7 @@ from lajolla_tpu_torch.scene.geometry import (cast_scene, hit_from_cast,
 from lajolla_tpu_torch.scene.types import (MED_HETEROGENEOUS,
                                            MED_HOMOGENEOUS)
 from lajolla_tpu_torch.utils import profiling
+from lajolla_tpu_torch.utils.film_return import return_film
 
 INF = float('inf')
 MAX_BOUNCES_CAP = 64
@@ -1257,4 +1258,4 @@ def render_volpath(scene, options, seed=0, checkpoint=None, progress=False):
     rep.finish()
     profiling.sync('render.film_wait', film.device)
     with profiling.span('render.film_copy'):
-        return film.cpu().numpy() / spp
+        return return_film(film, spp)

@@ -22,6 +22,7 @@ from lajolla_tpu_torch.integrators import path_kernel
 from lajolla_tpu_torch.integrators import volpath as PV
 from lajolla_tpu_torch.integrators import volpath_kernel as PVK
 from lajolla_tpu_torch.scene.types import RenderOptions
+from lajolla_tpu_torch.utils import film_return as FR
 from lajolla_tpu_torch.utils import profiling
 
 # (20, 10): under one 4096-pixel block, the per-bounce driver; (128, 64):
@@ -157,6 +158,35 @@ def test_no_synchronise_while_off(monkeypatch):
         profiling.sync('render.film_wait', torch.device('cpu'))
     assert calls == ['stream']
     assert [s.name for s in spans] == ['render.film_wait'] * 2
+
+
+def test_film_copy_spans_on_the_pool_route(monkeypatch):
+    """The pool's route, its blocks ordinary tensors and the CPU films sent
+    to it as CUDA films are: a frame that finds a free block opens no span
+    inside render.film_copy; a third frame rendered while the first two
+    are held takes the pageable copy in render.film_copy.pageable. The
+    film's wait and copy stay children of render, and every frame is the
+    CPU route's film bit for bit."""
+    scene, opt = _box((20, 10), 1)
+    seeds = (1, 2, 3)
+    want = [render(scene, opt, device='cpu', seed=s) for s in seeds]
+    pool = FR.FilmPool(lambda shape, stride, dtype: torch.empty_strided(
+        shape, stride, dtype=dtype))
+    monkeypatch.setattr(FR, '_pool_for', lambda film: pool)
+    before = dict(FR.FILM_RETURNS)
+    with profiling.recording() as spans:
+        held = [render(scene, opt, device='cpu', seed=s) for s in seeds]
+    assert all(np.array_equal(g, w) for g, w in zip(held, want))
+    assert {k: v - before[k] for k, v in FR.FILM_RETURNS.items()} == {
+        'pinned': 2, 'pageable': 1}
+    frames = [s.frame for s in spans if s.name == 'render']
+    names = [[s.name for s in spans if s.frame == f] for f in frames]
+    assert [n[-3:] for n in names] == [
+        ['path.bounce_wait', 'render.film_wait', 'render.film_copy']] * 2 + [
+        ['render.film_wait', 'render.film_copy', 'render.film_copy.pageable']]
+    tree = _tree(spans)
+    assert tree['render.film_wait'] == tree['render.film_copy'] == {'render'}
+    assert tree['render.film_copy.pageable'] == {'render.film_copy'}
 
 
 def test_an_exception_closes_its_spans():

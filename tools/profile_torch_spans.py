@@ -6,7 +6,7 @@ usage, from the repository root:
         [--seed N] [--seconds S] [--block K] [--out PATH]
 
 The run does what benchmark/run.py's `--trace 1` run does (the cell's
-scene written by benchmark/scenes.py, `parse_scene`, a warm frame, then
+scene written by its configuration's kind, `parse_scene`, a warm frame, then
 frames one after another with seeds drawn from --seed; frames 1 .. the
 cell's `trace_frames` traced by torch.profiler on the device alone), with
 the span recorder on from before `kernels.build()`. After the traced
@@ -34,8 +34,13 @@ Prints on stderr, and writes as JSON to --out:
   `bounce_issue_ms` path.bounce's self time; `bounce_wait_ms`
   path.bounce_wait), and the host's frame time;
 - the recorder's cost: the median frame with it on against off;
-- render.film_copy in parts: `film.cpu()` and the numpy division, each
-  timed alone on a film of the cell's size.
+- render.film_copy in parts, on a film of the cell's size, timed alone:
+  the pool's route whole (utils/film_return.py), and its parts: the
+  division on the device and the copy into the pinned block (issue by the
+  host's clock, device time by CUDA events), the wait for them;
+- the film's routes (`film_return.FILM_RETURNS`) over the warm frame, the
+  traced stretch and the untraced frames: every frame after the first
+  should take the pinned block.
 """
 
 import argparse
@@ -77,7 +82,7 @@ def main():
         REPO, 'chiprun_out', f'profile_torch_spans.{args.workload}.json')
 
     import torch
-    from benchmark import check, harness, scenes
+    from benchmark import check, harness
     from benchmark import spans as S
     if not torch.cuda.is_available():
         raise SystemExit("torch.cuda.is_available() is False: the spans are "
@@ -87,10 +92,10 @@ def main():
     dev = torch.device('cuda')
     w, h, spp = traffic['width'], traffic['height'], traffic['spp']
     with tempfile.TemporaryDirectory(prefix='spans_scene_') as tmp:
-        xml = scenes.write_scene(tmp, spec['config'], w, h, spp)
+        xml = spec['kind'].write_scene(tmp, spec['config'], w, h, spp)
         import lajolla_tpu_torch
         from lajolla_tpu_torch import kernels
-        from lajolla_tpu_torch.utils import profiling
+        from lajolla_tpu_torch.utils import film_return, profiling
         profiling.enable()
         kernels.build()
         scene, options = lajolla_tpu_torch.parse_scene(xml, dev)
@@ -101,7 +106,9 @@ def main():
         lajolla_tpu_torch.render(scene, options, device=dev,
                                  seed=check.frame_seed(args.seed, k))
         return time.perf_counter() - t0
+    routes = [dict(film_return.FILM_RETURNS)]
     frame(-1)                                             # warm
+    routes.append(dict(film_return.FILM_RETURNS))
     harness.warm_profiler(torch)
     res = dict(workload=args.workload, device=torch.cuda.get_device_name(),
                smi=_smi(), torch=torch.__version__, seed=args.seed,
@@ -116,6 +123,7 @@ def main():
     stretch.start()
     traced_ms = [1e3 * frame(k) for k in range(1, 1 + trace_frames)]
     stretch.stop(trace_frames)
+    routes.append(dict(film_return.FILM_RETURNS))
     spans = profiling.take()
     device = stretch.device_ns()
     lo, hi = stretch.lo_ns, stretch.hi_ns
@@ -151,6 +159,7 @@ def main():
         blocks.append((on, _med(got)))
         b += 1
     profiling.disable()
+    routes.append(dict(film_return.FILM_RETURNS))
     on_spans = profiling.take()
     frames = S.render_frames(on_spans)
     names = sorted({s.name for s in on_spans})
@@ -169,24 +178,59 @@ def main():
                                     own=True),
         bounce_wait_ms=S.median_ms(on_spans, frames, 'path.bounce_wait'))
 
-    # render.film_copy in parts, on a film of the cell's size
-    film = torch.ones((h, w, 3), device=dev)
-    parts = {'cpu': [], 'numpy_div': []}
-    for _ in range(20):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        host = film.cpu()
-        t1 = time.perf_counter()
-        host.numpy() / spp
-        parts['cpu'].append(1e3 * (t1 - t0))
-        parts['numpy_div'].append(1e3 * (time.perf_counter() - t1))
-    res['film_copy_parts_ms'] = {k: _med(v) for k, v in parts.items()}
+    res['film_returns'] = {
+        part: {k: b[k] - a[k] for k in a} for part, a, b in zip(
+            ('warm', 'frame 0 and traced', 'untraced'), routes, routes[1:])}
+    res['film_copy_parts_ms'] = _film_copy_parts(torch, film_return, dev,
+                                                 (h, w, 3), spp)
 
     os.makedirs(os.path.dirname(out_path) or '.', exist_ok=True)
     with open(out_path, 'w') as f:
         json.dump(res, f, indent=1)
     _report(res)
     return 0
+
+
+def _film_copy_parts(torch, film_return, dev, shape, spp, reps=20):
+    """Medians of `reps` returns of a film of `shape` (h, w, 3) of ones, laid
+    out as K1's and K8's are (a (3, h*w) sum seen as (h, w, 3)), through a
+    pool of its own, each after a synchronise: the whole return by the
+    host's clock, then its parts (the division's and the copy's issue, the
+    wait for both; their device times by CUDA events)."""
+    h, w, _ = shape
+    pool = film_return.FilmPool()
+    film = torch.ones((3, h * w), device=dev).T.reshape(shape)
+    whole = []
+    for _ in range(reps):
+        film.fill_(1.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pool.return_film(film, spp)
+        whole.append(1e3 * (time.perf_counter() - t0))
+    tensor, _ = pool.blocks[0]
+    divisor = pool._divisor(film, spp)
+    parts = {k: [] for k in ('div_issue', 'copy_issue', 'wait',
+                             'div_device', 'copy_device')}
+    for _ in range(reps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        film.fill_(1.0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        film.div_(divisor)
+        ev[1].record()
+        t1 = time.perf_counter()
+        tensor.copy_(film, non_blocking=True)
+        ev[2].record()
+        t2 = time.perf_counter()
+        ev[2].synchronize()
+        t3 = time.perf_counter()
+        for k, v in (('div_issue', t1 - t0), ('copy_issue', t2 - t1),
+                     ('wait', t3 - t2)):
+            parts[k].append(1e3 * v)
+        parts['div_device'].append(ev[0].elapsed_time(ev[1]))
+        parts['copy_device'].append(ev[1].elapsed_time(ev[2]))
+    return dict(whole=_med(whole), **{k: _med(v) for k, v in parts.items()})
 
 
 def _report(res):
@@ -220,6 +264,7 @@ def _report(res):
         p(f"  {k:<20} {v['whole']!r:>22} {v['own']!r:>22} {v['count']!r}")
     p(f"render.film_copy in parts (median of 20, synchronised first): "
       f"{json.dumps(res['film_copy_parts_ms'])}")
+    p(f"film returns by route: {json.dumps(res['film_returns'])}")
     p(f"film_return_ms {un['film_return_ms']!r}; bounce_issue_ms "
       f"{un['bounce_issue_ms']!r}; bounce_wait_ms {un['bounce_wait_ms']!r}")
 
