@@ -40,6 +40,14 @@ def normalize(v, eps=0.0):
     return v * torch.rsqrt(torch.clamp(l2, min=eps * eps + 1e-38))
 
 
+def normalize3(x, y, z):
+    """normalize over components given apart (rows of the kernels' plain
+    forms), in the CUDA kernels' order: one rsqrt, squares clamped at
+    1e-30."""
+    inv = torch.rsqrt(torch.clamp(x * x + y * y + z * z, min=1e-30))
+    return x * inv, y * inv, z * inv
+
+
 class _SafeSqrt(torch.autograd.Function):
     """sqrt(max(x, 0)) whose derivative, in reverse and in forward mode,
     is 0.5 / sqrt(max(x, 1e-12))."""

@@ -1,6 +1,6 @@
 // The camera ray of the fused kernels (K1 in path_kernels.cu, K8 in
 // volpath_kernels.cu): the device form of
-// lajolla_tpu_torch/integrators/path_megakernel.py `_primary`, itself the
+// lajolla_tpu_torch/scene/camera.py `sample_primary_t`, itself the
 // port of lajolla_tpu path_megakernel._primary (src/camera.cpp:23-47),
 // with filter importance sampling for the box, tent and gaussian filters.
 #pragma once

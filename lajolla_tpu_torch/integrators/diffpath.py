@@ -54,8 +54,8 @@ import torch.autograd.forward_ad as fwAD
 from torch.utils import _pytree as pytree
 
 from lajolla_tpu_torch.core import random as rnd
-from lajolla_tpu_torch.integrators.path import (_M32, _advance_lane,
-                                                _primary_hash,
+from lajolla_tpu_torch.core.random import M32
+from lajolla_tpu_torch.integrators.path import (_advance_lane, _primary_hash,
                                                 _vertex_uniforms)
 
 
@@ -102,7 +102,7 @@ def render_diff(scene, options, seed=0, spp=4, depth=6, s0=0):
     w, h = scene.meta.width, scene.meta.height
     n = w * h
     lanes = n * spp
-    su = int(seed) & _M32
+    su = int(seed) & M32
     dev = scene.tri_shade.device
     item0 = torch.arange(lanes, device=dev) + s0 * n    # item % n = pixel
     _pix, org0, d0 = _primary_hash(scene, options, item0, su)

@@ -28,14 +28,15 @@ one difference:
   does not depend on that (every random number is keyed on the work item
   and the bounce), so here the queue runs to its end on the device.
 
-Every uniform comes from the counter hash of (seed, work item, bounce,
-dim), so the port draws lajolla_tpu's random numbers bit for bit and a
-render can resume at any sample block.
+Every uniform comes from the counter hash (core/random.py) of (seed,
+work item, bounce, dim), so the port draws lajolla_tpu's random numbers
+bit for bit and a render can resume at any sample block.
 """
 
 import torch
 
 from lajolla_tpu_torch.core.math import distance_squared, dot, normalize
+from lajolla_tpu_torch.core.random import GOLD, M32, hash_u01, pcg_hash
 from lajolla_tpu_torch.dtypes import intersection_eps, shadow_eps
 from lajolla_tpu_torch.integrators import path_kernel
 from lajolla_tpu_torch.integrators.lights import (LightPoint, emission_area,
@@ -44,7 +45,8 @@ from lajolla_tpu_torch.integrators.lights import (LightPoint, emission_area,
                                                   sample_light,
                                                   sample_point_on_light)
 from lajolla_tpu_torch.materials import eval_bsdf, pdf_bsdf, sample_bsdf
-from lajolla_tpu_torch.scene.camera import sample_primary
+from lajolla_tpu_torch.scene.camera import (camera_record, sample_primary,
+                                            sample_primary_t)
 from lajolla_tpu_torch.scene.geometry import intersect_scene, occluded
 from lajolla_tpu_torch.scene.types import LIGHT_ENVMAP
 from lajolla_tpu_torch.utils import profiling
@@ -60,32 +62,12 @@ SPP_BLOCK = 16           # samples per pixel in one general-engine block
 SWEEP_LANES = 8192
 SWEEP_LANES_BIG = 16384
 
-# Counter-based hash RNG (Jarzynski & Olano, "Hash Functions for GPU
-# Rendering"): every uniform is a pure function of (seed, work item,
-# bounce, dim). Torch has no uint32 `+` or `>>` on CPU, so words are
-# int64 tensors (or Python ints) holding values below 2^32, masked after
-# every step that can carry.
-_M32 = 0xFFFFFFFF
-_GOLD = 0x9E3779B9  # 2^32 / golden ratio: decorrelates dimension streams
-
-
-def _pcg_hash(v):
-    v = (v * 747796405 + 2891336453) & _M32
-    w = (((v >> ((v >> 28) + 4)) ^ v) * 277803737) & _M32
-    return (w >> 22) ^ w
-
-
-def _hash_u01(x):
-    """32-bit hash word -> U[0,1) float32 (top 24 bits)."""
-    return (x >> 8).to(torch.float32) * (1.0 / 16777216.0)
-
-
 def _vertex_uniforms(item, nv, su):
     """(8, N) uniforms for bounce nv of work items `item` ((N,) or
     (1, N) int64)."""
-    kidx = (torch.arange(1, 9, device=item.device) * _GOLD) & _M32
-    hb = _pcg_hash(item ^ _pcg_hash(nv ^ su)).reshape(1, -1)
-    return _hash_u01(_pcg_hash((hb + kidx[:, None]) & _M32))
+    kidx = (torch.arange(1, 9, device=item.device) * GOLD) & M32
+    hb = pcg_hash(item ^ pcg_hash(nv ^ su)).reshape(1, -1)
+    return hash_u01(pcg_hash((hb + kidx[:, None]) & M32))
 
 
 def _use_kernel(scene):
@@ -116,22 +98,21 @@ def _render_block_kernel(scene, options, seed, s0, nspp,
     of kernel K1 (path_megakernel.render_fused): lane == pixel, the same
     work items, the same random numbers, the same whole-sample NaN/Inf
     exclusion. Each iteration of the loop is the span `path.bounce`."""
-    from lajolla_tpu_torch.integrators.path_megakernel import _primary
     w, h = scene.meta.width, scene.meta.height
     n = w * h
     end = (s0 + nspp) * n
     _check_items(end)
     dev = scene.fp_tri.device
-    su = int(seed) & _M32
+    su = int(seed) & M32
     lane = torch.arange(n, device=dev)
-    cam = torch.cat([scene.sample_to_cam.reshape(-1),
-                     scene.cam_to_world.reshape(-1)])
+    cam = camera_record(scene)
 
     def camera(item):
         pixel = item % n
-        return _primary(item, (pixel % w).float(), (pixel // w).float(),
-                        su, cam, w=w, h=h, filter_type=options.filter_type,
-                        filter_param=options.filter_param)
+        return sample_primary_t(
+            item, (pixel % w).float(), (pixel // w).float(), su, cam, w=w,
+            h=h, filter_type=options.filter_type,
+            filter_param=options.filter_param)
 
     item = lane + s0 * n
     orgT, dT = camera(item)
@@ -394,10 +375,10 @@ def _primary_hash(scene, options, item, seed_u32, nq=None):
     pixel = item % n
     px = (pixel % w).to(torch.float32)
     py = (pixel // w).to(torch.float32)
-    hp = _pcg_hash(item ^ _pcg_hash(seed_u32 ^ 0xCAFEF00D))
+    hp = pcg_hash(item ^ pcg_hash(seed_u32 ^ 0xCAFEF00D))
     u_pix = torch.stack(
-        [_hash_u01(_pcg_hash((hp + _GOLD) & _M32)),
-         _hash_u01(_pcg_hash((hp + (2 * _GOLD & _M32)) & _M32))], dim=-1)
+        [hash_u01(pcg_hash((hp + GOLD) & M32)),
+         hash_u01(pcg_hash((hp + (2 * GOLD & M32)) & M32))], dim=-1)
     org, d = sample_primary(scene, options, px, py, u_pix)
     return pixel, org, d
 
@@ -417,7 +398,7 @@ def _render_block_sc(scene, options, seed, s0, nspp, lanes=None):
     w, h = scene.meta.width, scene.meta.height
     n = w * h
     lanes = lanes or n
-    su = int(seed) & _M32
+    su = int(seed) & M32
     # padded queue stride: item ≡ lane (mod lanes)
     n_q = -(-n // lanes) * lanes
     end = (s0 + nspp) * n_q

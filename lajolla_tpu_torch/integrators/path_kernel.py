@@ -22,6 +22,7 @@ and never fall back.
 
 import torch
 
+from lajolla_tpu_torch.core.math import normalize3
 from lajolla_tpu_torch.dtypes import intersection_eps, shadow_eps
 from lajolla_tpu_torch.scene.types import MAT_LAMBERTIAN, MAT_ROUGH_PLASTIC
 
@@ -138,11 +139,6 @@ def _occluded(o, d, tnear, tfar, W, qf):
     return _occluder_hits(o, d, tnear, tfar, W, qf).any(dim=0, keepdim=True)
 
 
-def _norm3(x, y, z):
-    inv = torch.rsqrt(torch.clamp(x * x + y * y + z * z, min=1e-30))
-    return x * inv, y * inv, z * inv
-
-
 def _dot3(ax, ay, az, bx, by, bz):
     return ax * bx + ay * by + az * bz
 
@@ -247,7 +243,7 @@ def _rp_eval_pdf(wi, wo, fn, ng, kd, ks, rough, eta):
     """RoughPlastic eval (f·cos) + sample pdf for direction wo.
     Returns (f 3-tuple, pdf)."""
     below = (_dot3(*ng, *wi) < 0) | (_dot3(*ng, *wo) < 0)
-    hx, hy, hz = _norm3(wi[0] + wo[0], wi[1] + wo[1], wi[2] + wo[2])
+    hx, hy, hz = normalize3(wi[0] + wo[0], wi[1] + wo[1], wi[2] + wo[2])
     n_dot_h = _dot3(*fn, hx, hy, hz)
     n_dot_in = _dot3(*fn, *wi)
     n_dot_out = _dot3(*fn, *wo)
@@ -304,7 +300,7 @@ def _rp_sample(wi, fn, kd, ks, rough, u0, u1, w):
     flip = liz < 0
     lix, liy, liz = _where3(flip, (-lix, -liy, -liz), (lix, liy, liz))
     alpha = rough * rough
-    hvx, hvy, hvz = _norm3(alpha * lix, alpha * liy, liz)
+    hvx, hvy, hvz = normalize3(alpha * lix, alpha * liy, liz)
     rr_ = torch.sqrt(torch.clamp(u0, 0.0, 1.0))
     phi = 2.0 * PI * u1
     t1 = rr_ * torch.cos(phi)
@@ -316,7 +312,7 @@ def _rp_sample(wi, fn, kd, ks, rough, u0, u1, w):
     hnx = t1 * ftx + t2 * fbx + dnz * hvx
     hny = t1 * fty + t2 * fby + dnz * hvy
     hnz = t1 * ftz + t2 * fbz + dnz * hvz
-    hlx, hly, hlz = _norm3(alpha * hnx, alpha * hny,
+    hlx, hly, hlz = normalize3(alpha * hnx, alpha * hny,
                            torch.clamp(hnz, min=0.0))
     hlx, hly, hlz = _where3(flip, (-hlx, -hly, -hlz), (hlx, hly, hlz))
     # to world
@@ -324,7 +320,7 @@ def _rp_sample(wi, fn, kd, ks, rough, u0, u1, w):
     hy = hlx * ty + hly * by + hlz * fn[1]
     hz = hlx * tz + hly * bz + hlz * fn[2]
     i_dot_h = _dot3(*wi, hx, hy, hz)
-    r = _norm3(2.0 * i_dot_h * hx - wi[0],
+    r = normalize3(2.0 * i_dot_h * hx - wi[0],
                2.0 * i_dot_h * hy - wi[1],
                2.0 * i_dot_h * hz - wi[2])
     return _where3(w < spec_prob, r, _cosine_dir(fn, u0, u1)), valid
@@ -437,14 +433,14 @@ def _advance_core(scene, o, d, thr, rad, nv, dir_pdf, prev, un, act_in, *,
     ngx = rows[4:5] * rows[8:9] - rows[5:6] * rows[7:8]   # e1 x e2
     ngy = rows[5:6] * rows[6:7] - rows[3:4] * rows[8:9]
     ngz = rows[3:4] * rows[7:8] - rows[4:5] * rows[6:7]
-    ngx, ngy, ngz = _norm3(ngx, ngy, ngz)
+    ngx, ngy, ngz = normalize3(ngx, ngy, ngz)
     wb = 1.0 - ub - vb
     snx = wb * rows[9:10] + ub * rows[12:13] + vb * rows[15:16]
     sny = wb * rows[10:11] + ub * rows[13:14] + vb * rows[16:17]
     snz = wb * rows[11:12] + ub * rows[14:15] + vb * rows[17:18]
     snx, sny, snz = _where3(rows[18:19] > 0, (snx, sny, snz),
                             (ngx, ngy, ngz))
-    snx, sny, snz = _norm3(snx, sny, snz)
+    snx, sny, snz = normalize3(snx, sny, snz)
     flip_g = _dot3(ngx, ngy, ngz, snx, sny, snz) < 0
     ngx, ngy, ngz = _where3(flip_g, (-ngx, -ngy, -ngz), (ngx, ngy, ngz))
 
@@ -452,7 +448,8 @@ def _advance_core(scene, o, d, thr, rad, nv, dir_pdf, prev, un, act_in, *,
         # sphere normal (p - c)/r; shading frame == geometric
         # (shapes/sphere.inl:235-260)
         inv_r = 1.0 / torch.clamp(srows[3:4], min=1e-20)
-        sng = _norm3((px - srows[0:1]) * inv_r, (py - srows[1:2]) * inv_r,
+        sng = normalize3((px - srows[0:1]) * inv_r,
+                         (py - srows[1:2]) * inv_r,
                      (pz - srows[2:3]) * inv_r)
         ngx, ngy, ngz = _where3(sph_win, sng, (ngx, ngy, ngz))
         snx, sny, snz = _where3(sph_win, sng, (snx, sny, snz))
@@ -526,7 +523,7 @@ def _advance_core(scene, o, d, thr, rad, nv, dir_pdf, prev, un, act_in, *,
     lnx = lt[4:5] * lt[8:9] - lt[5:6] * lt[7:8]
     lny = lt[5:6] * lt[6:7] - lt[3:4] * lt[8:9]
     lnz = lt[3:4] * lt[7:8] - lt[4:5] * lt[6:7]
-    lnx, lny, lnz = _norm3(lnx, lny, lnz)
+    lnx, lny, lnz = normalize3(lnx, lny, lnz)
 
     if S:
         # sphere lights: cone sampling toward the sphere with
@@ -545,7 +542,7 @@ def _advance_core(scene, o, d, thr, rad, nv, dir_pdf, prev, un, act_in, *,
         phiu = 2.0 * PI * un[1:2]
         n_in = (ru * torch.cos(phiu), ru * torch.sin(phiu), zu)
         # outside: cone
-        tcx, tcy, tcz = _norm3(dcx_, dcy_, dcz_)
+        tcx, tcy, tcz = normalize3(dcx_, dcy_, dcz_)
         ftx, fty, ftz, fbx, fby, fbz = _onb(tcx, tcy, tcz)
         sin_el_max_sq = lr * lr / d2c
         cos_el_max = torch.sqrt(torch.clamp(1.0 - sin_el_max_sq, min=0.0))
@@ -572,7 +569,7 @@ def _advance_core(scene, o, d, thr, rad, nv, dir_pdf, prev, un, act_in, *,
     dly = lpy - py
     dlz = lpz - pz
     dist2 = torch.clamp(dlx * dlx + dly * dly + dlz * dlz, min=1e-20)
-    dlx, dly, dlz = _norm3(dlx, dly, dlz)
+    dlx, dly, dlz = normalize3(dlx, dly, dlz)
     dist = torch.sqrt(dist2)
 
     if S:

@@ -39,6 +39,7 @@ refresh dir_pdf / multi_trans_pdf (:785-848).
 import torch
 
 from lajolla_tpu_torch.core import random as rnd
+from lajolla_tpu_torch.core.random import GOLD, M32, hash_u01, pcg_hash
 from lajolla_tpu_torch.core.math import (distance, distance_squared, dot,
                                          normalize)
 from lajolla_tpu_torch.dtypes import intersection_eps, shadow_eps
@@ -56,9 +57,7 @@ from lajolla_tpu_torch.integrators.media import (MT_DLOOK, MT_SA, MT_SOFF,
                                                  has_heterogeneous, med_row,
                                                  phase_eval, phase_pdf,
                                                  phase_sample, update_medium)
-from lajolla_tpu_torch.integrators.path import (_GOLD, _M32, _check_items,
-                                                _hash_u01, _pcg_hash,
-                                                _primary_hash,
+from lajolla_tpu_torch.integrators.path import (_check_items, _primary_hash,
                                                 _ray_diff_reflect,
                                                 _ray_diff_refract)
 from lajolla_tpu_torch.materials import eval_bsdf, pdf_bsdf, sample_bsdf
@@ -101,17 +100,17 @@ def _avg(s):
 
 def _salt(h, s):
     """pcg(h + s) of 32-bit words."""
-    return _pcg_hash((h + s) & _M32)
+    return pcg_hash((h + s) & M32)
 
 
 def _u(hs, dim):
     """dim-th U[0,1) of the sub-stream rooted at the 32-bit words hs."""
-    return _hash_u01(_salt(hs, dim * _GOLD & _M32))
+    return hash_u01(_salt(hs, dim * GOLD & M32))
 
 
 def _uit(hs, it, k):
     """k-th uniform of inner-loop iteration it."""
-    return _u(_pcg_hash(hs ^ _salt(it, _IT0)), k + 1)
+    return _u(pcg_hash(hs ^ _salt(it, _IT0)), k + 1)
 
 
 def _pick(v, ch):
@@ -352,7 +351,7 @@ def _vol_nee(scene, options, hb, p, med_id, bounces, dir_view, is_surface,
         if scene.meta.num_media > 0:
             seg_med = live & (med >= 0)
             has_med = seg_med[:, None]
-            hseg = _pcg_hash(hs ^ _salt(sb, _S_NEE_SEG))
+            hseg = pcg_hash(hs ^ _salt(sb, _S_NEE_SEG))
             trans, tdp, tnp, _sc, _at, _rounds = _free_flight(
                 scene, options, hseg, p, dir_light, med, next_t,
                 with_scatter=False, row=med_row(scene, med), active=seg_med)
@@ -420,7 +419,7 @@ def _advance_vol_lane(scene, options, st, su):
     eps_isect = intersection_eps(meta.scene_radius)
     max_depth = options.max_depth
     active = ~done
-    hb = _pcg_hash(item ^ _pcg_hash(bounces ^ su))
+    hb = pcg_hash(item ^ pcg_hash(bounces ^ su))
 
     hit = intersect_scene(scene, org, d, eps_isect, INF, radius, spread)
     t_hit = torch.where(hit.valid, hit.t, INF)
@@ -634,7 +633,7 @@ def _advance_event(scene, options, st, su):
     in_shf = alive_l & (ph == PH_SHF)
     is_sh = in_shc | in_shf
 
-    hb = _pcg_hash(item ^ _pcg_hash(bounces ^ su))
+    hb = pcg_hash(item ^ pcg_hash(bounces ^ su))
     mrow = med_row(scene, medium)
     in_medium = medium >= 0
 
@@ -681,7 +680,7 @@ def _advance_event(scene, options, st, su):
     sg_opaque = torch.where(in_shc, sg_opaque_n, sg_opaque)
     sg_dblock = torch.where(in_shc, sg_dblock_n, sg_dblock)
     sg_mednext = torch.where(in_shc, sg_mednext_n, sg_mednext)
-    hseg = _pcg_hash(nb_hs ^ _salt(sh_seg, _S_NEE_SEG))
+    hseg = pcg_hash(nb_hs ^ _salt(sh_seg, _S_NEE_SEG))
     srow = med_row(scene, sh_med)
     smaj0 = get_majorant(scene, sh_med, sh_p, sh_dir, seg_next_t, row=srow)
     sff_trivial = (sh_med < 0) | (_pick(smaj0, _channel(hseg)) <= 0) | \
@@ -1040,7 +1039,7 @@ def volpath2_trace_one(scene, options, px, py, keys, detach=False):
 def stream_root(seed):
     """The volpath stream root su = pcg(seed ^ 0x701A77E5), handed
     pre-hashed to the camera and to every vertex hash."""
-    return _pcg_hash((int(seed) & _M32) ^ _SEED_SALT)
+    return pcg_hash((int(seed) & M32) ^ _SEED_SALT)
 
 
 def _fresh_state(scene, options, item, su, machine):
@@ -1131,7 +1130,7 @@ def _simple_pixels(scene, p0, tile):
     """(pixel words, px, py) of pixels p0 .. p0 + tile, the pixel index a
     32-bit word as lajolla_tpu's uint32 index."""
     w = scene.meta.width
-    pix = (torch.arange(tile, device=scene.med_tab.device) + p0) & _M32
+    pix = (torch.arange(tile, device=scene.med_tab.device) + p0) & M32
     return pix, pix % w, pix // w
 
 

@@ -41,13 +41,15 @@ bit.
 
 import torch
 
+from lajolla_tpu_torch.core.math import normalize3
+from lajolla_tpu_torch.core.random import pcg_hash
 from lajolla_tpu_torch.integrators.media import (INV_4PI, MT_ALOOK, MT_DLOOK,
                                                  MT_G, MT_MAXVAL, MT_SOFF,
                                                  MT_SRES, TWO_PI, VL_CONST,
                                                  VL_PMAX, VL_PMIN, VL_RES)
-from lajolla_tpu_torch.integrators.path import _check_items, _pcg_hash
+from lajolla_tpu_torch.integrators.path import _check_items
 from lajolla_tpu_torch.integrators.path_kernel import (
-    _cone_pdf_area, _dot3, _eval_pdf_dispatch, _intersect, _norm3, _onb,
+    _cone_pdf_area, _dot3, _eval_pdf_dispatch, _intersect, _onb,
     _sample_dispatch, _sphere_closest, _where3, statics)
 from lajolla_tpu_torch.integrators.volpath import (MAX_BOUNCES_CAP,
                                                    MAX_SHADOW_SEGMENTS,
@@ -58,6 +60,7 @@ from lajolla_tpu_torch.integrators.volpath import (MAX_BOUNCES_CAP,
                                                    _S_SURF_NEE, _salt, _u,
                                                    _uit, stream_root)
 from lajolla_tpu_torch.integrators.volpath_kernel import _hg_row, _max3
+from lajolla_tpu_torch.scene.camera import camera_record, sample_primary_t
 from lajolla_tpu_torch.scene.types import (MAT_LAMBERTIAN, MAT_ROUGH_PLASTIC,
                                            PHASE_HG, PHASE_ISOTROPIC)
 
@@ -333,19 +336,19 @@ def _advance_grid_core(scene, st, hb, grid, svox2, *, pmin, pmax, res, gres,
     ngx = rows[4:5] * rows[8:9] - rows[5:6] * rows[7:8]
     ngy = rows[5:6] * rows[6:7] - rows[3:4] * rows[8:9]
     ngz = rows[3:4] * rows[7:8] - rows[4:5] * rows[6:7]
-    ngx, ngy, ngz = _norm3(ngx, ngy, ngz)
+    ngx, ngy, ngz = normalize3(ngx, ngy, ngz)
     wbw = 1.0 - ub - vb
     snx = wbw * rows[9:10] + ub * rows[12:13] + vb * rows[15:16]
     sny = wbw * rows[10:11] + ub * rows[13:14] + vb * rows[16:17]
     snz = wbw * rows[11:12] + ub * rows[14:15] + vb * rows[17:18]
     snx, sny, snz = _where3(rows[18:19] > 0, (snx, sny, snz),
                             (ngx, ngy, ngz))
-    snx, sny, snz = _norm3(snx, sny, snz)
+    snx, sny, snz = normalize3(snx, sny, snz)
     flip_g = _dot3(ngx, ngy, ngz, snx, sny, snz) < 0
     ngx, ngy, ngz = _where3(flip_g, (-ngx, -ngy, -ngz), (ngx, ngy, ngz))
     if S:
         inv_r = 1.0 / torch.clamp(srows[3:4], min=1e-20)
-        sng = _norm3((hx - srows[0:1]) * inv_r, (hy - srows[1:2]) * inv_r,
+        sng = normalize3((hx - srows[0:1]) * inv_r, (hy - srows[1:2]) * inv_r,
                      (hz - srows[2:3]) * inv_r)
         ngx, ngy, ngz = _where3(sph_win, sng, (ngx, ngy, ngz))
         snx, sny, snz = _where3(sph_win, sng, (snx, sny, snz))
@@ -397,7 +400,7 @@ def _advance_grid_core(scene, st, hb, grid, svox2, *, pmin, pmax, res, gres,
     sg_opaque = torch.where(in_shc, sg_opaque_n, sg_opaque)
     sg_dblock = torch.where(in_shc, sg_dblock_n, sg_dblock)
     sg_mednext = torch.where(in_shc, sg_mednext_n, sg_mednext)
-    hseg = _pcg_hash(nb_hs ^ _salt(sh_seg, _S_NEE_SEG))
+    hseg = pcg_hash(nb_hs ^ _salt(sh_seg, _S_NEE_SEG))
     sff_trivial = (sh_med < 0) | \
         ~_slab_hit(sh_p, sh_dir, seg_next_t, **box) | (maxval <= 0)
 
@@ -579,7 +582,7 @@ def _advance_grid_core(scene, st, hb, grid, svox2, *, pmin, pmax, res, gres,
     lnx = lt[4:5] * lt[8:9] - lt[5:6] * lt[7:8]
     lny = lt[5:6] * lt[6:7] - lt[3:4] * lt[8:9]
     lnz = lt[3:4] * lt[7:8] - lt[4:5] * lt[6:7]
-    lnx, lny, lnz = _norm3(lnx, lny, lnz)
+    lnx, lny, lnz = normalize3(lnx, lny, lnz)
     nox, noy, noz = new_org[0:1], new_org[1:2], new_org[2:3]
     if S:
         # sphere lights: cone sampling with the inside-uniform fallback
@@ -595,7 +598,7 @@ def _advance_grid_core(scene, st, hb, grid, svox2, *, pmin, pmax, res, gres,
         ru = torch.sqrt(torch.clamp(1.0 - zu * zu, min=0.0))
         phiu = TWO_PI * un1
         n_in = (ru * torch.cos(phiu), ru * torch.sin(phiu), zu)
-        tcx, tcy, tcz = _norm3(dcx_, dcy_, dcz_)
+        tcx, tcy, tcz = normalize3(dcx_, dcy_, dcz_)
         ftx, fty, ftz, fbx, fby, fbz = _onb(tcx, tcy, tcz)
         sin_el_max_sq = lr * lr / d2c
         cos_el_max = torch.sqrt(torch.clamp(1.0 - sin_el_max_sq, min=0.0))
@@ -622,7 +625,7 @@ def _advance_grid_core(scene, st, hb, grid, svox2, *, pmin, pmax, res, gres,
     dly = lpy - noy
     dlz = lpz - noz
     dist2 = torch.clamp(dlx * dlx + dly * dly + dlz * dlz, min=1e-20)
-    dlx, dly, dlz = _norm3(dlx, dly, dlz)
+    dlx, dly, dlz = normalize3(dlx, dly, dlz)
     if S:
         p1_sph = _cone_pdf_area((lcx, lcy, lcz), lr, (nox, noy, noz),
                                 (lpx, lpy, lpz), (lnx, lny, lnz),
@@ -737,7 +740,6 @@ def render_fused_grid_plain(scene, options, seed, s0, nspp, stats=None):
     ('lane_vertices', 'lane_casts', 'lane_track_steps': (n,) int64; a
     tracking step reads the density once) and summed ('steps',
     'vertices', 'casts', 'track_steps')."""
-    from lajolla_tpu_torch.integrators.path_megakernel import _primary
     w, h = scene.meta.width, scene.meta.height
     n = w * h
     n_q = padded_lanes(n)
@@ -754,14 +756,13 @@ def render_fused_grid_plain(scene, options, seed, s0, nspp, stats=None):
                          f"grid of a {res} medium")
     lane = torch.arange(n_q, device=dev)
     px, py = (lane % w).float(), (lane // w).float()
-    cam = torch.cat([scene.sample_to_cam.reshape(-1),
-                     scene.cam_to_world.reshape(-1)])
+    cam = camera_record(scene)
     cam_med = int(scene.meta.camera_medium_id)
 
     def camera(item):
-        return _primary(item, px, py, su, cam, w=w, h=h,
-                        filter_type=options.filter_type,
-                        filter_param=options.filter_param)
+        return sample_primary_t(item, px, py, su, cam, w=w, h=h,
+                                filter_type=options.filter_type,
+                                filter_param=options.filter_param)
 
     item = lane + s0 * n_q
     st = _fresh(*camera(item), cam_med)
@@ -771,7 +772,7 @@ def render_fused_grid_plain(scene, options, seed, s0, nspp, stats=None):
     lane_work = torch.zeros((3, n_q), dtype=torch.int64, device=dev)
     while not bool(done.all()):
         bounces, ph = st[0], st[9]
-        hb = _pcg_hash(item[None] ^ _pcg_hash(bounces ^ su))
+        hb = pcg_hash(item[None] ^ pcg_hash(bounces ^ su))
         st_in = st[:-1] + (done[None],)
         nst, died = _advance_grid_core(scene, st_in, hb, grid, svox2, **kw)
         if stats is not None:
@@ -810,7 +811,6 @@ def grid_items_plain(scene, options, seed, items):
     its camera ray to its end in its own lane of the event machine,
     non-finite values kept. Any order, any subset: a path's radiance
     depends on its item alone."""
-    from lajolla_tpu_torch.integrators.path_megakernel import _primary
     w, h = scene.meta.width, scene.meta.height
     n = w * h
     n_q = padded_lanes(n)
@@ -825,16 +825,14 @@ def grid_items_plain(scene, options, seed, items):
     kw = grid_statics(scene, options)
     svox2 = svox_table(scene)
     px, py = (lane % w).float(), (lane // w).float()
-    cam = torch.cat([scene.sample_to_cam.reshape(-1),
-                     scene.cam_to_world.reshape(-1)])
-    st = _fresh(*_primary(items, px, py, su, cam, w=w, h=h,
-                          filter_type=options.filter_type,
-                          filter_param=options.filter_param),
+    st = _fresh(*sample_primary_t(items, px, py, su, camera_record(scene),
+                                  w=w, h=h, filter_type=options.filter_type,
+                                  filter_param=options.filter_param),
                 int(scene.meta.camera_medium_id))
     done = torch.zeros(items.shape[0], dtype=torch.bool, device=dev)
     out = torch.zeros((3, items.shape[0]), device=dev)
     while not bool(done.all()):
-        hb = _pcg_hash(items[None] ^ _pcg_hash(st[0] ^ su))
+        hb = pcg_hash(items[None] ^ pcg_hash(st[0] ^ su))
         st, died = _advance_grid_core(scene, st[:-1] + (done[None],), hb,
                                       scene.fp_grid, svox2, **kw)
         died = died[0]
@@ -856,11 +854,10 @@ def render_fused_grid(scene, options, seed, s0, nspp, counters=None):
         return render_fused_grid_plain(scene, options, seed, s0, nspp)
     from lajolla_tpu_torch import kernels
     w, h = scene.meta.width, scene.meta.height
-    cam = torch.cat([scene.sample_to_cam.reshape(-1),
-                     scene.cam_to_world.reshape(-1)])
     kw = grid_statics(scene, options)
     film = kernels.render_fused_grid(
-        scene, cam, svox_table(scene), stream_root(seed), s0, nspp,
-        n_q=padded_lanes(w * h), w=w, h=h, filter_type=options.filter_type,
-        filter_param=options.filter_param, counters=counters, **kw)
+        scene, camera_record(scene), svox_table(scene), stream_root(seed), s0,
+        nspp, n_q=padded_lanes(w * h), w=w, h=h,
+        filter_type=options.filter_type, filter_param=options.filter_param,
+        counters=counters, **kw)
     return film.T.reshape(h, w, 3)

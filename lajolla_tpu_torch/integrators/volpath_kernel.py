@@ -37,19 +37,21 @@ computes the radiance of any list of items, and its sum by
 
 import torch
 
+from lajolla_tpu_torch.core.math import normalize3
+from lajolla_tpu_torch.core.random import pcg_hash
 from lajolla_tpu_torch.integrators.media import (INV_4PI, MT_G, MT_SA,
                                                  MT_SS, TWO_PI)
-from lajolla_tpu_torch.integrators.path import _check_items, _pcg_hash
+from lajolla_tpu_torch.integrators.path import _check_items
 from lajolla_tpu_torch.integrators.path_kernel import (
-    _cone_pdf_area, _dot3, _eval_pdf_dispatch, _intersect, _norm3, _occluded,
-    _onb, _sample_dispatch, _sphere_anyhit, _sphere_closest, _where3,
-    statics)
+    _cone_pdf_area, _dot3, _eval_pdf_dispatch, _intersect, _occluded, _onb,
+    _sample_dispatch, _sphere_anyhit, _sphere_closest, _where3, statics)
 from lajolla_tpu_torch.integrators.volpath import (MAX_BOUNCES_CAP,
                                                    _S_BSDF, _S_FF, _S_NEE,
                                                    _S_NEE_SEG, _S_PHASE,
                                                    _S_RR, _S_SURF_NEE,
                                                    _salt, _u, _uit,
                                                    stream_root)
+from lajolla_tpu_torch.scene.camera import camera_record, sample_primary_t
 from lajolla_tpu_torch.scene.types import (MAT_LAMBERTIAN, MAT_ROUGH_PLASTIC,
                                            PHASE_HG, PHASE_ISOTROPIC)
 
@@ -180,19 +182,19 @@ def _advance_vol_core(scene, o, d, thr, rad, bounces, dir_pdf, mtp, nee_p,
     ngx = rows[4:5] * rows[8:9] - rows[5:6] * rows[7:8]
     ngy = rows[5:6] * rows[6:7] - rows[3:4] * rows[8:9]
     ngz = rows[3:4] * rows[7:8] - rows[4:5] * rows[6:7]
-    ngx, ngy, ngz = _norm3(ngx, ngy, ngz)
+    ngx, ngy, ngz = normalize3(ngx, ngy, ngz)
     wb = 1.0 - ub - vb
     snx = wb * rows[9:10] + ub * rows[12:13] + vb * rows[15:16]
     sny = wb * rows[10:11] + ub * rows[13:14] + vb * rows[16:17]
     snz = wb * rows[11:12] + ub * rows[14:15] + vb * rows[17:18]
     snx, sny, snz = _where3(rows[18:19] > 0, (snx, sny, snz),
                             (ngx, ngy, ngz))
-    snx, sny, snz = _norm3(snx, sny, snz)
+    snx, sny, snz = normalize3(snx, sny, snz)
     flip_g = _dot3(ngx, ngy, ngz, snx, sny, snz) < 0
     ngx, ngy, ngz = _where3(flip_g, (-ngx, -ngy, -ngz), (ngx, ngy, ngz))
     if S:
         inv_r = 1.0 / torch.clamp(srows[3:4], min=1e-20)
-        sng = _norm3((px - srows[0:1]) * inv_r, (py - srows[1:2]) * inv_r,
+        sng = normalize3((px - srows[0:1]) * inv_r, (py - srows[1:2]) * inv_r,
                      (pz - srows[2:3]) * inv_r)
         ngx, ngy, ngz = _where3(sph_win, sng, (ngx, ngy, ngz))
         snx, sny, snz = _where3(sph_win, sng, (snx, sny, snz))
@@ -275,7 +277,7 @@ def _advance_vol_core(scene, o, d, thr, rad, bounces, dir_pdf, mtp, nee_p,
     lnx = lt[4:5] * lt[8:9] - lt[5:6] * lt[7:8]
     lny = lt[5:6] * lt[6:7] - lt[3:4] * lt[8:9]
     lnz = lt[3:4] * lt[7:8] - lt[4:5] * lt[6:7]
-    lnx, lny, lnz = _norm3(lnx, lny, lnz)
+    lnx, lny, lnz = normalize3(lnx, lny, lnz)
     if S:
         # sphere lights: cone sampling with the inside-uniform fallback
         is_sl = lrow[7:8] > 0
@@ -290,7 +292,7 @@ def _advance_vol_core(scene, o, d, thr, rad, bounces, dir_pdf, mtp, nee_p,
         ru = torch.sqrt(torch.clamp(1.0 - zu * zu, min=0.0))
         phiu = TWO_PI * un1
         n_in = (ru * torch.cos(phiu), ru * torch.sin(phiu), zu)
-        tcx, tcy, tcz = _norm3(dcx_, dcy_, dcz_)
+        tcx, tcy, tcz = normalize3(dcx_, dcy_, dcz_)
         ftx, fty, ftz, fbx, fby, fbz = _onb(tcx, tcy, tcz)
         sin_el_max_sq = lr * lr / d2c
         cos_el_max = torch.sqrt(torch.clamp(1.0 - sin_el_max_sq, min=0.0))
@@ -317,7 +319,7 @@ def _advance_vol_core(scene, o, d, thr, rad, bounces, dir_pdf, mtp, nee_p,
     dly = lpy - py
     dlz = lpz - pz
     dist2 = torch.clamp(dlx * dlx + dly * dly + dlz * dlz, min=1e-20)
-    dlx, dly, dlz = _norm3(dlx, dly, dlz)
+    dlx, dly, dlz = normalize3(dlx, dly, dlz)
     dist = torch.sqrt(dist2)
     if S:
         p1_sph = _cone_pdf_area((lcx, lcy, lcz), lr, (px, py, pz),
@@ -338,7 +340,7 @@ def _advance_vol_core(scene, o, d, thr, rad, bounces, dir_pdf, mtp, nee_p,
     # the segment's NEE free flight: residual rate 0, so it reaches its
     # end with trans = pd = exp(-sigma_t dist), pn = 1 — unless its own
     # sampled channel has sigma_t 0, where the loop guard keeps all at 1
-    hseg = _pcg_hash(hs_n ^ _salt(0, _S_NEE_SEG))
+    hseg = pcg_hash(hs_n ^ _salt(0, _S_NEE_SEG))
     seg_ch = torch.clamp((_u(hseg, 0) * 3.0).to(torch.int64), 0, 2)
     seg_guard = _pick_ch(seg_ch, st3) > 0.0
     Tl = torch.where(seg_guard, torch.exp(-st3 * dist), ones3)
@@ -446,7 +448,6 @@ def render_fused_vol_plain(scene, options, seed, s0, nspp):
     samples s0..s0+nspp. One lane per pixel: lane p runs items p + k·n,
     k = s0 .. s0+nspp-1, in order, and sums its own film column in sample
     order, dropping a sample with any non-finite channel."""
-    from lajolla_tpu_torch.integrators.path_megakernel import _primary
     w, h = scene.meta.width, scene.meta.height
     n = w * h
     end = (s0 + nspp) * n
@@ -455,16 +456,15 @@ def render_fused_vol_plain(scene, options, seed, s0, nspp):
     su = stream_root(seed)
     lane = torch.arange(n, device=dev)
     px, py = (lane % w).float(), (lane // w).float()
-    cam = torch.cat([scene.sample_to_cam.reshape(-1),
-                     scene.cam_to_world.reshape(-1)])
+    cam = camera_record(scene)
     sa, ss, g = medium(scene)
     sa3, ss3, g = sa[:, None], ss[:, None], g.reshape(1, 1)
     kw = kernel_statics(scene, options)
 
     def camera(item):
-        return _primary(item, px, py, su, cam, w=w, h=h,
-                        filter_type=options.filter_type,
-                        filter_param=options.filter_param)
+        return sample_primary_t(item, px, py, su, cam, w=w, h=h,
+                                filter_type=options.filter_type,
+                                filter_param=options.filter_param)
 
     item = lane + s0 * n
     org, d = camera(item)
@@ -478,7 +478,7 @@ def render_fused_vol_plain(scene, options, seed, s0, nspp):
     film = torch.zeros((3, n), device=dev)
     while not bool(done.all()):
         act = ~done
-        hb = _pcg_hash(item ^ _pcg_hash(bounces ^ su))
+        hb = pcg_hash(item ^ pcg_hash(bounces ^ su))
         org2, d2, thr2, rad2, dp2, mtp2, np2, alive = _advance_vol_core(
             scene, org, d, thr, rad, bounces[None], dir_pdf, mtp, nee_p,
             act[None], hb[None], sa3, ss3, g, **kw)
@@ -507,7 +507,6 @@ def vol_items_plain(scene, options, seed, items):
     (item = pixel + k*n), each traced from its camera ray to its end in
     its own lane, non-finite values kept. Any order, any subset: a path's
     radiance depends on its item alone."""
-    from lajolla_tpu_torch.integrators.path_megakernel import _primary
     w, h = scene.meta.width, scene.meta.height
     n = w * h
     dev = scene.fp_tri.device
@@ -517,15 +516,14 @@ def vol_items_plain(scene, options, seed, items):
     su = stream_root(seed)
     pixel = items % n
     px, py = (pixel % w).float(), (pixel // w).float()
-    cam = torch.cat([scene.sample_to_cam.reshape(-1),
-                     scene.cam_to_world.reshape(-1)])
+    cam = camera_record(scene)
     sa, ss, g = medium(scene)
     sa3, ss3, g = sa[:, None], ss[:, None], g.reshape(1, 1)
     kw = kernel_statics(scene, options)
     m = items.shape[0]
-    org, d = _primary(items, px, py, su, cam, w=w, h=h,
-                      filter_type=options.filter_type,
-                      filter_param=options.filter_param)
+    org, d = sample_primary_t(items, px, py, su, cam, w=w, h=h,
+                              filter_type=options.filter_type,
+                              filter_param=options.filter_param)
     bounces = torch.zeros(m, dtype=torch.int64, device=dev)
     thr = torch.ones((3, m), device=dev)
     rad = torch.zeros((3, m), device=dev)
@@ -536,7 +534,7 @@ def vol_items_plain(scene, options, seed, items):
     out = torch.zeros((3, m), device=dev)
     while not bool(done.all()):
         act = ~done
-        hb = _pcg_hash(items ^ _pcg_hash(bounces ^ su))
+        hb = pcg_hash(items ^ pcg_hash(bounces ^ su))
         org, d, thr, rad, dir_pdf, mtp, nee_p, alive = _advance_vol_core(
             scene, org, d, thr, rad, bounces[None], dir_pdf, mtp, nee_p,
             act[None], hb[None], sa3, ss3, g, **kw)
@@ -577,10 +575,9 @@ def render_fused_vol(scene, options, seed, s0, nspp, counters=None):
         return render_fused_vol_plain(scene, options, seed, s0, nspp)
     from lajolla_tpu_torch import kernels
     w, h = scene.meta.width, scene.meta.height
-    cam = torch.cat([scene.sample_to_cam.reshape(-1),
-                     scene.cam_to_world.reshape(-1)])
     film = kernels.render_fused_vol(
-        scene, cam, medium(scene), stream_root(seed), s0, nspp, w=w, h=h,
-        filter_type=options.filter_type, filter_param=options.filter_param,
-        counters=counters, **kernel_statics(scene, options))
+        scene, camera_record(scene), medium(scene), stream_root(seed), s0,
+        nspp, w=w, h=h, filter_type=options.filter_type,
+        filter_param=options.filter_param, counters=counters,
+        **kernel_statics(scene, options))
     return film.T.reshape(h, w, 3)

@@ -27,6 +27,8 @@ from lajolla_tpu_torch.integrators.path import MAX_BOUNCES_CAP
 from lajolla_tpu_torch.integrators.path_kernel import advance_plain_t
 from lajolla_tpu_torch.scene.types import RenderOptions
 
+from torch_threads import one_thread  # noqa: F401
+
 LANES = 1 << 15
 
 

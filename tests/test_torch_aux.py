@@ -25,7 +25,6 @@ a diagonal.
 import jax
 import numpy as np
 import pytest
-import torch
 
 import lajolla_tpu.scene.compile as JC
 import lajolla_tpu.testing as JT
@@ -36,6 +35,8 @@ from lajolla_tpu_torch import cli, render
 from lajolla_tpu_torch.bridge import scene_from_jax as to_port
 from lajolla_tpu_torch.io.image import imread3
 from lajolla_tpu_torch.scene.types import RenderOptions
+
+from torch_threads import one_thread  # noqa: F401
 
 MODES = ('depth', 'shadingNormal', 'meanCurvature', 'rayDifferential',
          'mipmapLevel')
@@ -71,14 +72,6 @@ def _scene(fixture):
         js = FIXTURES[fixture]()
         _scenes[fixture] = (js, to_port(js))
     return _scenes[fixture]
-
-
-@pytest.fixture(scope='module', autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize('mode', MODES)

@@ -32,18 +32,9 @@ from lajolla_tpu_torch.integrators import path_kernel
 from lajolla_tpu_torch.io.image import imread3
 from lajolla_tpu_torch.scene.types import RenderOptions
 
+from torch_threads import one_thread  # noqa: F401
+
 FILM = (32, 24)
-
-
-@pytest.fixture(scope='module', autouse=True)
-def one_thread():
-    """One intra-op torch thread: these tests run many small torch ops,
-    which threads do not speed up, and the suite runs its files in
-    parallel workers that would otherwise contend for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope='module')

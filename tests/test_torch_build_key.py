@@ -9,6 +9,8 @@ import pytest
 
 from lajolla_tpu_torch import kernels
 
+from torch_threads import one_thread  # noqa: F401
+
 # The libraries that read each header, directly or through another.
 READERS = {
     'path_advance.cuh': {'path_kernels', 'volpath_kernels',

@@ -28,6 +28,8 @@ import lajolla_tpu_torch.scene.compile as PC
 import lajolla_tpu_torch.testing as PT
 from lajolla_tpu_torch.bridge import scene_from_jax as to_port
 
+from torch_threads import one_thread  # noqa: F401
+
 BUILDS = {'native': PBVH.build_bvh, 'morton': PBVH.build_bvh_morton}
 TABLES = {
     'bvh': ('bvh_lo', 'bvh_hi', 'bvh_first', 'bvh_count', 'bvh_skip',

@@ -9,6 +9,8 @@ import sys
 
 import pytest
 
+from torch_threads import one_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 

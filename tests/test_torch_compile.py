@@ -17,6 +17,8 @@ import lajolla_tpu_torch.scene.parser as PP
 import lajolla_tpu_torch.testing as PT
 from lajolla_tpu_torch.scene.types import Scene
 
+from torch_threads import one_thread  # noqa: F401
+
 
 def _assert_same(js, ps):
     """Every tensor of the port's Scene equals lajolla_tpu's field."""

@@ -45,6 +45,8 @@ from lajolla_tpu_torch.bridge import scene_from_jax as to_port
 from test_torch_material_sampling import CASES, IDS
 from test_torch_materials import _unit, assert_close, both_hits, random_hits
 
+from torch_threads import one_thread  # noqa: F401
+
 N = 8192
 
 _PEAKED = ('roughplastic', 'roughdielectric', 'disneymetal', 'disneyglass',

@@ -17,7 +17,6 @@ import dataclasses
 
 import numpy as np
 import pytest
-import torch
 
 import lajolla_tpu.integrators.path as JPATH
 import lajolla_tpu.scene.compile as JC
@@ -33,15 +32,9 @@ from lajolla_tpu_torch.scene import types as T
 from lajolla_tpu_torch.scene.types import RenderOptions
 from test_torch_compile import _assert_same
 
+from torch_threads import one_thread  # noqa: F401
+
 LUMINANCE = np.array([0.212671, 0.715160, 0.072169])
-
-
-@pytest.fixture(scope='module', autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope='module')

@@ -11,7 +11,6 @@ another lobe on a few lanes; the 0.1% admits them.
 
 import jax
 import numpy as np
-import pytest
 import torch
 
 import lajolla_tpu.integrators.path as JPATH
@@ -23,15 +22,9 @@ from lajolla_tpu_torch.bridge import scene_from_jax as to_port
 from lajolla_tpu_torch.scene.types import RenderOptions
 from test_torch_general import VERTEX_TOL
 
+from torch_threads import one_thread  # noqa: F401
+
 LANES = 1 << 13
-
-
-@pytest.fixture(scope='module', autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def test_advance_lane_matches_jax():

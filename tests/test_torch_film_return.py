@@ -21,6 +21,8 @@ from lajolla_tpu_torch.integrators import volpath as PV
 from lajolla_tpu_torch.scene.types import RenderOptions
 from lajolla_tpu_torch.utils import film_return as FR
 
+from torch_threads import one_thread  # noqa: F401
+
 SPPS = [1, 3, 7, 100, 256]
 
 

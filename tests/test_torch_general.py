@@ -37,6 +37,8 @@ from lajolla_tpu_torch.bridge import scene_from_jax as to_port
 from lajolla_tpu_torch.io.image import imread3
 from lajolla_tpu_torch.scene.types import RenderOptions
 
+from torch_threads import one_thread  # noqa: F401
+
 LANES = 1 << 14
 
 
@@ -53,17 +55,6 @@ FIXTURES = {
 VERTEX_TOL = dict(org=(1e-4, 1e-5), d=(1e-4, 1e-4), spread=(1e-4, 1e-5),
                   radius=(1e-4, 1e-5), T=(1e-4, 1e-5),
                   eta_scale=(1e-4, 1e-5), dir_pdf=(1e-2, 1e-5))
-
-
-@pytest.fixture(scope='module', autouse=True)
-def one_thread():
-    """One intra-op torch thread: these tests run many small torch ops,
-    which threads do not speed up, and the suite runs its files in
-    parallel workers that would otherwise contend for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.mark.parametrize('fixture', list(FIXTURES))

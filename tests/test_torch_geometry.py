@@ -43,6 +43,8 @@ from lajolla_tpu_torch.ops.intersect import (_brute_force_batched,
 from lajolla_tpu_torch.scene import geometry as PG
 from lajolla_tpu_torch.scene import types as T
 
+from torch_threads import one_thread  # noqa: F401
+
 RAYS = 4096
 EPS = 1e-4
 

@@ -50,20 +50,11 @@ from lajolla_tpu_torch.bridge import scene_from_jax as to_port
 from lajolla_tpu_torch.io.image import imread3
 from lajolla_tpu_torch.scene.types import RenderOptions
 
+from torch_threads import one_thread  # noqa: F401
+
 GRID = (32, 32, 16)
 VOL = RenderOptions(integrator='volpath')
 JVOL = JOptions(integrator='volpath')
-
-
-@pytest.fixture(scope='module', autouse=True)
-def one_thread():
-    """One intra-op torch thread: these tests run many small torch ops,
-    which threads do not speed up, and the suite runs its files in
-    parallel workers that would otherwise contend for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def builder(variant, film=(64, 32), spp=1):

@@ -7,6 +7,8 @@ import sys
 
 import pytest
 
+from torch_threads import one_thread  # noqa: F401
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -19,7 +21,6 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     'lajolla_tpu_torch.materials',
     'lajolla_tpu_torch.tools',
     'lajolla_tpu_torch.utils.profiling',
-    'lajolla_tpu_torch.utils.time_renders',
     'lajolla_tpu_torch.core.random',
     'lajolla_tpu_torch.examples.inverse_rendering',
     'lajolla_tpu_torch.integrators.aux',

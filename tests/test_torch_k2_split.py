@@ -30,6 +30,8 @@ from lajolla_tpu_torch.integrators.path_kernel import (_advance_core,
 from lajolla_tpu_torch.scene import compile as PC
 from lajolla_tpu_torch.scene.types import RenderOptions
 
+from torch_threads import one_thread  # noqa: F401
+
 GROUPS = (1, 2, 4, 8)
 RAYS = 4096
 
@@ -181,12 +183,7 @@ def test_driver_film_unchanged_by_pass_through(fixture):
     scene = (PT.make_cornell_box(24) if fixture == 'cbox_24' else
              PT.make_sphere_light_scene(16))
     options = RenderOptions()
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    try:
-        films = [_render_block_kernel(scene, options, 0, 0, 2, advance=a)
-                 for a in (advance_plain_t, _advance_core_t)]
-    finally:
-        torch.set_num_threads(n)
+    films = [_render_block_kernel(scene, options, 0, 0, 2, advance=a)
+             for a in (advance_plain_t, _advance_core_t)]
     assert torch.equal(*films)
     assert films[0].sum() > 0

@@ -30,6 +30,8 @@ from lajolla_tpu_torch.scene.geometry import Hit
 from lajolla_tpu_torch.scene import types as T
 from lajolla_tpu_torch.testing import make_single_material_scene
 
+from torch_threads import one_thread  # noqa: F401
+
 CASES = [
     ('diffuse', None),
     ('roughplastic', None),

@@ -37,6 +37,8 @@ from lajolla_tpu_torch.scene import geometry as PG
 from lajolla_tpu_torch.scene import texeval as PTE
 from lajolla_tpu_torch.scene import types as T
 
+from torch_threads import one_thread  # noqa: F401
+
 N = 8192
 
 

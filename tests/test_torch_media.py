@@ -30,6 +30,8 @@ import lajolla_tpu_torch.testing as PT
 from lajolla_tpu_torch.bridge import scene_from_jax as to_port
 from lajolla_tpu_torch.scene import types as T
 
+from torch_threads import one_thread  # noqa: F401
+
 N = 4096
 
 

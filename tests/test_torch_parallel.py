@@ -56,19 +56,10 @@ from lajolla_tpu_torch.parallel import mesh
 from lajolla_tpu_torch.parallel.spawn import spawn
 from lajolla_tpu_torch.scene.types import RenderOptions
 
+from torch_threads import one_thread  # noqa: F401
+
 R = 2
 DIFF_SEED, DIFF_DEPTH = 3, 4
-
-
-@pytest.fixture(scope='module', autouse=True)
-def one_thread():
-    """One intra-op torch thread: these tests run many small torch ops,
-    which threads do not speed up, and the suite runs its files in
-    parallel workers that would otherwise contend for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _opts(integrator, spp, version=None, max_depth=None):

@@ -29,13 +29,7 @@ from lajolla_tpu_torch.integrators import path as PP
 from lajolla_tpu_torch.integrators import path_megakernel as PMK
 from lajolla_tpu_torch.scene.types import RenderOptions
 
-
-@pytest.fixture(scope='module', autouse=True)
-def one_thread():
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_thread  # noqa: F401
 
 
 # (width, height, variant, the route _render_block takes)

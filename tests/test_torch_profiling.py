@@ -21,9 +21,12 @@ from lajolla_tpu_torch.integrators import path as PP
 from lajolla_tpu_torch.integrators import path_kernel
 from lajolla_tpu_torch.integrators import volpath as PV
 from lajolla_tpu_torch.integrators import volpath_kernel as PVK
+from lajolla_tpu_torch.scene.camera import camera_record
 from lajolla_tpu_torch.scene.types import RenderOptions
 from lajolla_tpu_torch.utils import film_return as FR
 from lajolla_tpu_torch.utils import profiling
+
+from torch_threads import one_thread  # noqa: F401
 
 # (20, 10): under one 4096-pixel block, the per-bounce driver; (128, 64):
 # two whole blocks, K1's route (its plain form on the CPU).
@@ -325,10 +328,8 @@ def k8_stubbed(monkeypatch):
 
     def through_kernels(scene, options, seed, s0, nspp):
         w, h = scene.meta.width, scene.meta.height
-        cam = torch.cat([scene.sample_to_cam.reshape(-1),
-                         scene.cam_to_world.reshape(-1)])
         film = kernels.render_fused_vol(
-            scene, cam, PVK.medium(scene), PV.stream_root(seed), s0, nspp,
+            scene, camera_record(scene), PVK.medium(scene), PV.stream_root(seed), s0, nspp,
             w=w, h=h, filter_type=options.filter_type,
             filter_param=options.filter_param,
             **PVK.kernel_statics(scene, options))

@@ -1,6 +1,6 @@
 """Counter-hash RNG and the in-kernel camera against lajolla_tpu: the
 hash words and uniforms bit for bit, the camera rays of all three pixel
-filters to 1e-6."""
+filters to 1e-6, and the layout of the camera record the kernels read."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -11,19 +11,22 @@ import lajolla_tpu.integrators.path as JPATH
 import lajolla_tpu.integrators.path_megakernel as JMK
 import lajolla_tpu.scene.compile as JC
 import lajolla_tpu_torch.integrators.path as PPATH
-import lajolla_tpu_torch.integrators.path_megakernel as PMK
 import lajolla_tpu_torch.testing as PT
+from lajolla_tpu_torch.core.random import hash_u01, pcg_hash
+from lajolla_tpu_torch.scene.camera import camera_record, sample_primary_t
 from lajolla_tpu_torch.scene.types import (FILTER_BOX, FILTER_GAUSSIAN,
                                            FILTER_TENT)
+
+from torch_threads import one_thread  # noqa: F401
 
 
 def test_pcg_hash_and_u01_bit_exact():
     words = np.random.default_rng(7).integers(0, 1 << 32, 100_000,
                                               dtype=np.uint64)
     jh = np.asarray(JPATH._pcg_hash(jnp.asarray(words.astype(np.uint32))))
-    ph = PPATH._pcg_hash(torch.from_numpy(words.astype(np.int64)))
+    ph = pcg_hash(torch.from_numpy(words.astype(np.int64)))
     assert np.array_equal(ph.numpy(), jh.astype(np.int64))
-    pu = PPATH._hash_u01(ph).numpy()
+    pu = hash_u01(ph).numpy()
     for ju in (JPATH._hash_u01(jnp.asarray(jh)), JMK._u01(jnp.asarray(jh))):
         assert np.array_equal(pu.view(np.int32),
                               np.asarray(ju).view(np.int32))
@@ -66,9 +69,23 @@ def test_primary_rays(filter_type, filter_param):
         jnp.asarray(item.astype(np.int32))[None], jnp.asarray(px)[None],
         jnp.asarray(py)[None], jnp.uint32(seed), jnp.asarray(cam), w=w, h=h,
         filter_type=filter_type, filter_param=filter_param)
-    po, pd = PMK._primary(
+    po, pd = sample_primary_t(
         torch.from_numpy(item), torch.from_numpy(px), torch.from_numpy(py),
         seed, torch.from_numpy(cam), w=w, h=h, filter_type=filter_type,
         filter_param=filter_param)
     np.testing.assert_allclose(po.numpy(), np.asarray(jo), rtol=0, atol=1e-6)
     np.testing.assert_allclose(pd.numpy(), np.asarray(jd), rtol=0, atol=1e-6)
+
+
+def test_camera_record_layout():
+    """The (32,) record: sample_to_cam's 16 values row-major, then
+    cam_to_world's, on the scene's device."""
+    scene = PT.make_cornell_box((48, 32))
+    cam = camera_record(scene)
+    assert cam.shape == (32,) and cam.dtype == torch.float32
+    assert cam.device == scene.fp_tri.device
+    for k, m in enumerate((scene.sample_to_cam, scene.cam_to_world)):
+        assert m.shape == (4, 4)
+        for r in range(4):
+            for c in range(4):
+                assert cam[16 * k + 4 * r + c] == m[r, c]

@@ -26,6 +26,8 @@ from lajolla_tpu_torch.io.image import imread3
 from lajolla_tpu_torch.scene import types as T
 from lajolla_tpu_torch.scene.types import RenderOptions
 
+from torch_threads import one_thread  # noqa: F401
+
 
 def jax_fused(js, spp, monkeypatch, block=None):
     monkeypatch.setattr(JMK, 'INTERPRET', True)

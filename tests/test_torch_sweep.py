@@ -29,6 +29,8 @@ import lajolla_tpu_torch.ops.intersect_sweep as PSW
 from lajolla_tpu_torch import kernels
 from lajolla_tpu_torch import testing as PT
 
+from torch_threads import one_thread  # noqa: F401
+
 ROUTES = {  # route: (LIST_LEN, RESIDENT_BYTES, triangles per cluster)
     'resident': (PSW.LIST_LEN, PSW.RESIDENT_BYTES, 128),
     'overflow': (4, PSW.RESIDENT_BYTES, 128),
@@ -36,17 +38,6 @@ ROUTES = {  # route: (LIST_LEN, RESIDENT_BYTES, triangles per cluster)
     'streaming': (PSW.LIST_LEN, PSW.RESIDENT_BYTES, 64),
 }
 N = 512
-
-
-@pytest.fixture(scope='module', autouse=True)
-def one_thread():
-    """One intra-op torch thread: these tests run many small torch ops,
-    which threads do not speed up, and the suite runs its files in
-    parallel workers that would otherwise contend for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope='module')

@@ -38,21 +38,14 @@ import lajolla_tpu.ops.intersect_sweep as JSW
 import lajolla_tpu_torch.ops.intersect_sweep as PSW
 from lajolla_tpu_torch import testing as PT
 
+from torch_threads import one_thread  # noqa: F401
+
 ROUTES = {  # route: (LIST_LEN, RESIDENT_BYTES, triangles per cluster)
     'resident': (PSW.LIST_LEN, PSW.RESIDENT_BYTES, 128),
     'overflow': (4, PSW.RESIDENT_BYTES, 128),
     'list': (PSW.LIST_LEN, 0, 128),
     'streaming': (PSW.LIST_LEN, PSW.RESIDENT_BYTES, 64),
 }
-
-
-@pytest.fixture(scope='module', autouse=True)
-def one_thread():
-    """One intra-op torch thread, as the other sweep tests."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope='module')

@@ -20,6 +20,8 @@ import lajolla_tpu.integrators.volpath as JV
 import lajolla_tpu_torch.integrators.volpath as PV
 from lajolla_tpu_torch.core import random as R
 
+from torch_threads import one_thread  # noqa: F401
+
 SEEDS = [0, 1, 5, 123456789, 2**31 - 1, 2**31, 2**31 + 12345, 2**32 - 1]
 
 

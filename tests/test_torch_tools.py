@@ -14,6 +14,8 @@ from lajolla_tpu_torch import tools
 from lajolla_tpu_torch.io.image import imwrite
 from lajolla_tpu_torch.utils.profiling import device_trace
 
+from torch_threads import one_thread  # noqa: F401
+
 
 def _images(seed=0, shape=(24, 32, 3)):
     rng = np.random.default_rng(seed)

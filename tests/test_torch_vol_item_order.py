@@ -34,22 +34,13 @@ from lajolla_tpu_torch import kernels
 from lajolla_tpu_torch.scene.compile import compile_scene
 from lajolla_tpu_torch.scene.types import RenderOptions
 
+from torch_threads import one_thread  # noqa: F401
+
 VOL = RenderOptions(integrator='volpath')
 GRID = (32, 32, 16)
 # a finite value no radiance reaches: a buffer row that keeps it and is
 # read would show in the film
 UNWRITTEN = 1e30
-
-
-@pytest.fixture(scope='module', autouse=True)
-def one_thread():
-    """One intra-op torch thread: these tests run many small torch ops,
-    which threads do not speed up, and the suite runs its files in
-    parallel workers that would otherwise contend for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def shuffled_radiance(items_fn, items, seed):

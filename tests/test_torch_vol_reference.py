@@ -23,6 +23,8 @@ from benchmark.kinds import volpath_homogeneous as kind
 from lajolla_tpu_torch.integrators import volpath as PV
 from lajolla_tpu_torch.integrators import volpath_kernel as PVK
 
+from torch_threads import one_thread  # noqa: F401
+
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 RES, SPP = 64, 2
 ROOM = 2.0        # the room's width: [-1, 1]^3

@@ -49,6 +49,8 @@ from lajolla_tpu_torch.scene.geometry import intersect_scene
 from lajolla_tpu_torch.scene.parser import MediumB, VolumeB
 from lajolla_tpu_torch.scene.types import RenderOptions
 
+from torch_threads import one_thread  # noqa: F401
+
 LANES = 1 << 13
 VOL = RenderOptions(integrator='volpath')
 JVOL = JOptions(integrator='volpath')
@@ -62,17 +64,6 @@ def close_share(got, want, rtol, atol):
     """Share of lanes (leading axis) whose every component agrees."""
     ok = np.isclose(got, want, rtol=rtol, atol=atol)
     return ok.reshape(ok.shape[0], -1).all(axis=1).mean()
-
-
-@pytest.fixture(scope='module', autouse=True)
-def one_thread():
-    """One intra-op torch thread: these tests run many small torch ops,
-    which threads do not speed up, and the suite runs its files in
-    parallel workers that would otherwise contend for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope='module')

@@ -39,16 +39,7 @@ from lajolla_tpu_torch.examples import inverse_rendering as EX
 from lajolla_tpu_torch.integrators import diffpath as PD
 from lajolla_tpu_torch.scene.types import RenderOptions
 
-
-@pytest.fixture(scope='module', autouse=True)
-def one_thread():
-    """One intra-op torch thread: these tests run many small torch ops,
-    which threads do not speed up, and the suite runs its files in
-    parallel workers that would otherwise contend for the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
+from torch_threads import one_thread  # noqa: F401
 
 
 def vol_box(res):

@@ -315,7 +315,7 @@ def device_time(e):
 def driver_split(torch, fn):
     """One fn() (a render through the per-bounce driver) traced with CPU
     and CUDA activity, the driver's uniform hashing (path._vertex_uniforms)
-    and camera rays (path_megakernel._primary) each in a range of its own.
+    and camera rays (camera.sample_primary_t) each in a range of its own.
     Returns wall seconds, device-busy seconds, idle share, K2's launches
     and device milliseconds of each, and the device milliseconds by part:
     'K2', 'uniforms', 'camera', then each other aten op outside those
@@ -324,7 +324,6 @@ def driver_split(torch, fn):
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from lajolla_tpu_torch.integrators import path as PP
-    from lajolla_tpu_torch.integrators import path_megakernel as PMK
 
     def ranged(name, f):
         def g(*a, **k):
@@ -334,8 +333,8 @@ def driver_split(torch, fn):
     torch.cuda.synchronize()
     with mock.patch.object(PP, '_vertex_uniforms',
                            ranged('uniforms', PP._vertex_uniforms)), \
-            mock.patch.object(PMK, '_primary',
-                              ranged('camera', PMK._primary)), \
+            mock.patch.object(PP, 'sample_primary_t',
+                              ranged('camera', PP.sample_primary_t)), \
             profile(activities=[ProfilerActivity.CPU,
                                 ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()

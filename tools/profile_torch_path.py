@@ -299,13 +299,12 @@ def flat_render(torch, kernels, lib, scene, options, nspp, counters=None):
     """The --flat design's film (h, w, 3) of samples 0..nspp."""
     from lajolla_tpu_torch.integrators.path import MAX_BOUNCES_CAP
     from lajolla_tpu_torch.integrators.path_kernel import statics
+    from lajolla_tpu_torch.scene.camera import camera_record
     w, h = scene.meta.width, scene.meta.height
     n = w * h
     device, tb, mats, quads, sph = kernels._scene_args(
         scene, **statics(scene, options, MAX_BOUNCES_CAP))
-    cam = torch.cat([scene.sample_to_cam.reshape(-1),
-                     scene.cam_to_world.reshape(-1)])
-    camera = kernels._camera(cam, w, h, options.filter_type,
+    camera = kernels._camera(camera_record(scene), w, h, options.filter_type,
                              options.filter_param)
     film = torch.empty((3, n), dtype=torch.float32, device=device)
     cnt, cnt_ptr = kernels._counters(counters, kernels.PATH_COUNTERS, device)
