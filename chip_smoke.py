@@ -33,7 +33,11 @@ exits non-zero and prints no final line:
     512x512 x 256 spp: timed, with its SIMT counters (the share of warp
     lanes that advance a vertex in the loop's iterations, beside the
     plain form's lockstep proxies), the bound of the vertices they count,
-    and two launches bit-equal; then K1 against the per-bounce driver
+    and two launches bit-equal; K1 on the mesh Cornell box with a
+    displaced sphere of TALL_TRIANGLES triangles (the largest copy of the
+    scans' rows in a block's shared memory that the mesh variant gives
+    K1) at 128x128 x 4 spp against its plain form (median < 1e-4, means
+    within 1%); then K1 against the per-bounce driver
     with K2 on the ragged film RAGGED_FILM (1920x1080: 506 whole
     4096-pixel blocks and a partial one of 1,024 pixels, which render()
     sends to K1) at 1 and 4 spp: median per-pixel relative difference
@@ -283,6 +287,10 @@ SWEEP_REPLACES = dict(
 # under ops/intersect_sweep.RESIDENT_BYTES (K5 + K4) or exceeds it (K6).
 BIGMESH_TRIANGLES = 56000
 HUGEMESH_TRIANGLES = 260000
+# [4]'s tall table: the mesh Cornell box with a displaced sphere of 168
+# triangles (179 cast prims, a copy of 23,376 B in each block of K1), the
+# most triangles of the mesh variant below BVH_MIN_TRIS.
+TALL_TRIANGLES = 168
 # The aux integrators ([16])
 AUX_MODES = ('depth', 'shadingNormal', 'meanCurvature', 'rayDifferential',
              'mipmapLevel')
@@ -2119,6 +2127,21 @@ def main():
     if not (same and split == main_spp // chunk_spp):
         raise AssertionError("K1's chunked launches differ from its one "
                              "launch")
+    # the tallest table the mesh variant gives K1 against the plain form
+    spp = 4
+    tall = PT.make_cornell_box(128, variant='mesh',
+                               triangles=TALL_TRIANGLES).to(dev)
+    film_p = _render_block_kernel(tall, options, 0, 0, spp,
+                                  advance=PK.advance_plain_t)
+    img_p = film_p.cpu().numpy() / spp
+    img_k = PMK.render_fused(tall, options, 0, 0, spp).cpu().numpy() / spp
+    med, mean_rel, err = film_agreement(img_k, img_p)
+    print(f"[4] K1 vs plain, mesh Cornell box at {tall.fp_woop.shape[0]} "
+          f"cast prims 128x128 x {spp} spp: median rel {med:.3g}, mean rel "
+          f"{mean_rel:.3g}, max |diff| {err:.3g}")
+    if not (med < 1e-4 and mean_rel < 0.01):
+        raise AssertionError("K1 disagrees with its plain form on a tall "
+                             "table")
     ragged_phase(torch, np, dev, smi)
 
     # ---- 5. analytic white box through K1

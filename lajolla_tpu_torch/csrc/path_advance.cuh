@@ -13,12 +13,16 @@
 // What bounds it on Hopper: per-thread ALU work (the cast loops are
 // 2 x 18 FLOPs per cast prim per vertex), warp divergence between lanes
 // on different materials and path lengths, and register pressure from
-// inlining this function into the kernels. The scene tables are read
-// through the read-only cache straight from device memory: for any scene
-// path_kernel.supports admits (fewer than 192 triangles) they stay under
-// ~100 KB, so they live in L1/L2. Staging them in shared memory, and a
-// wavefront redesign that regroups lanes by material, are later work
-// (ROADMAP; PAPERS.md "Megakernel vs Wavefront GPU Path Tracing").
+// inlining this function into the kernels. The loops whose index is the
+// same in every lane (the two cast scans, the light pick's and the
+// staircase's CDF scans) read their rows either from tb's arrays through
+// the read-only cache, 13 scalar loads a prim (K2, K9), or from a copy
+// that each persistent block of K1 and K8 stages once in shared memory,
+// four 16-byte broadcast loads a prim (STAGED; "Staged rows" below). The
+// per-lane records (the hit's 34 floats, the light's) stay indexed loads
+// from device memory. A wavefront redesign that regroups lanes by
+// material is later work (ROADMAP; PAPERS.md "Megakernel vs Wavefront GPU
+// Path Tracing").
 //
 // Numerics follow the plain form operation for operation in fp32: IEEE
 // division and sqrtf (the library is built without --use_fast_math),
@@ -28,6 +32,7 @@
 // compare per-pixel medians for that reason.
 #pragma once
 
+#include <cstddef>
 #include <cstdint>
 
 namespace lj {
@@ -123,6 +128,108 @@ __device__ __forceinline__ Woop woop_rows(const float* __restrict__ W, V3 o,
   return r;
 }
 
+// ---------------------------------------------------------- staged rows
+// K1 and K8 copy the rows that a vertex scans in a warp-uniform loop into
+// the block's dynamic shared memory once, at the start of every launch
+// (stage_rows); their scans then take STAGED = true and read a row as
+// broadcast float4 loads. The copy, in float4s:
+//   cast prim c       4c .. 4c + 3: Woop rows 0-2, then (quad, 0, 0, 0)
+//   occluder c        the same from 4 tc on (woop_occ, cast_occ_quad)
+//   staircase CDF     float4s(t) from 4 (tc + t_occ) on
+//   light row 0       float4s(l) after it (the light pick's CDF)
+// The CDFs are padded with +inf, which no `cdf < key` counts. The values
+// are tb's, bit for bit, so a staged scan computes what a global one does.
+// K1 and K8 take scenes of fewer than 192 triangles (no BVH), so the copy
+// stays under ~26 KB: below the 48 KiB a block may take without an
+// opt-in, with 8 blocks an SM (their launch bound) beside it.
+
+// The float4s that hold n floats.
+__host__ __device__ constexpr int float4s(int n) { return (n + 3) / 4; }
+
+// Bytes of a block's copy: the launch's dynamic shared memory.
+__host__ __device__ inline size_t stage_bytes(const Tables& tb) {
+  return 16 * size_t(4 * tb.tc + 4 * tb.t_occ + float4s(tb.t) +
+                     float4s(tb.l));
+}
+
+__device__ __forceinline__ float4* staged() {
+  extern __shared__ float4 lj_staged[];
+  return lj_staged;
+}
+
+// Every thread of the block calls it once, before any scan.
+__device__ __forceinline__ void stage_rows(const Tables& tb) {
+  float4* s = staged();
+  auto rows = [&](float4* dst, const float* woop, const float* quad, int n) {
+    for (int i = threadIdx.x; i < 4 * n; i += blockDim.x) {
+      const int c = i >> 2, k = i & 3;
+      if (k < 3) {
+        const float* w = woop + 12 * c + 4 * k;
+        dst[i] = make_float4(__ldg(w), __ldg(w + 1), __ldg(w + 2),
+                             __ldg(w + 3));
+      } else {
+        dst[i] = make_float4(__ldg(quad + c), 0.0f, 0.0f, 0.0f);
+      }
+    }
+  };
+  auto cdf = [&](float4* dst, const float* src, int n) {
+    float* d = reinterpret_cast<float*>(dst);
+    for (int i = threadIdx.x; i < 4 * float4s(n); i += blockDim.x)
+      d[i] = i < n ? __ldg(src + i) : inf_f();
+  };
+  rows(s, tb.woop, tb.cast_quad, tb.tc);
+  rows(s + 4 * tb.tc, tb.woop_occ, tb.cast_occ_quad, tb.t_occ);
+  cdf(s + 4 * (tb.tc + tb.t_occ), tb.stair, tb.t);
+  cdf(s + 4 * (tb.tc + tb.t_occ) + float4s(tb.t), tb.light, tb.l);
+  __syncthreads();
+}
+
+// The Woop rows of row c of a cast table: `table` (tb.woop or
+// tb.woop_occ) in device memory, or the block's copy from float4 `at` on.
+template <bool STAGED>
+__device__ __forceinline__ Woop row_woop(const float* table, int at, int c,
+                                         V3 o, V3 d) {
+  if constexpr (STAGED) {
+    const float4* r = staged() + at + 4 * c;
+    const float4 a = r[0], b = r[1], e = r[2];
+    const float W[12] = {a.x, a.y, a.z, a.w, b.x, b.y,
+                         b.z, b.w, e.x, e.y, e.z, e.w};
+    return woop_rows(W, o, d);
+  } else {
+    return woop_rows(table + 12 * c, o, d);
+  }
+}
+
+// The quad flag of row c: `flags` (tb.cast_quad or tb.cast_occ_quad), or
+// the block's copy from float4 `at` on.
+template <bool STAGED>
+__device__ __forceinline__ float row_quad(const float* flags, int at,
+                                          int c) {
+  if constexpr (STAGED)
+    return staged()[at + 4 * c + 3].x;
+  else
+    return __ldg(flags + c);
+}
+
+// #(cdf[k] < key) over the n entries of a CDF: `cdf` in device memory, or
+// the block's copy from float4 `at` on, four entries a load.
+template <bool STAGED>
+__device__ __forceinline__ int cdf_count(const float* cdf, int at, int n,
+                                         float key) {
+  int count = 0;
+  if constexpr (STAGED) {
+    const float4* r = staged() + at;
+    for (int k = 0; k < float4s(n); ++k) {
+      const float4 v = r[k];
+      count += (v.x < key ? 1 : 0) + (v.y < key ? 1 : 0) +
+               (v.z < key ? 1 : 0) + (v.w < key ? 1 : 0);
+    }
+  } else {
+    for (int k = 0; k < n; ++k) count += __ldg(cdf + k) < key ? 1 : 0;
+  }
+  return count;
+}
+
 // The threads that scan one lane's casts together: G aligned lanes of a
 // warp, `mask` their lanes, `rank` this thread's place among them; thread
 // `rank` tests the prims rank, rank + G, ... of a scan. K1, K8 and K9 scan
@@ -138,8 +245,9 @@ struct CastGroup {
 // each scan their share, then reduce by shuffle on (t, index): least t
 // first, lowest index among equal t, the serial scan's rule (strict <;
 // a NaN t never enters); u, v and the quad flag go with the winner, and
-// every thread of the group ends with the same hit.
-template <bool QUADS, bool FAR, int G = 1>
+// every thread of the group ends with the same hit. STAGED: the rows from
+// the block's copy.
+template <bool QUADS, bool FAR, int G = 1, bool STAGED = false>
 __device__ __forceinline__ void intersect_range(const Tables& tb, V3 o, V3 d,
                                                 float tnear, float tfar,
                                                 float& t_best, int& idx,
@@ -150,14 +258,14 @@ __device__ __forceinline__ void intersect_range(const Tables& tb, V3 o, V3 d,
   idx = 0;
   ub = vb = qb = 0.0f;
   for (int c = grp.rank; c < tb.tc; c += G) {
-    Woop r = woop_rows(tb.woop + 12 * c, o, d);
+    Woop r = row_woop<STAGED>(tb.woop, 0, c, o, d);
     float t = -r.oz / r.dz;
     float u = r.ox + t * r.dx;
     float v = r.oy + t * r.dy;
     float lim = 1.0f - u - v;
     float q = 0.0f;
     if (QUADS) {
-      q = __ldg(tb.cast_quad + c);
+      q = row_quad<STAGED>(tb.cast_quad, 0, c);
       if (q > 0.0f) lim = 1.0f - mx(u, v);
     }
     float m = mn(mn(u, v), lim);
@@ -200,7 +308,7 @@ __device__ __forceinline__ void intersect(const Tables& tb, V3 o, V3 d,
 // Any-hit over the occluder subset, division-free (see _occluded). A
 // group tests G occluders a round and stops on the group's vote: the
 // answer is a boolean, so the order does not matter.
-template <bool QUADS, int G = 1>
+template <bool QUADS, int G = 1, bool STAGED = false>
 __device__ __forceinline__ bool occluded(const Tables& tb, V3 o, V3 d,
                                          float tfar,
                                          CastGroup<G> grp = {}) {
@@ -209,12 +317,12 @@ __device__ __forceinline__ bool occluded(const Tables& tb, V3 o, V3 d,
     const int c = c0 + grp.rank;
     bool hit = false;
     if (G == 1 || c < tb.t_occ) {
-      Woop r = woop_rows(tb.woop_occ + 12 * c, o, d);
+      Woop r = row_woop<STAGED>(tb.woop_occ, 4 * tb.tc, c, o, d);
       float w = -r.oz;
       float U = r.ox * r.dz + w * r.dx;
       float V = r.oy * r.dz + w * r.dy;
       float limv = (U + V - r.dz) * r.dz;
-      if (QUADS && __ldg(tb.cast_occ_quad + c) > 0.0f)
+      if (QUADS && row_quad<STAGED>(tb.cast_occ_quad, 4 * tb.tc, c) > 0.0f)
         limv = mx((U - r.dz) * r.dz, (V - r.dz) * r.dz);
       hit = U * r.dz >= 0.0f && V * r.dz >= 0.0f && limv <= 0.0f &&
             (w - tnear * r.dz) * r.dz > 0.0f &&
@@ -428,15 +536,15 @@ struct HitScan {
 
 // The scan of the closest hit in (tnear, tfar), or beyond tnear where FAR
 // is false.
-template <bool QUADS, bool SPH, bool FAR, int G = 1>
+template <bool QUADS, bool SPH, bool FAR, int G = 1, bool STAGED = false>
 __device__ __forceinline__ void closest_scan(const Tables& tb, V3 o, V3 d,
                                              float tnear, float tfar,
                                              HitScan& h,
                                              CastGroup<G> grp = {}) {
   float t_tri, qb;
   int idx;
-  intersect_range<QUADS, FAR, G>(tb, o, d, tnear, tfar, t_tri, idx, h.ub,
-                                 h.vb, qb, grp);
+  intersect_range<QUADS, FAR, G, STAGED>(tb, o, d, tnear, tfar, t_tri, idx,
+                                         h.ub, h.vb, qb, grp);
   h.found = t_tri < inf_f();
   h.t = t_tri;
   h.sph = -1;
@@ -484,22 +592,22 @@ __device__ __forceinline__ void surf_of(const Tables& tb, const HitScan& h,
 }
 
 // The closest hit in (tnear, tfar), or beyond tnear where FAR is false.
-template <bool QUADS, bool SPH, bool FAR, int G = 1>
+template <bool QUADS, bool SPH, bool FAR, int G = 1, bool STAGED = false>
 __device__ __forceinline__ void closest_hit_range(const Tables& tb, V3 o,
                                                   V3 d, float tnear,
                                                   float tfar, Surf& s,
                                                   CastGroup<G> grp = {}) {
   HitScan h;
-  closest_scan<QUADS, SPH, FAR, G>(tb, o, d, tnear, tfar, h, grp);
+  closest_scan<QUADS, SPH, FAR, G, STAGED>(tb, o, d, tnear, tfar, h, grp);
   surf_of(tb, h, s);
 }
 
-template <bool QUADS, bool SPH, int G = 1>
+template <bool QUADS, bool SPH, int G = 1, bool STAGED = false>
 __device__ __forceinline__ void closest_hit(const Tables& tb, V3 o, V3 d,
                                             Surf& s,
                                             CastGroup<G> grp = {}) {
-  closest_hit_range<QUADS, SPH, false, G>(tb, o, d, tb.eps_isect, 0.0f, s,
-                                          grp);
+  closest_hit_range<QUADS, SPH, false, G, STAGED>(tb, o, d, tb.eps_isect,
+                                                  0.0f, s, grp);
 }
 
 // Shading data of the hit at point p: normals (the geometric one turned
@@ -569,21 +677,20 @@ struct LightSample {
   float dist2, dist;   // |point - p|^2 (clamped at 1e-20) and its sqrt
 };
 
-template <bool SPH>
+template <bool SPH, bool STAGED = false>
 __device__ __forceinline__ void sample_light(const Tables& tb, V3 p, float u0,
                                              float u1, float u2, float u3,
                                              LightSample& ls) {
   const int T = tb.t, L = tb.l;
-  int lsel = 0;
-  for (int k = 0; k < L; ++k) lsel += __ldg(tb.light + k) < u2 ? 1 : 0;
+  const int stair_at = 4 * (tb.tc + tb.t_occ);
+  int lsel = cdf_count<STAGED>(tb.light, stair_at + float4s(T), L, u2);
   lsel = min(lsel, L - 1);
   auto lr_ = [&](int k) { return __ldg(tb.light + k * L + lsel); };
   ls.l_pmf = lr_(1);
   ls.l_int = v3(lr_(2), lr_(3), lr_(4));
   ls.p1_area = lr_(5);
   float key = lr_(6) + u3;
-  int tsel = 0;
-  for (int k = 0; k < T; ++k) tsel += __ldg(tb.stair + k) < key ? 1 : 0;
+  int tsel = cdf_count<STAGED>(tb.stair, stair_at, T, key);
   tsel = min(tsel, T - 1);
   float lt[9];
 #pragma unroll
@@ -644,11 +751,11 @@ __device__ __forceinline__ void sample_light(const Tables& tb, V3 p, float u0,
 
 // Shadow any-hit over the occluder subset and the spheres, in (eps_shadow,
 // tfar).
-template <bool QUADS, bool SPH, int G = 1>
+template <bool QUADS, bool SPH, int G = 1, bool STAGED = false>
 __device__ __forceinline__ bool occluded_any(const Tables& tb, V3 p, V3 dl,
                                              float tfar,
                                              CastGroup<G> grp = {}) {
-  if (occluded<QUADS, G>(tb, p, dl, tfar, grp)) return true;
+  if (occluded<QUADS, G, STAGED>(tb, p, dl, tfar, grp)) return true;
   if (SPH)
     for (int k = 0; k < tb.s; ++k)
       if (sphere_t(tb.sph + 24 * k, p, dl, tb.eps_shadow, tfar) < inf_f())
@@ -668,8 +775,9 @@ struct Lane {
 // direction, st.thr/st.rad/st.dir_pdf the updated throughput, radiance
 // and solid-angle pdf; st.prev is left for the caller. `un` holds the
 // vertex's 8 uniforms. Returns alive. A group (grp) splits the two cast
-// scans; every thread of it computes the rest on the same values.
-template <int MATS, bool QUADS, bool SPH, int G = 1>
+// scans; every thread of it computes the rest on the same values. STAGED:
+// the scans read the block's copy of their rows.
+template <int MATS, bool QUADS, bool SPH, int G = 1, bool STAGED = false>
 __device__ __forceinline__ bool advance_vertex(const Tables& tb, Lane& st,
                                                float nv, const float* un,
                                                CastGroup<G> grp = {}) {
@@ -677,7 +785,7 @@ __device__ __forceinline__ bool advance_vertex(const Tables& tb, Lane& st,
 
   // ---- closest hit: triangles + spheres
   Surf s;
-  closest_hit<QUADS, SPH, G>(tb, o, d, s, grp);
+  closest_hit<QUADS, SPH, G, STAGED>(tb, o, d, s, grp);
   bool valid = s.t < inf_f();
   float t_eff = valid ? s.t : 0.0f;
   V3 p = v3(o.x + t_eff * d.x, o.y + t_eff * d.y, o.z + t_eff * d.z);
@@ -707,10 +815,10 @@ __device__ __forceinline__ bool advance_vertex(const Tables& tb, Lane& st,
 
   // ---- NEE
   LightSample ls;
-  sample_light<SPH>(tb, p, un[0], un[1], un[2], un[3], ls);
+  sample_light<SPH, STAGED>(tb, p, un[0], un[1], un[2], un[3], ls);
   const V3 dl = ls.dl;
-  bool occ = occluded_any<QUADS, SPH, G>(tb, p, dl,
-                                         tb.shadow_far_scale * ls.dist, grp);
+  bool occ = occluded_any<QUADS, SPH, G, STAGED>(
+      tb, p, dl, tb.shadow_far_scale * ls.dist, grp);
   float ln_dl = -dot3(dl, ls.ln);
   float Gn = occ ? 0.0f : mx(ln_dl, 0.0f) / ls.dist2;
   float p1 = ls.l_pmf * ls.p1_area;

@@ -53,12 +53,18 @@
 //
 // What bounds it now: per-thread ALU work (the cast scans over the cast
 // and occluder tables, two BSDF evaluations a vertex), the latency of the
-// table reads, which many warps an SM hide (kFusedMinBlocks), and
-// divergence inside a vertex (material branches, the any-hit scan's early
-// exit). The scene tables (< ~100 KB below 192 triangles) stay in L1/L2
-// through the read-only cache. Optional SIMT counters (SimtCounts, null on
-// the render path) count the loop iterations of a warp that hold a path
-// and the lanes that advanced a vertex in them.
+// per-lane record reads and of the lane state the launch bound spills,
+// which many warps an SM hide (kFusedMinBlocks), and divergence inside a
+// vertex (material branches, the any-hit scan's early exit). The rows the
+// scans walk in a loop whose index every lane shares (cast prims,
+// occluders, the light pick's and the staircase's CDFs) each block copies
+// once into its shared memory (lj::stage_rows: 1,872 B for the Cornell
+// box, under ~26 KB for any scene K1 takes) and reads as broadcast 16-byte
+// loads, four a prim in place of 13 scalar loads through L1. Against those
+// loads on the H100: the main path's launch 37.73 -> 34.23 ms (0.907x),
+// the mesh box's 179 cast prims 0.80x (PERF.md). Optional SIMT counters
+// (SimtCounts, null on the render path) count the loop iterations of a
+// warp that hold a path and the lanes that advanced a vertex in them.
 //
 // Every entry returns cudaGetLastError() after its launch; the kernels
 // launch on the caller's stream and do not synchronise.
@@ -80,7 +86,7 @@ using lj::primary;
 constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 // K1's second launch bound: at least 8 blocks an SM, at most 64 registers
-// a thread, ~150 B of the lane's state spilled to local memory (L1); 32
+// a thread, ~158 B of the lane's state spilled to local memory (L1); 32
 // warps an SM beat 16 at the compiler's own 128 registers by 1.24x and 20
 // at 80 by 1.05x (tools/profile_torch_path.py --variants, PERF.md).
 constexpr int kFusedMinBlocks = 8;
@@ -100,7 +106,9 @@ __device__ __forceinline__ void vertex_uniforms(uint32_t su, long long item,
 // = pixel + k*n), taken in id order from `counter` (one zeroed uint64);
 // each lane runs one flat loop, one path vertex an iteration, and writes
 // an item's radiance to out[item - s0*n] when its path ends. out: (nspp *
-// n, 3); stats: kFusedStats counters to add to, or null.
+// n, 3); stats: kFusedStats counters to add to, or null. The block first
+// copies the scans' rows into its dynamic shared memory (lj::stage_rows),
+// and the scans read them there.
 template <int MATS, bool QUADS, bool SPH>
 __global__ void __launch_bounds__(kThreads, kFusedMinBlocks)
 render_fused_kernel(lj::Tables tb, Camera cam, int n, int w, uint32_t su,
@@ -110,6 +118,7 @@ render_fused_kernel(lj::Tables tb, Camera cam, int n, int w, uint32_t su,
                     unsigned long long* __restrict__ stats) {
   using namespace lj;
   __shared__ SimtCounts<kWarps, kFusedStats> cnt;
+  stage_rows(tb);
   cnt.zero(stats);
   long long c = 0;          // the lane's item, as its row of out
   bool busy = false;        // the lane holds a path
@@ -142,7 +151,8 @@ render_fused_kernel(lj::Tables tb, Camera cam, int n, int w, uint32_t su,
     if (busy) {
       float un[8];
       vertex_uniforms(su, s0 * n + c, nv, un);
-      if (advance_vertex<MATS, QUADS, SPH>(tb, st, (float)nv, un)) {
+      if (advance_vertex<MATS, QUADS, SPH, 1, true>(tb, st, (float)nv,
+                                                   un)) {
         st.prev = st.o;
         ++nv;
       } else {
@@ -287,13 +297,15 @@ int lj_render_fused(const lj::Tables* tb, const lj::Camera* cam, int mats,
                     float* out, unsigned long long* stats, void* stream) {
   if (n <= 0 || nspp <= 0) return (int)cudaErrorInvalidValue;
   const long long total = (long long)nspp * n;
+  const size_t smem = lj::stage_bytes(*tb);
   cudaError_t e = dispatch(mats, quads, sph, [&](auto M, auto Q, auto S) {
     auto kernel = render_fused_kernel<decltype(M)::value, decltype(Q)::value,
                                       decltype(S)::value>;
     int blocks = 0;
-    cudaError_t err = lj::persistent_blocks(kernel, kThreads, total, blocks);
+    cudaError_t err =
+        lj::persistent_blocks(kernel, kThreads, smem, total, blocks);
     if (err != cudaSuccess) return err;
-    kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+    kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
         *tb, *cam, n, w, su, s0, total, counter, out, stats);
     return cudaGetLastError();
   });

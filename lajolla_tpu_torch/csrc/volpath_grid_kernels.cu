@@ -753,7 +753,8 @@ int lj_render_fused_grid(const lj::Tables* tb, const lj::Camera* cam,
                                            decltype(S)::value,
                                            decltype(H)::value>;
     int blocks = 0;
-    cudaError_t err = lj::persistent_blocks(kernel, kThreads, total, blocks);
+    cudaError_t err = lj::persistent_blocks(kernel, kThreads, 0, total,
+                                            blocks);
     if (err != cudaSuccess) return err;
     kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
         *tb, *cam, *gm, *salt, svox, grid, n, w, n_q, su, s0, total,

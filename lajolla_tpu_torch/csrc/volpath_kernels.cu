@@ -28,11 +28,15 @@
 //
 // What bounds it: per-thread ALU work (two cast scans over the cast and
 // occluder tables per vertex, the BSDF evaluated twice), the latency of
-// the table reads, which many warps an SM hide (kMinBlocks), and
-// divergence inside a vertex (scatter / surface branches, the any-hit
-// scan's early exit). The per-item buffer is one 12-byte store an item, read once by
-// film_sum_kernel. The scene tables (< ~100 KB below 192 triangles) stay
-// in L1/L2 through the read-only cache.
+// the per-lane record reads and of the spilled lane state, which many
+// warps an SM hide (kMinBlocks), and divergence inside a vertex (scatter
+// / surface branches, the any-hit scan's early exit). As in K1, each block
+// copies the rows of the warp-uniform scans into its shared memory once
+// (lj::stage_rows: 2,192 B for 'vol') and reads four broadcast 16-byte
+// loads a prim in place of 13 scalar loads. Against those loads on the
+// H100: 'vol''s last 64-spp launch 30.76 -> 27.80 ms (0.904x), the mesh
+// box in its medium at 179 cast prims 0.81x (PERF.md). The per-item
+// buffer is one 12-byte store an item, read once by film_sum_kernel.
 //
 // Every random number is the counter hash of the plain form: the
 // per-bounce root hb = pcg(item ^ pcg(bounces ^ su)) with su =
@@ -72,7 +76,7 @@ using lj::V3;
 using lj::VolSalts;
 
 constexpr int kThreads = 128;
-// At least 8 blocks an SM: at most 64 registers a thread, ~190 B of the
+// At least 8 blocks an SM: at most 64 registers a thread, ~206 B of the
 // lane's state spilled to local memory (L1-resident); 32 warps an SM beat
 // 20 with no spills (96 registers) by 1.07-1.10x
 // (tools/tune_torch_vol_schedule.py, PERF.md).
@@ -103,7 +107,8 @@ struct VolLane {
 
 // One bounce of the final integrator (volpath_kernel._advance_vol_core).
 // hb is the (item, bounce) stream root. Returns alive; st holds the next
-// origin, direction, throughput, radiance, pdfs and NEE origin.
+// origin, direction, throughput, radiance, pdfs and NEE origin. The
+// scans read the block's copy of their rows (lj::stage_rows).
 template <int MATS, bool QUADS, bool SPH, bool HG>
 __device__ __forceinline__ bool advance_vol(const lj::Tables& tb,
                                             const Medium& med,
@@ -119,7 +124,7 @@ __device__ __forceinline__ bool advance_vol(const lj::Tables& tb,
 
   // ---- closest hit
   Surf s;
-  closest_hit<QUADS, SPH>(tb, o, d, s);
+  closest_hit<QUADS, SPH, 1, true>(tb, o, d, s);
   const bool valid = s.t < inf_f();
 
   // ---- closed-form free flight: one tracking step
@@ -197,10 +202,11 @@ __device__ __forceinline__ bool advance_vol(const lj::Tables& tb,
     const uint32_t hb_eff = do_surface ? pcg_hash(hb + salt.surf_nee) : hb;
     const uint32_t hs_n = pcg_hash(hb_eff + salt.nee);
     LightSample ls;
-    sample_light<SPH>(tb, p, u_dim(hs_n, 0), u_dim(hs_n, 1), u_dim(hs_n, 2),
-                      u_dim(hs_n, 3), ls);
+    sample_light<SPH, true>(tb, p, u_dim(hs_n, 0), u_dim(hs_n, 1),
+                            u_dim(hs_n, 2), u_dim(hs_n, 3), ls);
     const V3 dl = ls.dl;
-    const bool occ = occluded_any<QUADS, SPH>(tb, p, dl, tb.shadow_far_scale * ls.dist);
+    const bool occ = occluded_any<QUADS, SPH, 1, true>(
+        tb, p, dl, tb.shadow_far_scale * ls.dist);
     // the segment's NEE free flight reaches its end with trans = pd =
     // exp(-sigma_t dist), pn = 1, unless its sampled channel has sigma_t 0
     const uint32_t hseg = pcg_hash(hs_n ^ pcg_hash(salt.nee_seg));
@@ -307,7 +313,8 @@ __device__ __forceinline__ bool advance_vol(const lj::Tables& tb,
 }
 
 // K8: persistent warps over the items s0*n .. s0*n + total - 1; out is
-// the (total, 3) radiance of each item, in item order.
+// the (total, 3) radiance of each item, in item order. The block first
+// copies the scans' rows into its dynamic shared memory.
 template <int MATS, bool QUADS, bool SPH, bool HG>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 render_fused_vol_kernel(lj::Tables tb, Camera cam, Medium med, VolSalts salt,
@@ -318,6 +325,7 @@ render_fused_vol_kernel(lj::Tables tb, Camera cam, Medium med, VolSalts salt,
                         unsigned long long* __restrict__ stats) {
   using namespace lj;
   __shared__ SimtCounts<kWarps, kStats> cnt;
+  stage_rows(tb);
   cnt.zero(stats);
   long long c = 0;          // the lane's item, as its row of out
   bool busy = false;        // the lane holds a path
@@ -434,6 +442,7 @@ int lj_render_fused_vol(const lj::Tables* tb, const lj::Camera* cam,
                         unsigned long long* stats, void* stream) {
   if (n <= 0 || nspp <= 0) return (int)cudaErrorInvalidValue;
   const long long total = (long long)nspp * n;
+  const size_t smem = lj::stage_bytes(*tb);
   cudaError_t e = dispatch(mats, quads, sph, hg, [&](auto M, auto Q, auto S,
                                                      auto H) {
     auto kernel = render_fused_vol_kernel<decltype(M)::value,
@@ -441,9 +450,10 @@ int lj_render_fused_vol(const lj::Tables* tb, const lj::Camera* cam,
                                           decltype(S)::value,
                                           decltype(H)::value>;
     int blocks = 0;
-    cudaError_t err = lj::persistent_blocks(kernel, kThreads, total, blocks);
+    cudaError_t err =
+        lj::persistent_blocks(kernel, kThreads, smem, total, blocks);
     if (err != cudaSuccess) return err;
-    kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(
+    kernel<<<blocks, kThreads, smem, (cudaStream_t)stream>>>(
         *tb, *cam, *med, *salt, n, w, su, s0, total, counter, out, stats);
     return cudaGetLastError();
   });

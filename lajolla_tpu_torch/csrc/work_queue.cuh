@@ -19,18 +19,19 @@ namespace lj {
 
 constexpr unsigned kFullMask = 0xffffffffu;
 
-// The blocks of a persistent launch: as many as fit on the card at once
-// (occupancy x SM count), and no more than `items` threads need.
+// The blocks of a persistent launch of `smem` bytes of dynamic shared
+// memory a block: as many as fit on the card at once (occupancy x SM
+// count), and no more than `items` threads need.
 template <class Kernel>
-cudaError_t persistent_blocks(Kernel kernel, int threads, long long items,
-                              int& blocks) {
+cudaError_t persistent_blocks(Kernel kernel, int threads, size_t smem,
+                              long long items, int& blocks) {
   int dev = 0, sms = 0, per_sm = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess)
     e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e == cudaSuccess)
     e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      threads, 0);
+                                                      threads, smem);
   if (e != cudaSuccess) return e;
   if (per_sm < 1 || items < 1) return cudaErrorInvalidConfiguration;
   const long long need = (items + threads - 1) / threads;

@@ -24,7 +24,9 @@ that their wrappers zero before every launch, write a per-item buffer,
 and return its film through `film_sum` (film_sum_kernel), whose wrapper
 runs the plain form for CPU tensors itself. K1 splits its samples into
 launches whose buffer stays within PATH_BUFFER_BYTES, each summed onto
-the film of the samples before it.
+the film of the samples before it. K1 and K8 copy the rows that their cast
+and light scans walk into each block's shared memory at the start of a
+launch (csrc/path_advance.cuh stage_rows).
 """
 
 import ctypes
